@@ -1,0 +1,391 @@
+"""Command-line driver with the reference's option surface (main.cpp:182-289),
+running the single-end path on PyTorch.
+
+Supports both ``-x val`` and ``-x=val`` forms.  Output format is chosen by
+the -o suffix: .sam = SAM, anything else = BSP (main.cpp:293-296).  The
+alignment engine is ``--engine device`` (the default: PyTorch, on the
+device named by ``--device``, CUDA kernels on a GPU) or ``--engine host``
+(the exact sequential oracle).  A device request never turns into the host
+engine.  Pair-end, RRBS, BAM output, ``-n 1`` and multi-process runs are
+not ported yet and exit with an error.
+
+    python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam --device cuda
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+from .index import (build_index, index_cache_key, load_index, save_index)
+from .output.sam import SamFormatter, sam_header
+from .params import MAXSNPS, Param, MAXHITS
+from .readio import BATCH_NUM, open_read_stream
+from .reference import load_genome
+from .utils import RandR, StepTimer
+
+USAGE = """Usage: bsmap_tpu_torch [options]
+       -a  <str>   query a file, FASTA/FASTQ format
+       -d  <str>   reference sequences file, FASTA format
+       -o  <str>   output alignment file, BSP/SAM format
+       -s  <int>   seed size, default=16. min=8, max=16
+       -v  <int>   max mismatches per read (<=15), default=2
+       -w  <int>   max equal best hits to count (<=1000)
+       -B  <int>   start from the Nth read
+       -E  <int>   end at the Nth read
+       -I  <int>   index interval, default=4
+       -p  <int>   processors (1 only)
+       -S  <int>   random seed for multi-hit selection (0 = clock)
+       -M  <str>   alignment transition, default TC
+       -q  <int>   quality trim threshold, default 0
+       -z  <int>   base quality zero, default 33
+       -f  <int>   filter reads with >n Ns, default 5
+       -A  <str>   3' adapter sequence
+       -L  <int>   map first N nucleotides
+       -r  [0,1]   repeat-hit reporting: 0 none, 1 random one
+       -R          print reference sequence (XR tag)
+       -u          report unmapped reads
+       --engine {device,host}  alignment engine (default device)
+       --device {cuda,cpu}     torch device of the device engine (default
+                               cuda; cpu runs the kernels' plain twins)
+       --index-cache <dir>     persist/reuse the seed index
+       -h          help
+   Not ported yet (see ROADMAP.md): -b (pair-end), -D (RRBS), -n 1,
+   .bam output, -p > 1, --nprocs.
+"""
+
+
+def _unported(what: str):
+    sys.exit(f"{what} is unported in bsmap_tpu_torch, see ROADMAP.md")
+
+
+class Options:
+    def __init__(self) -> None:
+        self.param = Param()
+        self.query_a = ""
+        self.ref_file = ""
+        self.out_file = ""
+        self.engine = "device"
+        self.device = "cuda"
+        self.index_cache = os.environ.get("BSMAP_TPU_INDEX_CACHE", "")
+
+
+def parse_args(argv: list[str]) -> Options:
+    o = Options()
+    p = o.param
+    i = 0
+
+    def val():
+        nonlocal i
+        a = argv[i]
+        if len(a) > 2 and a[2] == "=":
+            return a[3:]
+        i += 1
+        return argv[i]
+
+    def long_val(name: str):
+        nonlocal i
+        a = argv[i]
+        if a.startswith(name + "="):
+            return a.split("=", 1)[1]
+        i += 1
+        return argv[i]
+
+    while i < len(argv):
+        a = argv[i]
+        if a == "--engine" or a.startswith("--engine="):
+            o.engine = long_val("--engine")
+            if o.engine not in ("device", "host"):
+                _unported(f"--engine {o.engine}")
+        elif a == "--device" or a.startswith("--device="):
+            o.device = long_val("--device")
+            if o.device not in ("cuda", "cpu"):
+                sys.exit(f"unknown device: {o.device} (cuda or cpu)")
+        elif a == "--index-cache" or a.startswith("--index-cache="):
+            o.index_cache = long_val("--index-cache")
+        elif a.startswith(("--nprocs", "--proc-id", "--coordinator")):
+            _unported("multi-process alignment")
+        elif a.startswith("-") and len(a) >= 2:
+            c = a[1]
+            if c == "a":
+                o.query_a = val()
+            elif c == "b":
+                _unported("pair-end alignment (-b)")
+            elif c == "d":
+                o.ref_file = val()
+            elif c == "o":
+                o.out_file = val()
+            elif c == "2":
+                _unported("pair-end unpaired output (-2)")
+            elif c == "s":
+                p.set_seed_size(int(val()))
+            elif c == "m":
+                p.min_insert = int(val())
+            elif c == "x":
+                p.max_insert = int(val())
+            elif c == "r":
+                p.report_repeat_hits = int(val())
+            elif c == "I":
+                p.index_interval = int(val())
+                if p.index_interval > 16:
+                    sys.exit("index interval exceeds max value:16")
+            elif c == "v":
+                p.max_snp_num = int(val())
+                if p.max_snp_num > MAXSNPS:
+                    sys.exit(f"number of mismatches exceeds max value:{MAXSNPS}")
+            elif c == "w":
+                p.max_num_hits = int(val())
+                if p.max_num_hits > MAXHITS:
+                    sys.exit(f"number of multi-hits exceeds max value:{MAXHITS}")
+            elif c == "q":
+                p.qual_threshold = int(val())
+            elif c == "f":
+                p.max_ns = int(val())
+            elif c == "z":
+                p.zero_qual = int(val())
+            elif c == "p":
+                p.num_procs = int(val())
+                if p.num_procs > 1:
+                    _unported("-p > 1 (multi-process alignment)")
+            elif c == "A":
+                p.adapters.append(val())
+            elif c == "R":
+                p.out_ref = 1
+            elif c == "u":
+                p.out_unmap = 1
+            elif c == "B":
+                p.read_start = max(int(val()), 1)
+            elif c == "E":
+                p.read_end = int(val())
+            elif c == "D":
+                _unported("RRBS (-D)")
+            elif c == "M":
+                v = val()
+                p.set_align(v[0], v[1])
+            elif c == "L":
+                p.max_readlen = int(val())
+            elif c == "S":
+                p.randseed = int(val())
+            elif c == "n":
+                if int(val()) != 0:
+                    _unported("-n 1 (all four strands)")
+            elif c == "h":
+                print(USAGE)
+                sys.exit(0)
+            else:
+                sys.exit(f"unknown option: {a}")
+        else:
+            sys.exit(f"unknown option: {a}")
+        i += 1
+    p.init_mapping()
+    return o
+
+
+def get_index(o: Options, genome, log=print):
+    p = o.param
+    if o.index_cache:
+        os.makedirs(o.index_cache, exist_ok=True)
+        key = index_cache_key(o.ref_file, p)
+        path = os.path.join(o.index_cache, f"idx_{key}.npz")
+        if os.path.exists(path):
+            log(f"loading cached index {path}")
+            try:
+                return load_index(path, mmap=True)
+            except ValueError:       # old compressed-format cache
+                return load_index(path)
+        idx = build_index(genome, p)
+        save_index(path, idx)
+        return idx
+    return build_index(genome, p)
+
+
+def make_engine(o: Options, genome, index):
+    """``--engine host`` is the exact host engine; anything else is the
+    PyTorch engine on ``o.device`` (which raises when that device is
+    missing)."""
+    if o.engine == "host":
+        from .engine.host_engine import HostEngine
+        return HostEngine(genome, index, o.param)
+    from .engine.device_engine import DeviceEngine
+    return DeviceEngine(genome, index, o.param, device=o.device)
+
+
+def run(argv: list[str], stats: dict | None = None) -> int:
+    """Run the CLI on ``argv``; returns the exit code.  A ``stats`` dict
+    receives the alignment phase's ``reads``, ``align_s`` and ``engine``."""
+    if not argv:
+        print(USAGE)
+        return 1
+    o = parse_args(argv)
+    p = o.param
+    timer = StepTimer()
+    if o.out_file.endswith(".sam"):
+        p.out_sam = 1
+    elif o.out_file.endswith(".bam"):
+        _unported("BAM output")
+    if not o.ref_file:
+        sys.exit("fatal error: failed to open ref file")
+    if o.index_cache:
+        from .reference import load_genome_cached
+        genome = load_genome_cached(o.ref_file, p, o.index_cache)
+    else:
+        genome = load_genome(o.ref_file, p)
+    p.total_ref_seq = genome.n_chr
+    print(f"Load in {genome.n_chr} db seqs, total size {genome.sum_length} bp."
+          f" {timer.total():.1f} secs passed")
+    index = get_index(o, genome)
+    print(f"Create seed table. {timer.total():.1f} secs passed")
+    run_single_end(o, genome, index, stats=stats)
+    print(f"Total time consumed:  {timer.total():.1f} secs")
+    return 0
+
+
+def _randr_seed() -> int:
+    """rand_r seed for -S 0: getpid()*time() like the reference
+    (explicitly non-reproducible, README.txt:91-92); BSMAP_TPU_RANDR_SEED
+    pins it for parity tests."""
+    env = os.environ.get("BSMAP_TPU_RANDR_SEED")
+    if env is not None:
+        return int(env)
+    return os.getpid() * int(time.time()) & 0xFFFFFFFF
+
+
+def run_single_end(o: Options, genome, index,
+                   stats: dict | None = None) -> int:
+    """Align every read of ``o.query_a`` into ``o.out_file``; returns the
+    read count and, into ``stats``, the alignment phase's wall time (engine
+    set-up excluded) and the engine."""
+    p = o.param
+    engine = make_engine(o, genome, index)
+    fmt = SamFormatter(genome, p, RandR(_randr_seed()))
+    timer = StepTimer()
+    t0 = time.perf_counter()
+    from .readio import detect_format
+    if (getattr(engine, "supports_blocks", lambda: False)()
+            and detect_format(o.query_a) < 2):
+        total = run_single_end_blocks(o, engine, fmt, genome, timer)
+    else:
+        total = run_single_end_reads(o, engine, fmt, genome, timer)
+    dt = time.perf_counter() - t0
+    if stats is not None:
+        stats.update(reads=total, align_s=dt, engine=engine)
+    denom = max(total, 1)
+    print(f"Total number of aligned reads: {fmt.n_aligned} "
+          f"({100.0 * fmt.n_aligned / denom:.2g}%)")
+    return total
+
+
+def run_single_end_reads(o: Options, engine, fmt, genome, timer,
+                         header: bool = True) -> int:
+    """Per-read path: exact for every configuration (BAM input included)."""
+    p = o.param
+    stream = open_read_stream(o.query_a, p, readset=0)
+    with open(o.out_file, "w") as fout:
+        if p.out_sam and header:
+            fout.write(sam_header(genome))
+        total = 0
+        while True:
+            batch = stream.next_batch(BATCH_NUM)
+            if not batch:
+                break
+            fout.write(engine.format_batch(batch, fmt)
+                       if hasattr(engine, "format_batch")
+                       else "".join(fmt.string_align(r, engine.align(r))
+                                    for r in batch))
+            total += len(batch)
+            print(f"{total} reads finished. {timer.total():.1f} secs passed")
+    stream.close()
+    return total
+
+
+def run_single_end_blocks(o: Options, engine, fmt, genome, timer,
+                          header: bool = True) -> int:
+    """Native block pipeline: chunked parse -> device align -> native SAM
+    format, with parse-ahead and write-behind threads (the native calls
+    release the GIL)."""
+    import queue
+    import threading
+
+    from . import native
+    from .blockio import BlockReadStream
+
+    p = o.param
+    lib = native.get_lib()
+    stream = BlockReadStream(o.query_a, p, readset=0, lib=lib)
+    # dispatch windows per block: windows within a block queue on the
+    # device while the producer thread parses the next block and the writer
+    # thread formats the previous one
+    blk_win = int(os.environ.get("BSMAP_TPU_BLOCK_WINDOWS", 8))
+    blk_n = blk_win * getattr(engine, "B", BATCH_NUM)
+    q_in: "queue.Queue" = queue.Queue(maxsize=2)
+    q_out: "queue.Queue" = queue.Queue(maxsize=4)
+    errors: list[BaseException] = []
+
+    def producer():
+        # geometric ramp (1, 2, 4, ... windows): the device starts on the
+        # first window after ~1/blk_win of the full-block parse time
+        try:
+            size = getattr(engine, "B", BATCH_NUM)
+            while True:
+                blk = stream.next_block(min(size, blk_n))
+                size *= 2
+                if blk is not None and hasattr(engine, "encode_block"):
+                    engine.encode_block(blk)
+                q_in.put(blk)
+                if blk is None:
+                    break
+        except BaseException as e:   # surfaced by the align loop
+            errors.append(e)
+            q_in.put(None)
+
+    def writer():
+        try:
+            with open(o.out_file, "wb") as fout:
+                if p.out_sam and header:
+                    fout.write(sam_header(genome).encode("latin1"))
+                while True:
+                    item = q_out.get()
+                    if item is None:
+                        break
+                    blk, aligned = item
+                    fout.write(engine.format_aligned_block(blk, aligned, fmt))
+        except BaseException as e:   # surfaced after the join
+            errors.append(e)
+            while q_out.get() is not None:   # keep the align loop moving
+                pass
+
+    t_prod = threading.Thread(target=producer, daemon=True)
+    t_wr = threading.Thread(target=writer, daemon=True)
+    t_prod.start()
+    t_wr.start()
+    total = 0
+    try:
+        while True:
+            blk = q_in.get()
+            if blk is None:
+                break
+            q_out.put((blk, engine.align_block(blk)))
+            total += len(blk)
+            print(f"{total} reads finished. {timer.total():.1f} secs passed")
+    finally:
+        q_out.put(None)
+        t_wr.join()
+        while t_prod.is_alive():     # unblock a producer parked on q_in
+            try:
+                q_in.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        t_prod.join()
+        stream.close()
+    if errors:
+        raise errors[0]
+    return total
+
+
+def main() -> None:
+    sys.exit(run(sys.argv[1:]))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,1024 @@
+"""PyTorch alignment engine: the port of ``bsmap_tpu.engine.device_engine``.
+
+The genome and seed index live on one torch device as int32 tensors
+(uint32 tables hold the same bits).  Reads are encoded by the native host
+runtime into (n, 2*nw + 4) int32 dispatch rows, aligned in windows of at
+most ``DEV_BATCH`` reads by ``kernels.align_program`` (hand-written CUDA
+kernels on a GPU, their plain-torch twins on the CPU), and formatted by the
+native SAM/BSP formatter.  The orchestration is the JAX engine's:
+
+  * round 1 runs the fixed-schedule program with lean rows at the small
+    candidate capacity when every read of the block is eligible
+    (``_fx_eligible``), else the exact-schedule program;
+  * reads whose candidates overflowed, that did not resolve at the start
+    rank, or whose result depends on the schedule re-dispatch once at full
+    rank on the exact program, exactly bin-packed by the per-rank candidate
+    totals the kernels return;
+  * repeat-heavy genomes switch to a stage-1-only totals probe followed by
+    packed verify dispatches (probe mode);
+  * reads flagged by the kernels (level overflow, dedup exhaustion, -r 0
+    ties, -S 0 multi-hits) and stale-schedule reads replay on the exact
+    host engine with a reconstructed MateState, so the output is
+    byte-identical to ``bsmap_tpu`` and to the reference.
+
+Dispatch windows carry only live rows (the JAX program pads to B rows);
+the candidate capacities stay multiples of B so the result rows match the
+JAX rows bit for bit.  Dispatches are enqueued in order on the device's
+current stream and collected in order.
+"""
+
+from __future__ import annotations
+
+import os as _os
+import time as _time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..index import SeedIndex
+from ..params import (FIXELEMENT, FIXSIZE, MAXSNPS, Param, REG_ALPHABET,
+                      REV_CHAR, SEGLEN)
+from ..readio import Read
+from ..reference import PackedGenome
+from ..trim import filter_read
+from ..utils import myrand_hash
+from . import kernels
+from .host_engine import HostEngine, SEResult
+
+# reads per dispatch window / candidate capacity per read of the window's B
+# (the same environment variables as bsmap_tpu, so one test configuration
+# drives both packages)
+DEV_BATCH = int(_os.environ.get("BSMAP_TPU_DEV_BATCH", 65536))
+CANDS_PER_READ = int(_os.environ.get("BSMAP_TPU_CANDS_PER_READ", 2))
+CANDS_BIG_PER_READ = int(_os.environ.get("BSMAP_TPU_CANDS_BIG_PER_READ", 16))
+
+UNPORTED = "unported in bsmap_tpu_torch, see ROADMAP.md"
+
+
+class EngineUnsupported(RuntimeError):
+    """The configuration needs a part of the device program that is not
+    ported yet; there is no fallback to another engine."""
+
+
+def make_cfg(param, W: int, n_chr: int, chains_mode: str, maxseg: int,
+             lean: bool = False, nw: int = FIXELEMENT) -> "Cfg":
+    """Kernel Cfg from a Param + genome shape facts alone."""
+    S, I = param.seed_size, param.index_interval
+    P = min(16 * nw - S + 1, maxseg * S + 2 * I)
+    return Cfg(S=S, I=I, maxseg=maxseg, chains_mode=chains_mode, P=P,
+               max_num_hits=param.max_num_hits,
+               report_repeat_hits=param.report_repeat_hits,
+               W=W, n_chr=n_chr, lean=lean, nw=nw)
+
+
+class Cfg(NamedTuple):
+    """Static configuration of one device program: the fields of
+    ``bsmap_tpu``'s Cfg that the single-end forward-chain program reads."""
+
+    S: int
+    I: int
+    maxseg: int            # seed segments per read: min(MAXSNPS, -v) + 1
+    chains_mode: str       # 'f' fwd-only ('r'/'b' are not ported yet)
+    P: int                 # seed positions in the schedule table
+    max_num_hits: int
+    report_repeat_hits: int
+    W: int                 # words per catcat half
+    n_chr: int
+    lean: bool = False     # 3-int32 packed rows (SAM fast path) vs full rows
+    probe: bool = False    # totals-only pre-pass: stage 1 alone, returns
+                           # the (B, maxseg) per-rank candidate totals
+    fixed: bool = False    # fixed-schedule stage 1 (pigeonhole covering at
+                           # offset 0, cheapest segment first)
+    nw: int = FIXELEMENT   # packed words per read: 7 for reads <= 112 nt
+
+
+N_EXTRAS = 17
+(X_FOUND, X_II, X_SSUM, X_CHAIN, X_CHRP, X_WLOC, X_H00F, X_H00C, X_H00W,
+ X_REPLAY, X_TOTAL, X_SOFF, X_COFF, X_OK, X_BIG, X_RESOLVED,
+ X_FTOT) = range(N_EXTRAS)
+
+# lean row bit layout (word 1; word 0 = watson loc), shared with the native
+# formatter (bsmap_native.cpp)
+BIT_FOUND, BIT_CHAIN, BIT_REPLAY, BIT_OK, BIT_BIG, BIT_MULTI = (
+    1, 2, 4, 8, 16, 32)
+LEAN_II_SHIFT, LEAN_CHRP_SHIFT = 6, 10
+BIT_RESOLVED = 1 << 26
+
+# packed input row: int32 columns
+# [qwords (2-bit packed read) | rwords (valid-mask lanes) |
+#  len | budget | rand32 | maxrank]
+ROW_I32 = 2 * FIXELEMENT + 4
+SC_LEN, SC_BUD, SC_RAND, SC_RANK = (2 * FIXELEMENT, 2 * FIXELEMENT + 1,
+                                    2 * FIXELEMENT + 2, 2 * FIXELEMENT + 3)
+
+
+def pack_words_np(codes_or_regs: np.ndarray) -> np.ndarray:
+    """(B, FIXSIZE) uint8 -> (B, FIXELEMENT) uint32 words, first base in the
+    top bits of each word (dbseq.cpp:71-75 layout)."""
+    B = codes_or_regs.shape[0]
+    lanes = codes_or_regs.reshape(B, FIXELEMENT, SEGLEN).astype(np.uint32)
+    shifts = (np.arange(SEGLEN - 1, -1, -1, dtype=np.uint32) * 2)
+    return (lanes << shifts[None, None, :]).sum(axis=-1, dtype=np.uint32)
+
+
+def _pack_inputs(codes, regs, lens, buds, rand32, maxrank):
+    """(B, ROW_I32) int32 dispatch rows from per-base codes/regs."""
+    B = len(lens)
+    buf = np.empty((B, ROW_I32), dtype=np.int32)
+    buf[:, :FIXELEMENT] = pack_words_np(codes).view(np.int32)
+    buf[:, FIXELEMENT: 2 * FIXELEMENT] = pack_words_np(regs).view(np.int32)
+    buf[:, SC_LEN] = lens
+    buf[:, SC_BUD] = buds
+    buf[:, SC_RAND] = rand32.astype(np.uint32).view(np.int32)
+    buf[:, SC_RANK] = maxrank
+    return buf
+
+
+def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
+                      param: Param) -> dict[str, torch.Tensor]:
+    """The device tables of ``bsmap_tpu``'s DeviceEngine (the non-RRBS
+    branch of device_engine.py:1229-1331) as CPU int32 tensors; uint32
+    arrays keep their bits.
+
+      catcat   (2W,)      refcat ++ crefcat, 2-bit packed, 16 bases/word
+      anchors  (n_chr,)   global per-strand base offset of each chromosome
+      sizes    (n_chr,)   chromosome lengths
+      rcoff    (n_chr,)   Crick coordinate offsets (n_words * 16)
+      kmer_tab (3^S, 4)   per-bucket [watson_off, total, watson_count,
+                          crick_off]
+      wlocs    (nw,)      Watson entries, bucket order
+      clocs    (nc,)      Crick entries, bucket order
+      prof_a   (16, I)    seed profile start positions
+    """
+    if param.RRBS_flag:
+        raise EngineUnsupported(f"RRBS tables are {UNPORTED}")
+    if param.profile is None:
+        param.init_mapping()
+
+    def t(a, dtype=np.int32):
+        arr = np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))
+        if not arr.flags.writeable:          # memory-mapped caches
+            arr = arr.copy()
+        return torch.from_numpy(arr.view(np.int32))
+
+    one = np.zeros(1, dtype=np.uint32)
+    tk = index.total_kmers
+    counts = np.diff(index.offsets)
+    wc = index.wcounts.astype(np.int64)
+    cc = counts - wc
+    kmer_tab = np.zeros((tk, 4), dtype=np.int32)
+    kmer_tab[:, 1] = counts
+    kmer_tab[:, 2] = wc
+    np.cumsum(wc[:-1], out=kmer_tab[1:, 0])
+    np.cumsum(cc[:-1], out=kmer_tab[1:, 3])
+    # split locs by strand, preserving in-bucket order (interval mask via a
+    # +1/-1 diff array)
+    total = len(index.locs)
+    diff = np.zeros(total + 1, dtype=np.int8)
+    nz = wc > 0
+    np.add.at(diff, index.offsets[:-1][nz], 1)
+    np.add.at(diff, (index.offsets[:-1] + wc)[nz], -1)
+    is_w = np.cumsum(diff[:total], dtype=np.int8) > 0
+    wl = index.locs[is_w]
+    cl = index.locs[~is_w]
+    I = param.index_interval
+    prof_a = [[param.profile[n][i].a for i in range(I)]
+              for n in range(MAXSNPS + 1)]
+    return {
+        "catcat": t(np.concatenate([genome.refcat, genome.crefcat]),
+                    np.uint32),
+        "anchors": t(genome.anchors[:genome.n_chr], np.uint32),
+        "sizes": t(genome.sizes),
+        "rcoff": t(genome.rc_offsets),
+        "kmer_tab": torch.from_numpy(kmer_tab),
+        "wlocs": t(wl if len(wl) else one, np.uint32),
+        "clocs": t(cl if len(cl) else one, np.uint32),
+        "prof_a": t(prof_a),
+    }
+
+
+class DeviceEngine:
+    def __init__(self, genome: PackedGenome, index: SeedIndex, param: Param,
+                 device: torch.device | str = "cuda"):
+        # -S 0 (the reference default): selection draws a sequential glibc
+        # rand_r per FOUND read (align.cpp:623-625).  Unique reads are
+        # rand-independent (j = draw % 1), so the kernels run with
+        # rand32 = 0, the formatter keeps the stream position, and only
+        # genuinely multi-hit reads replay on the exact host engine.
+        if param.RRBS_flag:
+            raise EngineUnsupported(f"RRBS is {UNPORTED}")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CUDA device requested but torch sees no "
+                               "CUDA device")
+        self.genome = genome
+        self.index = index
+        self.param = param
+        if param.profile is None:
+            param.init_mapping()
+        self.host = HostEngine(genome, index, param)  # exact replay path
+        # per-strand uint32 coordinates (genomes up to ~4.2 Gb per strand)
+        if int(genome.anchors[-1]) >= 2 ** 32 - (FIXSIZE + SEGLEN) \
+                or genome.n_chr >= 1 << 15:
+            raise EngineUnsupported("genome exceeds 32-bit per-strand "
+                                    "coordinates")
+        self.W = len(genome.refcat)
+        self.tables = {k: v.to(self.device) for k, v in
+                       tables_from_numpy(genome, index, param).items()}
+        self.B = DEV_BATCH             # reads per dispatch window
+        self._set_tiers(self.B)
+        self.n_filtered = 0
+        self.n_replayed = 0
+        self.n_dispatched = 0
+        # wall-clock phase accumulators: enqueue = host side of dispatch,
+        # collect = wait for device rows
+        self.t_enqueue = 0.0
+        self.t_collect = 0.0
+        self.t_h2d = 0.0
+        self.t_call = 0.0
+        self._maxseg = min(MAXSNPS, param.max_snp_num) + 1
+        self._amax_cache: dict[int, int] = {}
+        # chromosome-name table for the native SAM block formatter
+        name_bytes = [n.encode("latin1") for n in genome.names]
+        self._chrname_buf = np.frombuffer(b"".join(name_bytes), dtype=np.uint8)
+        self._chrname_off = np.zeros(len(name_bytes) + 1, dtype=np.int64)
+        np.cumsum([len(b) for b in name_bytes], out=self._chrname_off[1:])
+        # persistent context buffer for native XR/BSP formatting (the
+        # reference's _mapseq is stateful across reads: align.h:132)
+        self._mapseq_buf = np.zeros(256, dtype=np.uint8)
+        self._anchors_i64 = genome.anchors[: genome.n_chr].astype(np.int64)
+        # no digestion sites outside RRBS (native ZP/ZL tag inputs)
+        self._sites_local = np.zeros(1, np.int64)
+        self._site_off_l = np.zeros(genome.n_chr + 1, np.int64)
+
+    def _set_tiers(self, b: int) -> None:
+        """Two candidate capacities: a SMALL one for optimistic round-1
+        windows and a BIG one for exactly bin-packed re-dispatches."""
+        mults = sorted({CANDS_PER_READ, max(CANDS_BIG_PER_READ,
+                                            CANDS_PER_READ)})
+        self.cands_tiers = [m * b for m in mults]
+        self.CANDS = self.cands_tiers[0]
+        self.CANDS_BIG = self.cands_tiers[-1]
+        # probe mode (repeat-heavy genomes, self-tuned): round 1 becomes a
+        # stage-1-only totals pre-pass and ALL verify dispatches are exactly
+        # bin-packed
+        self.probe_mode = False
+        self.n_probe = 0
+        # progressive-sensitivity start rank: 0 = probe only the cheapest
+        # segment first; bumped to maxseg-1 when a first round leaves most
+        # reads rank-unresolved
+        self.rank_start = 0
+
+    def _cfg(self, chains_mode: str, lean: bool = False,
+             nw: int = FIXELEMENT) -> Cfg:
+        if chains_mode != "f":
+            raise EngineUnsupported(f"the '{chains_mode}' read chains "
+                                    f"(-n 1, PE mate 2) are {UNPORTED}")
+        return make_cfg(self.param, self.W, self.genome.n_chr, chains_mode,
+                        self._maxseg, lean=lean, nw=nw)
+
+    def _chains_mode(self, rsets: np.ndarray) -> str:
+        if self.param.chains:
+            return "b"
+        if (rsets == 2).all():
+            return "r"
+        if (rsets < 2).all():
+            return "f"
+        return "b"
+
+    # -- stale-schedule (MateState) detection --------------------------------
+
+    def _probe_amax(self, seedseg: int) -> int:
+        """Max over (segment, phase) of profile.a - phase for the last
+        segment: bounds how far probe positions reach past seedseg*S."""
+        if seedseg not in self._amax_cache:
+            p = self.param
+            if seedseg <= 0:
+                self._amax_cache[seedseg] = 0
+            else:
+                self._amax_cache[seedseg] = max(
+                    p.profile[seedseg - 1][i].a - i
+                    for i in range(p.index_interval))
+        return self._amax_cache[seedseg]
+
+    def _fx_eligible(self, lens: np.ndarray, budgets: np.ndarray) -> bool:
+        """True when EVERY read supports the fixed-schedule fast path:
+        full sensitivity (seedseg == budget+1, so the pigeonhole hit set is
+        schedule-independent) and all offset-0 probes within the fresh seed
+        range."""
+        p = self.param
+        if len(lens) == 0:
+            return False
+        S, I = p.seed_size, p.index_interval
+        lens = np.ascontiguousarray(lens, dtype=np.int64)
+        seedseg = np.clip(np.minimum((lens - I + 1) // S, budgets + 1),
+                          0, self._maxseg)
+        full_sens = ((lens - I + 1) // S >= budgets + 1) & (seedseg >= 1)
+        amax = np.array([self._probe_amax(int(m))
+                         for m in range(self._maxseg + 1)], dtype=np.int64)
+        return bool((full_sens & (amax[seedseg] <= lens - S)).all())
+
+    def _stale_risk(self, lens: np.ndarray, budgets: np.ndarray) -> np.ndarray:
+        """True for reads whose schedule may read stale per-instance state
+        (previous reads' seed buffers / start offsets, align.cpp:454-469):
+        max_offset == 0, or any probed / cost position can exceed len - S."""
+        p = self.param
+        S, I = p.seed_size, p.index_interval
+        lens = np.ascontiguousarray(lens, dtype=np.int32)
+        max_off = (lens - I + 1) % S
+        seedseg = np.clip(np.minimum((lens - I + 1) // S, budgets + 1),
+                          0, self._maxseg)
+        amax = np.array([self._probe_amax(int(m))
+                         for m in range(self._maxseg + 1)], dtype=np.int32)
+        probe_max = amax[seedseg] + max_off
+        cost_max = (seedseg - 1) * S + max_off + I - 1
+        reach = np.maximum(probe_max, cost_max)
+        return (max_off == 0) | (reach > lens - S)
+
+    def _sync_state_span(self, read_of, lo: int, hi: int,
+                         dev_soff, dev_coff, lens, replay_flag, mode: str,
+                         state=None):
+        """Apply the MateState effects of device-handled reads [lo, hi) (batch
+        order) before a host replay that may read stale state.  Seed buffers:
+        last-writer-wins backward fill; start offsets: last read with
+        max_offset > 0 (align.cpp:458-468)."""
+        if hi <= lo:
+            return
+        p = self.param
+        st = state if state is not None else self.host.mate_state
+        S, I = p.seed_size, p.index_interval
+        span_lens = lens[lo:hi]
+        mo = (span_lens - I + 1) % S
+        nz = np.nonzero(mo > 0)[0]
+        offset_read = None
+        if len(nz):
+            k = lo + int(nz[-1])
+            if not replay_flag[k]:
+                if dev_soff is None:
+                    # lean rows don't carry the chosen offsets; recompute
+                    # them with the exact host schedule after the buffer
+                    # fill below
+                    offset_read = k
+                else:
+                    if mode in ("f", "b"):
+                        st.seed_start_offset = int(dev_soff[k])
+                    if mode in ("r", "b"):
+                        st.cseed_start_offset = int(dev_coff[k])
+        from .host_engine import fill_seed_buffers
+        cover = max(0, int(lens[lo:hi].max()) - S + 1)
+        fill_seed_buffers(p, st, read_of, lo, hi, cover)
+        if offset_read is not None:
+            rd = read_of(offset_read)
+            self.host.sync_schedule(rd, int(
+                (p.max_snp_num + 1) * (len(rd.seq) - 1) // len(rd.seq)),
+                state=st)
+
+    # -- batch orchestration -------------------------------------------------
+
+    def _filter_batch(self, batch: list[Read], results):
+        """Trim/filter; returns (live indices, budgets) (FilterReads
+        align.cpp:579-589)."""
+        p = self.param
+        live_idx, budgets = [], []
+        if not p.adapters and p.qual_threshold == 0:
+            for i, rd in enumerate(batch):
+                L = len(rd.seq)
+                rd.raw_len = L
+                if L < p.min_read_size:
+                    results[i] = SEResult(filtered=True)
+                    continue
+                sb = np.frombuffer(rd.seq.encode("latin1"), dtype=np.uint8)
+                if int((REG_ALPHABET[sb] == 0).sum()) > p.max_ns:
+                    results[i] = SEResult(filtered=True)
+                    continue
+                live_idx.append(i)
+                budgets.append((p.max_snp_num + 1) * (L - 1) // L)
+            self.n_filtered += len(batch) - len(live_idx)
+            return live_idx, budgets
+        for i, rd in enumerate(batch):
+            filtered, budget = filter_read(rd, p)
+            if filtered:
+                results[i] = SEResult(filtered=True)
+                self.n_filtered += 1
+            else:
+                live_idx.append(i)
+                budgets.append(budget)
+        return live_idx, budgets
+
+    def _pack_host(self, batch, idxs, budgets):
+        """Encode reads into padded fixed-shape numpy arrays."""
+        p = self.param
+        n = len(idxs)
+        codes = np.zeros((n, FIXSIZE), dtype=np.uint8)
+        regs = np.zeros((n, FIXSIZE), dtype=np.uint8)
+        lens = np.zeros(n, dtype=np.int32)
+        ridx = np.zeros(n, dtype=np.uint64)
+        rsets = np.zeros(n, dtype=np.int32)
+        buds = np.asarray(budgets, dtype=np.int32)
+        seqs = [batch[i].seq for i in idxs]
+        if n and len(set(map(len, seqs))) == 1:
+            L = len(seqs[0])
+            sb = np.frombuffer("".join(seqs).encode("latin1"),
+                               dtype=np.uint8).reshape(n, L)
+            codes[:, :L] = p.alphabet[sb]
+            regs[:, :L] = REG_ALPHABET[sb]
+            lens[:] = L
+        else:
+            for t, s in enumerate(seqs):
+                sb = np.frombuffer(s.encode("latin1"), dtype=np.uint8)
+                codes[t, :len(sb)] = p.alphabet[sb]
+                regs[t, :len(sb)] = REG_ALPHABET[sb]
+                lens[t] = len(sb)
+        ridx[:] = [batch[i].index for i in idxs]
+        rsets[:] = [batch[i].readset for i in idxs]
+        return codes, regs, lens, buds, rsets, ridx
+
+    def _dispatch(self, cfg: Cfg, packed: np.ndarray, cands: int | None = None):
+        """Enqueue one program on a (m <= B, 2nw+4) window; returns the
+        device result tensor (collected later with ``_collect``)."""
+        cap = self.CANDS if cands is None else cands
+        t0 = _time.time()
+        rows = torch.from_numpy(packed).to(self.device)
+        self.t_h2d += _time.time() - t0
+        t0 = _time.time()
+        out = kernels.align_program(cfg, cap, self.tables, rows)
+        self.t_call += _time.time() - t0
+        return out
+
+    def _collect(self, outs) -> list[np.ndarray]:
+        t0 = _time.time()
+        arrs = [o.cpu().numpy() for o in outs]
+        self.t_collect += _time.time() - t0
+        return arrs
+
+    def _window_rows(self, rows, sel, ranks=None):
+        """Dispatch rows `sel` (live rows only), with the per-read
+        enumeration rank written into the maxrank column."""
+        out = np.ascontiguousarray(rows[sel])
+        out[:, -1] = (self._maxseg - 1 if ranks is None else ranks[sel])
+        return out
+
+    def align_batch(self, batch: list[Read]):
+        results: list = [None] * len(batch)
+        live_idx, budgets = self._filter_batch(batch, results)
+        n = len(live_idx)
+        if n == 0:
+            return results
+        codes, regs, lens, buds, rsets, ridx = self._pack_host(
+            batch, live_idx, budgets)
+        rand32 = (np.zeros(n, np.uint32) if self.param.randseed == 0
+                  else myrand_hash(ridx, self.param.randseed))
+        cfg = self._cfg(self._chains_mode(rsets))
+        rows = _pack_inputs(codes, regs, lens, buds, rand32,
+                            np.zeros(n, np.int32))
+        out_rows, replays = self._align_arrays(
+            cfg, rows, lambda t: batch[live_idx[t]])
+        for t, res in replays.items():
+            results[live_idx[t]] = res
+        MS = cfg.maxseg
+        for t in range(n):
+            if t not in replays:
+                results[live_idx[t]] = DeviceView(out_rows[t], MS,
+                                                  int(buds[t]))
+        return results
+
+    def _align_arrays(self, cfg: Cfg, rows, read_of, risk=None,
+                      fx_ok: bool = False, defer: bool = False):
+        """Core orchestration over pre-encoded live reads: windowed
+        optimistic dispatches, overflow retry with candidate-capacity
+        escalation, exact host replay with MateState maintenance.  ``rows``
+        is the (n, 2nw+4) dispatch buffer (maxrank column ignored);
+        ``read_of(t)`` lazily materializes live row t as a Read.  Returns
+        (out_rows, {row: SEResult for replayed rows}), or with ``defer`` a
+        function returning them that collects round 2 and replays."""
+        in_w = rows.shape[1]
+        lens = rows[:, in_w - 4]
+        buds = rows[:, in_w - 3]
+        n = len(lens)
+        if risk is None:
+            risk = self._stale_risk(lens, buds)
+
+        MS = cfg.maxseg
+        width = 3 if cfg.lean else 2 * MS + N_EXTRAS
+        out_rows = np.zeros((n, width), dtype=np.int32)
+        done = np.zeros(n, dtype=bool)
+        served = np.zeros(n, dtype=bool)         # enumerated within capacity
+        ftot = np.zeros(n, dtype=np.int64)       # full-rank candidate totals
+        full_rank = MS - 1
+        FTOT_CLAMP = 1 << 27
+
+        def mark_replay(sel):
+            out_rows[sel] = 0
+            if cfg.lean:
+                out_rows[sel, 1] = BIT_REPLAY | BIT_RESOLVED
+            else:
+                out_rows[sel, 2 * MS + X_REPLAY] = 1
+
+        def collect(sel, orows, fx: bool = False):
+            """Commit one collected window; returns (#done, #unresolved)."""
+            # a read's result is exact iff its whole candidate range fit in
+            # the dispatch capacity (ok bit, computed on device)
+            if cfg.lean:
+                ok = (orows[:, 1] & BIT_OK) != 0
+                res = (orows[:, 1] & BIT_RESOLVED) != 0
+                ftot[sel] = orows[:, 2]
+            else:
+                ok = orows[:, 2 * MS + X_OK] != 0
+                res = orows[:, 2 * MS + X_RESOLVED] != 0
+                ftot[sel] = orows[:, 2 * MS + X_FTOT]
+            fin = ok & res
+            if fx:
+                # fixed-schedule round: only schedule-independent results
+                # commit; the rest re-dispatch on the exact program
+                fin = fin & ((orows[:, 1] & BIT_MULTI) == 0)
+            out_rows[sel[fin]] = orows[fin]
+            done[sel[fin]] = True
+            served[sel[ok]] = True
+            return int(fin.sum()), int((ok & ~res).sum())
+
+        probing = self.probe_mode
+        init_rank = min(self.rank_start, full_rank)
+        cap_max = min(self.CANDS_BIG, FTOT_CLAMP - 1)
+
+        def dispatch_packs(rem, demand, maxrank, collect_now=True):
+            """Exactly bin-packed dispatches over reads `rem` (batch order)
+            whose per-read candidate demand at this maxrank is `demand`.
+            With collect_now=False the pending list is returned."""
+            d = np.maximum(np.asarray(demand, dtype=np.int64), 1)
+            csum = np.cumsum(d)
+            spans = []
+            s = 0
+            base = 0
+            for k in range(len(rem)):
+                if k - s == self.B or csum[k] - base > self.CANDS_BIG:
+                    spans.append((s, k))
+                    s = k
+                    base = csum[k - 1]
+            spans.append((s, len(rem)))
+            pend = []
+            t0 = _time.time()
+            ranks = np.full(n, maxrank, dtype=np.int32)
+            for a, b in spans:
+                sel = rem[a: b]
+                mass = int(csum[b - 1] - (csum[a - 1] if a else 0))
+                cap = self.CANDS if mass <= self.CANDS else self.CANDS_BIG
+                out = self._dispatch(cfg, self._window_rows(rows, sel, ranks),
+                                     cap)
+                pend.append((sel, out))
+                self.n_dispatched += 1
+            self.t_enqueue += _time.time() - t0
+            if not collect_now:
+                return pend
+            nd = ne = 0
+            for (sel, _), arr in zip(pend, self._collect([o for _, o in pend])):
+                d_, e_ = collect(sel, arr)
+                nd += d_
+                ne += e_
+            return nd, ne
+
+        def probe_rank_totals(rem):
+            """(len(rem), maxseg) per-rank cumulative candidate totals from
+            the stage-1-only probe program."""
+            pend = []
+            t0 = _time.time()
+            pcfg = cfg._replace(probe=True, lean=False)
+            for i in range(0, len(rem), self.B):
+                sel = rem[i: i + self.B]
+                pend.append((i, sel, self._dispatch(
+                    pcfg, self._window_rows(rows, sel, None), 1)))
+                self.n_probe += 1
+            self.t_enqueue += _time.time() - t0
+            ftr = np.zeros((len(rem), MS), dtype=np.int64)
+            arrs = self._collect([o for _, _, o in pend])
+            for (i, sel, _), arr in zip(pend, arrs):
+                ftr[i: i + len(sel)] = arr
+            return ftr
+
+        def packed_rank_rounds(rem, ftr):
+            """Round A at the progressive start rank, exactly packed; the
+            full-rank round 2 below picks up whatever escalates."""
+            nonlocal n_done, n_esc
+            ftot[rem] = ftr[:, -1]
+            too_big = rem[ftr[:, init_rank] >= cap_max]
+            if len(too_big):
+                mark_replay(too_big)
+                done[too_big] = True
+            live = ~done[rem]
+            rem = rem[live]
+            if len(rem):
+                d, e = dispatch_packs(rem, ftr[live, init_rank], init_rank)
+                n_done += d
+                n_esc += e
+
+        n_done = n_esc = 0
+        n_win = (n + self.B - 1) // self.B
+        if probing:
+            rem0 = np.arange(n, dtype=np.int64)
+            ftr = probe_rank_totals(rem0)
+            if ftr[:, -1].sum() < n_win * self.CANDS // 2:
+                self.probe_mode = False      # genome turned out clean
+            packed_rank_rounds(rem0, ftr)
+        else:
+            # round 1: optimistic full windows at the small capacity, on the
+            # fixed-schedule program when every read is eligible
+            pend1 = []
+            t0 = _time.time()
+            rcfg = cfg._replace(fixed=True) if fx_ok else cfg
+            ranks = np.full(n, init_rank, dtype=np.int32)
+            for i in range(0, n, self.B):
+                sel = np.arange(i, min(i + self.B, n), dtype=np.int64)
+                pend1.append((sel, self._dispatch(
+                    rcfg, self._window_rows(rows, sel, ranks), self.CANDS)))
+                self.n_dispatched += 1
+            self.t_enqueue += _time.time() - t0
+            for (sel, _), arr in zip(pend1,
+                                     self._collect([o for _, o in pend1])):
+                d, e = collect(sel, arr, fx=fx_ok)
+                n_done += d
+                n_esc += e
+            if n:
+                rem_mass = int(ftot[~done].sum())
+                if rem_mass > 2 * n_win * self.CANDS:
+                    # most of the demand overflowed the optimistic round:
+                    # repeat-heavy genome — switch to probe + exact packing,
+                    # for this call's overflowed reads too
+                    self.probe_mode = True
+                    rem = np.nonzero(~done & ~served)[0]
+                    if len(rem):
+                        packed_rank_rounds(rem, probe_rank_totals(rem))
+
+        # self-tuning (future calls): when rank escalation dominates, start
+        # at full enumeration instead of paying the extra round
+        if n and init_rank < full_rank and n_done + n_esc > 0 \
+                and n_esc > n_done:
+            self.rank_start = full_rank
+
+        # round 2: everything unresolved re-dispatches ONCE at full rank
+        # (always exact), exactly bin-packed; collected by finish()
+        rem = np.nonzero(~done)[0]
+        if len(rem):
+            too_big = rem[ftot[rem] >= cap_max]
+            if len(too_big):
+                # one read exceeding the big capacity: exact host replay
+                mark_replay(too_big)
+                done[too_big] = True
+                rem = rem[ftot[rem] < cap_max]
+        pend2 = (dispatch_packs(rem, ftot[rem], full_rank, collect_now=False)
+                 if len(rem) else [])
+
+        def finish():
+            for (sel, _), arr in zip(pend2,
+                                     self._collect([o for _, o in pend2])):
+                collect(sel, arr)
+            left = np.nonzero(~done)[0]
+            if len(left):      # defensive: packed dispatches always fit
+                mark_replay(left)
+                done[left] = True
+
+            # --- in-order collection with exact MateState maintenance -------
+            if cfg.lean:
+                replay_flag = ((out_rows[:, 1] & BIT_REPLAY) != 0) | risk
+                dev_soff = dev_coff = None
+            else:
+                replay_flag = (out_rows[:, 2 * MS + X_REPLAY] != 0) | risk
+                dev_soff = out_rows[:, 2 * MS + X_SOFF]
+                dev_coff = out_rows[:, 2 * MS + X_COFF]
+            if self.param.randseed == 0:
+                # -S 0: the kernel selected with rand32=0; only unique-hit
+                # reads are draw-independent — multi-hit reads replay so the
+                # formatter's sequential rand_r picks the real j-th hit
+                if cfg.lean:
+                    multi = (((out_rows[:, 1] & BIT_FOUND) != 0)
+                             & ((out_rows[:, 1] & BIT_MULTI) != 0))
+                else:
+                    multi = ((out_rows[:, 2 * MS + X_FOUND] != 0)
+                             & (out_rows[:, 2 * MS + X_SSUM] != 1))
+                replay_flag = replay_flag | multi
+            replay_pos = np.nonzero(replay_flag)[0]
+            replays: dict[int, SEResult] = {}
+            cursor = 0
+            for rpos in replay_pos:
+                rpos = int(rpos)
+                if risk[rpos]:
+                    # replay may READ stale state: sync it first
+                    self._sync_state_span(read_of, cursor, rpos, dev_soff,
+                                          dev_coff, lens, replay_flag,
+                                          cfg.chains_mode)
+                    cursor = rpos + 1   # run_align updates the state itself
+                replays[rpos] = self.host.run_align(read_of(rpos),
+                                                    int(buds[rpos]))
+                self.n_replayed += 1
+            # keep the state current through the batch tail: a LATER batch
+            # may contain stale-schedule reads whose replay reads this state
+            self._sync_state_span(read_of, cursor, n, dev_soff, dev_coff,
+                                  lens, replay_flag, cfg.chains_mode)
+            return out_rows, replays
+
+        return finish if defer else finish()
+
+    def format_batch(self, batch: list[Read], fmt) -> str:
+        results = self.align_batch(batch)
+        out = []
+        for rd, res in zip(batch, results):
+            if isinstance(res, DeviceView):
+                out.append(fmt.emit_device(rd, res))
+            else:
+                out.append(fmt.string_align(rd, res))
+        return "".join(out)
+
+    # -- block fast path (no per-read Python objects) -------------------------
+
+    def supports_blocks(self) -> bool:
+        """Every SE configuration of the port runs on the native block path
+        (SAM, BSP, -R, trimming) when the native runtime builds."""
+        from .. import native
+        return native.get_lib() is not None
+
+    def encode_block(self, block):
+        """Native filter + encode for one ReadBlock; runs in the
+        parse-ahead thread (the native calls release the GIL).  Caches and
+        returns (nw, rows, info) on the block."""
+        if block.enc is not None:
+            return block.enc
+        from .. import native
+        p = self.param
+        lib = native.get_lib()
+        info = None
+        if p.adapters or p.qual_threshold > 0:
+            # native FilterReads: trims rec in place; the -z SAM rescale
+            # quirk rewrites quality bytes, so the buffer is swapped for a
+            # writable copy exactly when that branch can fire
+            rescale = bool(p.out_sam and p.zero_qual != ord("!")
+                           and p.qual_threshold > 0)
+            if rescale:
+                mbuf = np.frombuffer(bytearray(block.buf), dtype=np.uint8)
+            else:
+                mbuf = np.frombuffer(block.buf, dtype=np.uint8)
+            info = native.filter_block(lib, mbuf, block.rec, p,
+                                       block.synth_qual)
+            if rescale:
+                block.buf = mbuf.tobytes()
+                if block.is_fasta:
+                    # synthetic quality is rescaled too (align.cpp:63-67)
+                    block.synth_qual = ord("!") + p.default_qual
+        # word count per read: 7 covers reads <= 112 nt
+        max_len = int(block.rec[:, 3].max()) if len(block) else 0
+        nw = 7 if min(max_len, p.max_readlen) <= 112 else FIXELEMENT
+        rows = native.encode_block_words(
+            lib, block.buf, block.rec, p.alphabet, REG_ALPHABET, nw)
+        block.enc = (nw, rows, info)
+        return block.enc
+
+    def block_rows(self, block):
+        """Dispatch rows of one ReadBlock's live reads: (nw, live_pos, rows,
+        buds_all) where rows is (len(live_pos), 2nw+4) int32 with budget and
+        selection hash filled in and the maxrank column 0, and buds_all is
+        each block read's post-trim mismatch budget."""
+        p = self.param
+        buds_all = np.zeros(len(block), dtype=np.int32)
+        nw, rows, info = self.encode_block(block)
+        lens = rows[:, 2 * nw]
+        if info is not None:
+            live = info[:, 0] == 0
+        else:
+            ncnt = rows[:, 2 * nw + 3]   # encoder parks the N count here
+            live = (lens >= p.min_read_size) & (ncnt <= p.max_ns)
+        live_pos = np.nonzero(live)[0]
+        self.n_filtered += len(block) - len(live_pos)
+        rows_l = rows[live_pos]
+        lens_l = rows_l[:, 2 * nw]
+        if info is not None:
+            buds = info[live_pos, 1].astype(np.int32)
+        else:
+            buds = ((p.max_snp_num + 1) * (lens_l - 1)
+                    // lens_l).astype(np.int32)
+        buds_all[live_pos] = buds
+        rows_l[:, 2 * nw + 1] = buds
+        rows_l[:, 2 * nw + 2] = (0 if p.randseed == 0 else myrand_hash(
+            block.indices[live_pos], p.randseed).astype(np.uint32).view(
+            np.int32))
+        rows_l[:, 2 * nw + 3] = 0
+        return nw, live_pos, rows_l, buds_all
+
+    def align_block(self, block):
+        """Align one ReadBlock.  Returns (live_pos, finish, buds_all): round
+        1 is dispatched AND collected here, round 2 is dispatched and only
+        collected by finish() — the block pipeline calls finish() from the
+        writer thread.  finish() -> (rows, replays) where row t is block
+        read live_pos[t] in the lean layout (BIT_*) for plain SAM, else the
+        full layout, and replays maps row -> exact SEResult; buds_all is
+        each block read's post-trim mismatch budget."""
+        p = self.param
+        nw, live_pos, rows_l, buds_all = self.block_rows(block)
+        if len(live_pos) == 0:
+            return (live_pos, lambda: (np.zeros((0, 3), np.int32), {}),
+                    buds_all)
+        lens_l = rows_l[:, 2 * nw]
+        buds = rows_l[:, 2 * nw + 1]
+        risk = self._stale_risk(lens_l, buds)
+        # BSP needs the per-level histograms and XR reads the selection
+        # context — both ride the FULL result rows; plain SAM uses lean rows
+        plain_sam = p.out_sam >= 1 and not p.out_ref
+        lean = plain_sam and not risk.any()
+        cfg = self._cfg("b" if p.chains
+                        else ("r" if block.readset == 2 else "f"), lean=lean,
+                        nw=nw)
+        fx_ok = lean and self._fx_eligible(lens_l, buds)
+        fin = self._align_arrays(
+            cfg, rows_l, lambda t: block.read_obj(int(live_pos[t])),
+            risk=risk, fx_ok=fx_ok, defer=True)
+
+        def finish():
+            out_rows, replays = fin()
+            if not cfg.lean and plain_sam:
+                return _pack_rows_lean(out_rows, cfg.maxseg), replays
+            return out_rows, replays
+
+        return live_pos, finish, buds_all
+
+    def format_block(self, block, fmt) -> bytes:
+        """Align + format one ReadBlock as SAM/BSP bytes."""
+        return self.format_aligned_block(block, self.align_block(block), fmt)
+
+    def _select_vals(self, read, res, fmt):
+        """string_align's selection half (align.cpp:610-627) without the
+        formatting: first nonempty level, reproducible draw (consumed HERE,
+        so the sequential -S 0 stream stays exact), selected hit."""
+        from ..utils import myrand
+        p = self.param
+        ii = ssum = 0
+        for ii in range(res.read_max_snp_num + 1):
+            ssum = int(res.n_hit[ii] + res.n_chit[ii])
+            if ssum > 0:
+                break
+        if ssum == 0:
+            return (0, ii, 0, 0, 0, 0)
+        j = myrand(read.index, p.randseed, fmt.rand_r) % ssum
+        if j < res.n_hit[ii]:
+            chain, hit = 0, res.hits[ii][j]
+        else:
+            chain, hit = 1, res.chits[ii][j - int(res.n_hit[ii])]
+        return (1, ii, ssum, chain, int(hit[0]), int(hit[1]))
+
+    def _format_block_full(self, block, aligned, fmt) -> bytes:
+        """BSP / -R SAM native block formatting over FULL result rows.
+        Host-replayed reads are not text-spliced: their selection runs in
+        Python and the result is synthesized into a row, so the stateful
+        reference-context buffer advances in one place — the native side."""
+        from .. import native
+        p = self.param
+        lib = native.get_lib()
+        live_pos, fin, buds_all = aligned
+        out_rows, replays = fin()
+        MS = self._maxseg
+        width = 2 * MS + N_EXTRAS
+        n_all = len(block)
+        status = np.ones(n_all, dtype=np.int32)          # 1 = QC-filtered
+        rows_all = np.zeros((n_all, width), dtype=np.int32)
+        status[live_pos] = 2
+        if len(live_pos):
+            rows_all[live_pos] = out_rows[:, :width]
+        rep = sorted((int(live_pos[t]), t) for t in replays)
+        is_replay = np.zeros(n_all, dtype=bool)
+        for pos, _ in rep:
+            is_replay[pos] = True
+        fcum = None
+        if p.randseed == 0:
+            found_dev = ((status == 2) & ~is_replay
+                         & (rows_all[:, 2 * MS + X_FOUND] != 0))
+            fcum = np.concatenate([[0], np.cumsum(found_dev)])
+        prev = 0
+        for pos, t in rep:
+            if fcum is not None:
+                fmt.rand_r.skip(int(fcum[pos] - fcum[prev]))
+                prev = pos
+            res = replays[t]
+            found, ii, ssum, chain, chrp, wloc = self._select_vals(
+                block.read_obj(pos), res, fmt)
+            row = np.zeros(width, dtype=np.int32)
+            row[0: 2 * MS: 2] = res.n_hit[:MS]
+            row[1: 2 * MS: 2] = res.n_chit[:MS]
+            ex = 2 * MS
+            row[ex + X_FOUND] = found
+            row[ex + X_II] = ii
+            row[ex + X_SSUM] = ssum
+            row[ex + X_CHAIN] = chain
+            row[ex + X_CHRP] = chrp
+            row[ex + X_WLOC] = wloc
+            rows_all[pos] = row
+        if fcum is not None:
+            fmt.rand_r.skip(int(fcum[n_all] - fcum[prev]))
+        un = self.param.useful_nt[:4].encode("latin1")
+        total_codes = len(self.genome.refcat) * SEGLEN
+        if p.out_sam >= 1:
+            out, _lo, na = native.format_sam_block_xr(
+                lib, block.buf, block.rec, status,
+                _pack_rows_lean(rows_all, MS)[:, :2],
+                self._chrname_buf, self._chrname_off, REV_CHAR,
+                0x40 * block.readset, bool(p.out_unmap),
+                p.report_repeat_hits, block.synth_qual,
+                self.genome.refcat, total_codes, self._anchors_i64, un,
+                self._mapseq_buf, 0, self._sites_local, self._site_off_l, 0)
+        else:
+            out, _lo, na = native.format_bsp_block(
+                lib, block.buf, block.rec, status, rows_all, MS,
+                self._chrname_buf, self._chrname_off, REV_CHAR,
+                bool(p.out_unmap), p.report_repeat_hits, p.max_snp_num,
+                p.max_num_hits, block.synth_qual,
+                self.genome.refcat, total_codes, self._anchors_i64, un,
+                self._mapseq_buf, buds_all)
+        fmt.n_aligned += na
+        return out
+
+    def format_aligned_block(self, block, aligned, fmt):
+        """Format one aligned ReadBlock as SAM bytes via the native
+        formatter; replayed reads are formatted exactly in Python and
+        spliced back in order."""
+        from .. import native
+        p = self.param
+        if p.out_sam == 0 or p.out_ref:
+            return self._format_block_full(block, aligned, fmt)
+        lib = native.get_lib()
+        live_pos, fin, _buds_all = aligned
+        out_rows, replays = fin()
+        n_all = len(block)
+        status = np.ones(n_all, dtype=np.int32)          # 1 = QC-filtered
+        rows_all = np.zeros((n_all, 2), dtype=np.int32)
+        status[live_pos] = 2
+        rows_all[live_pos] = out_rows[:, :2]
+        replay_pos = sorted(int(live_pos[t]) for t in replays)
+        rmap = {int(live_pos[t]): t for t in replays}
+        status[replay_pos] = 0                           # Python-formatted
+        out, line_off, na = native.format_sam_block(
+            lib, block.buf, block.rec, status, rows_all,
+            self._chrname_buf, self._chrname_off, REV_CHAR,
+            0x40 * block.readset, bool(p.out_unmap), p.report_repeat_hits,
+            block.synth_qual, 0, self._sites_local, self._site_off_l, 0)
+        fmt.n_aligned += na
+        fcum = None
+        if p.randseed == 0:
+            # -S 0: every found device-handled read consumed one rand_r
+            # draw in the reference (align.cpp:623); keep the formatter's
+            # sequential stream in sync for the replayed multi-hit reads
+            found_dev = (status == 2) & ((rows_all[:, 1] & BIT_FOUND) != 0)
+            fcum = np.concatenate([[0], np.cumsum(found_dev)])
+        if not replay_pos:
+            if fcum is not None:
+                fmt.rand_r.skip(int(fcum[-1]))
+            return out
+        pieces, prev = [], 0
+        prev_read = 0
+        for i in replay_pos:
+            cut = int(line_off[i])
+            pieces.append(out[prev:cut])
+            if fcum is not None:
+                fmt.rand_r.skip(int(fcum[i] - fcum[prev_read]))
+                prev_read = i + 1
+            res = replays[rmap[i]]
+            pieces.append(fmt.string_align(block.read_obj(i), res)
+                          .encode("latin1"))
+            prev = cut
+        pieces.append(out[prev:])
+        if fcum is not None:
+            fmt.rand_r.skip(int(fcum[n_all] - fcum[prev_read]))
+        return b"".join(pieces)
+
+
+def _pack_rows_lean(rows: np.ndarray, maxseg: int) -> np.ndarray:
+    """Repack full kernel rows into the lean 3-int32 layout (BIT_*) for the
+    native SAM formatter."""
+    ex = 2 * maxseg
+    w1 = ((rows[:, ex + X_FOUND] != 0).astype(np.int32) * BIT_FOUND
+          | (rows[:, ex + X_CHAIN] << 1)
+          | (rows[:, ex + X_REPLAY] != 0).astype(np.int32) * BIT_REPLAY
+          | BIT_OK
+          | (rows[:, ex + X_SSUM] != 1).astype(np.int32) * BIT_MULTI
+          | (rows[:, ex + X_II] << LEAN_II_SHIFT)
+          | (rows[:, ex + X_CHRP] << LEAN_CHRP_SHIFT))
+    return np.stack([rows[:, ex + X_WLOC], w1,
+                     rows[:, ex + X_FTOT]], axis=1).astype(np.int32)
+
+
+class DeviceView:
+    """Per-read result of the device fast path, duck-typing the fields the
+    output formatter needs (SEResult-compatible subset + preselected hit)."""
+
+    filtered = False
+
+    def __init__(self, row: np.ndarray, maxseg: int, budget: int):
+        counts = row[: 2 * maxseg].reshape(maxseg, 2)
+        ex = row[2 * maxseg:]
+        # pad histograms to MAXSNPS+1 (BSP prints 0..read_max_snp_num)
+        self.n_hit = np.zeros(MAXSNPS + 1, dtype=np.int32)
+        self.n_chit = np.zeros(MAXSNPS + 1, dtype=np.int32)
+        self.n_hit[:maxseg] = counts[:, 0]
+        self.n_chit[:maxseg] = counts[:, 1]
+        self.read_max_snp_num = budget
+        self.found = bool(ex[X_FOUND])
+        self.level = int(ex[X_II])
+        self.ssum = int(ex[X_SSUM])
+        self.chain = int(ex[X_CHAIN])
+        self.hit = (int(ex[X_CHRP]), int(ex[X_WLOC]))
+        self.h00_found = bool(ex[X_H00F])
+        self.h00 = (int(ex[X_H00C]), int(ex[X_H00W]))

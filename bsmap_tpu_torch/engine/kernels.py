@@ -1,0 +1,661 @@
+"""The four device kernels of the SE alignment program, each in two forms.
+
+``bsmap_tpu``'s device work is one jitted XLA program per configuration
+(``_align_fused_kernel``, bsmap_tpu/engine/device_engine.py:1172).  Here its
+stages are hand-written CUDA kernels for Hopper (``csrc/*.cu``, built by
+``_build.py``, bound with ctypes):
+
+  K1 ``fixed_schedule``     fixed-schedule stage 1 (``_fixed_schedule_impl``)
+  K2 ``exact_schedule``     exact seed schedule (``_schedule_impl``), also the
+                            totals-only probe pass
+  K3 ``verify_candidates``  candidate layout scan, entry fetch + bisulfite
+                            mismatch count, coordinates, dedup cascade
+  K4 ``reduce_reads``       per-read early exit, counts, replay bits,
+                            selection, lean or full result rows
+
+Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and runs
+its plain-torch twin (``*_plain``) for CPU tensors only.  The twins are the
+CPU tests' link to the JAX program and the kernels' oracle on the card: the
+JAX program's int32/uint32 arithmetic is emulated in int64 with an explicit
+``& 0xFFFFFFFF`` wherever it wraps, logical shifts and a SWAR popcount.
+Every wrapper counts its launches in ``<wrapper>.launches``.
+
+Only the forward chain (``chains_mode == 'f'``) of the non-RRBS,
+unsharded, single-end program is ported; callers reject the rest.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+SATLIM = 1 << 30          # saturating candidate scan (device_engine.py:91)
+BIGLEVEL = 99
+FTOT_CLAMP = 1 << 27
+# dedup hash multipliers (device_engine.py:832-834)
+DEDUP_MULS = ((0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35),
+              (0x27D4EB2F, 0x165667B1, 0x9E3779B1),
+              (0xC2B2AE35, 0x27D4EB2F, 0x85EBCA6B))
+# per-candidate info word written by K3 and read by K4
+INFO_ELIGIBLE, INFO_UNRESOLVED, INFO_FIRST = 1, 2, 4
+INFO_WMM_SHIFT, INFO_RANK_SHIFT = 3, 11
+# kernel limits (csrc/common.cuh)
+MAX_MS, MAX_S, MAX_I, MAX_NW, MAX_P = 16, 16, 16, 10, 160
+
+
+class Slots(NamedTuple):
+    """Stage-1 slot tensors, (m, NB) int32 in (rank, phase) discovery order,
+    plus the per-read schedule facts."""
+
+    h: torch.Tensor
+    off0: torch.Tensor
+    off3: torch.Tensor
+    wcnt: torch.Tensor
+    cnt: torch.Tensor
+    s_off: torch.Tensor       # (m,) chosen start offset (0 under fixed)
+    ftot_rank: torch.Tensor   # (m, maxseg) per-rank cumulative totals
+
+
+class Cands(NamedTuple):
+    """K3 output.  ``starts`` is the (m*NB + 1,) saturating exclusive scan
+    of the slot counts with the total last; the other four are (CANDS,)
+    per-candidate words.  Entries past the live candidates are zero except
+    index CANDS-1, which always holds what the JAX program computes there
+    (its selection falls back to that index for reads with no pick)."""
+
+    starts: torch.Tensor
+    rid: torch.Tensor
+    chrp: torch.Tensor
+    wloc: torch.Tensor
+    info: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# int32/uint32 emulation helpers (int64 tensors)
+# ---------------------------------------------------------------------------
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits -> int64 holding the uint32 value."""
+    return x.to(torch.int64) & M32
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int64 holding the int32 value of its low 32 bits."""
+    return ((x & M32) ^ 0x80000000) - 0x80000000
+
+
+def _mul32(a: torch.Tensor, k: int) -> torch.Tensor:
+    """(a * k) mod 2^32 for a in [0, 2^32) without int64 overflow."""
+    lo = a * (k & 0xFFFF)
+    hi = ((a * (k >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & M32) >> 24
+
+
+def _floordiv(a: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _unpack(rows: torch.Tensor):
+    """(m, 2nw+4) int32 dispatch rows -> unsigned words and scalars (int64),
+    the layout of ``_unpack_inputs`` (device_engine.py:1161)."""
+    nw = (rows.shape[1] - 4) // 2
+    r = rows.to(torch.int64)
+    qw = r[:, :nw] & M32
+    rw = r[:, nw: 2 * nw] & M32
+    return (nw, qw, rw, r[:, 2 * nw], r[:, 2 * nw + 1],
+            r[:, 2 * nw + 2] & M32, r[:, 2 * nw + 3])
+
+
+def _seedseg(cfg, lens, buds):
+    s = torch.minimum(_floordiv(lens - cfg.I + 1, cfg.S), buds + 1)
+    return s.clamp(0, cfg.maxseg)
+
+
+def _seeds(qw: torch.Tensor, pos: np.ndarray, S: int) -> torch.Tensor:
+    """``_seed_array_w`` (device_engine.py:266): base-3 T->C-collapsed seed
+    value at read offsets ``pos`` from the 2-bit packed words."""
+    m, nw = qw.shape
+    dev = qw.device
+    qwp = torch.cat([qw, torch.zeros((m, 1), dtype=torch.int64, device=dev)],
+                    dim=1)
+    pos = np.asarray(pos, dtype=np.int64)
+    ka = torch.as_tensor(np.minimum(pos >> 4, nw), device=dev)
+    kb = torch.as_tensor(np.minimum((pos >> 4) + 1, nw), device=dev)
+    zz = torch.as_tensor((pos & 15) * 2, device=dev)[None, :]
+    a = qwp[:, ka]
+    b = qwp[:, kb]
+    w = torch.where(zz == 0, a, ((a << zz) | (b >> (32 - zz))) & M32)
+    t = w & (w >> 1) & 0x55555555
+    cw = w ^ (t << 1)
+    acc = torch.zeros((m, len(pos)), dtype=torch.int64, device=dev)
+    for j in range(S):
+        acc = acc * 3 + ((cw >> (2 * (15 - j))) & 3)
+    return acc
+
+
+def _rank_totals(cfg, cnt, seedseg, maxrank):
+    """Per-rank cumulative clamped totals and the maxrank-masked counts
+    (device_engine.py:425-437 and :649-664); int32 sums wrap."""
+    m = cnt.shape[0]
+    MS, I = cfg.maxseg, cfg.I
+    slot_rank = torch.arange(MS * I, device=cnt.device) // I
+    cnt_full = torch.where(slot_rank[None, :] < seedseg[:, None], cnt, 0)
+    cnt_cl = torch.clamp(cnt_full & M32, max=FTOT_CLAMP)
+    per_rank = _wrap32(cnt_cl.reshape(m, MS, I).sum(dim=2))
+    ftot = torch.clamp(_wrap32(torch.cumsum(per_rank, dim=1)),
+                       max=FTOT_CLAMP)
+    cnt = torch.where(slot_rank[None, :] <= maxrank[:, None], cnt_full, 0)
+    return cnt, ftot
+
+
+def _i32(*ts):
+    return [t.to(torch.int32) for t in ts]
+
+
+def _fixed_probe_offsets(cfg) -> np.ndarray:
+    """Static pigeonhole probe offsets in natural (segment, phase) order:
+    a = ceil((n*S + i) / I) * I (param.cpp:85-93), k = a - i."""
+    S, I = cfg.S, cfg.I
+    return np.array([-(-(n * S + i) // I) * I - i
+                     for n in range(cfg.maxseg) for i in range(I)],
+                    dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# K1: fixed-schedule stage 1
+# ---------------------------------------------------------------------------
+
+def fixed_schedule_plain(cfg, rows, kmer_tab) -> Slots:
+    """Plain twin of K1 (``_fixed_schedule_impl`` + the fixed branch of
+    ``_schedule_impl``, device_engine.py:350-439), forward chain."""
+    nw, qw, _rw, lens, buds, _rand, maxrank = _unpack(rows)
+    m = rows.shape[0]
+    dev = rows.device
+    S, MS, I = cfg.S, cfg.maxseg, cfg.I
+    NB = MS * I
+    k_nat = _fixed_probe_offsets(cfg)
+    sv = _seeds(qw, k_nat, S)
+    kr = kmer_tab[sv].to(torch.int64)                        # (m, NB, 4)
+    kt = torch.as_tensor(k_nat, device=dev)
+    fresh = kt[None, :] <= (lens - S)[:, None]
+    cnt_nat = torch.where(fresh, kr[..., 1], 0)
+    seg_cost = _wrap32(cnt_nat.reshape(m, MS, I).sum(dim=2))
+    order = torch.argsort(seg_cost, dim=1, stable=True)      # (m, MS)
+    idx = order[:, :, None].expand(m, MS, I)
+
+    def permute(nat):
+        return nat.reshape(m, MS, I).gather(1, idx).reshape(m, NB)
+
+    h = permute((-kt)[None, :].expand(m, NB))
+    cnt, ftot = _rank_totals(cfg, permute(cnt_nat), _seedseg(cfg, lens, buds),
+                             maxrank)
+    zero = torch.zeros(m, dtype=torch.int32, device=dev)
+    return Slots(*_i32(h, permute(kr[..., 0]), permute(kr[..., 3]),
+                       permute(kr[..., 2]), cnt), zero, ftot.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K2: exact seed schedule
+# ---------------------------------------------------------------------------
+
+def exact_schedule_plain(cfg, rows, kmer_tab, prof_a,
+                         probe: bool = False) -> Slots:
+    """Plain twin of K2: ``chain_schedule`` + ``slot_desc`` + the per-rank
+    totals of ``_schedule_impl`` (device_engine.py:445-672), forward chain,
+    non-RRBS.  Cost sums wrap as uint32 like the reference's bit32_t; both
+    argmins take the first minimum; segments order by a stable sort of the
+    signed cost."""
+    nw, qw, _rw, lens, buds, _rand, maxrank = _unpack(rows)
+    m = rows.shape[0]
+    dev = rows.device
+    S, I, P, MS = cfg.S, cfg.I, cfg.P, cfg.maxseg
+    NB = MS * I
+    sarr = _seeds(qw, np.arange(P), S)                      # (m, P)
+    rows_p = kmer_tab[sarr].to(torch.int64)                 # (m, P, 4)
+    cntp = rows_p[..., 1]
+    cost = torch.where(cntp > 0, cntp + 2, 0) & M32
+    WLEN = MS * S + I
+    L = min(P, WLEN)
+    cost_p = torch.zeros((m, WLEN + 1), dtype=torch.int64, device=dev)
+    cost_p[:, 1: L + 1] = cost[:, :L]
+    cs = torch.cumsum(cost_p, dim=1)
+    Ws = (cs[:, I:] - cs[:, :-I]) & M32
+    T = Ws[:, : MS * S].reshape(m, MS, S)
+
+    seedseg = _seedseg(cfg, lens, buds)
+    max_off = torch.remainder(lens - I + 1, S)
+    n_i = torch.arange(MS, device=dev)
+    off_i = torch.arange(S, device=dev)
+    seg_mask = n_i[None, :] < seedseg[:, None]
+    tot = torch.where(seg_mask[:, :, None], T, 0).sum(dim=1) & M32
+    tot_m = torch.where(off_i[None, :] < max_off[:, None], tot, M32)
+    s_off = torch.where(max_off > 0, torch.argmin(tot_m, dim=1), 0)
+
+    start = s_off[:, None].expand(m, MS).clone()
+    ar = torch.arange(m, device=dev)
+    for it in range(MS):
+        half = it // 2
+        ptr = (torch.full_like(seedseg, half) if it % 2 == 0
+               else seedseg - 1 - half)
+        active = it < seedseg
+        ptr_c = ptr.clamp(0, MS - 1)
+        prev = start.gather(1, (ptr_c - 1).clamp(0, MS - 1)[:, None])[:, 0]
+        nxt = start.gather(1, (ptr_c + 1).clamp(0, MS - 1)[:, None])[:, 0]
+        costs = T[ar, ptr_c]                                 # (m, S)
+        lo = torch.where(ptr_c == 0, 0, prev)
+        hi = torch.where(ptr_c == seedseg - 1, max_off, nxt)
+        rng_ok = (off_i[None, :] >= lo[:, None]) & \
+            (off_i[None, :] <= hi[:, None])
+        best = torch.argmin(torch.where(rng_ok, costs, M32), dim=1)
+        onehot = (n_i[None, :] == ptr_c[:, None]) & active[:, None]
+        start = torch.where(onehot, best[:, None], start)
+    cost_n = T.gather(2, start[:, :, None])[..., 0]          # (m, MS)
+    key = torch.where(seg_mask, cost_n ^ 0x80000000, M32)
+    order = torch.argsort(key, dim=1, stable=True)
+
+    slot_rank = torch.arange(NB, device=dev) // I
+    phase = (torch.arange(NB, device=dev) % I)[None, :]
+    mode = order[:, slot_rank]                               # (m, NB)
+    a = prof_a.to(torch.int64).reshape(-1)[mode * I + phase]
+    st = start.gather(1, mode)
+    k = a + st - phase
+    k_c = k.clamp(0, P - 1)
+    h = -a + phase - st
+    fresh = (k >= 0) & (k <= (lens - S)[:, None])
+    rs = rows_p.gather(1, k_c[:, :, None].expand(m, NB, 4))
+    cnt, ftot = _rank_totals(cfg, torch.where(fresh, rs[..., 1], 0),
+                             seedseg, maxrank)
+    return Slots(*_i32(h, rs[..., 0], rs[..., 3], rs[..., 2], cnt, s_off,
+                       ftot))
+
+
+# ---------------------------------------------------------------------------
+# K3: candidate layout + verify + dedup
+# ---------------------------------------------------------------------------
+
+def _eval_cands(cfg, sidx, fid, live, starts, slots, qw, rw, lens, buds,
+                tables):
+    """Per-candidate entry fetch, bisulfite CountMismatch and coordinates
+    (device_engine.py:700-812) for candidate indices ``sidx`` owned by slot
+    ``fid``.  Returns int64 (rid, c, crick, wloc, wmm, rank, eligible)."""
+    NB, I, NW, W = cfg.maxseg * cfg.I, cfg.I, cfg.nw, cfg.W
+    rid = fid // NB
+    rank = (fid - rid * NB) // I
+    e = sidx - starts[fid]
+    g_off0 = slots.off0.reshape(-1).to(torch.int64)[fid]
+    g_off3 = slots.off3.reshape(-1).to(torch.int64)[fid]
+    g_wc = slots.wcnt.reshape(-1).to(torch.int64)[fid]
+    g_h = slots.h.reshape(-1).to(torch.int64)[fid]
+    crick = e >= g_wc
+    wl, cl = tables["wlocs"], tables["clocs"]
+    w_entry = _u32(wl[_wrap32(g_off0 + e).clamp(0, wl.numel() - 1)])
+    c_entry = _u32(cl[_wrap32(g_off3 + e - g_wc).clamp(0, cl.numel() - 1)])
+    g = (torch.where(crick, c_entry, w_entry) + g_h) & M32
+    wbase = ((g >> 4) + torch.where(crick, W, 0)).clamp(0, 2 * W - NW - 1)
+    ks = torch.arange(NW + 1, device=g.device)
+    words = _u32(tables["catcat"][wbase[:, None] + ks[None, :]])
+    z2 = ((g & 15) * 2)[:, None]
+    sref = torch.where(z2 == 0, words[:, :NW],
+                       ((words[:, :NW] << z2) | (words[:, 1:] >> (32 - z2)))
+                       & M32)
+    q = qw[rid]
+    r = rw[rid]
+    xc = (((~sref) << 1) | sref | 0x55555555) & M32
+    x = ((q & xc) ^ sref) & r
+    lanes = (x | (x >> 1)) & 0x55555555
+    wmm = _popcount32(lanes).sum(dim=1)
+    llen = lens[rid]
+    anchors = _u32(tables["anchors"])
+    c = (torch.searchsorted(anchors, g, right=True) - 1).clamp(
+        0, cfg.n_chr - 1)
+    loc_local = _wrap32(g - anchors[c])
+    rcoff = tables["rcoff"].to(torch.int64)[c]
+    wloc = _wrap32(torch.where(crick, rcoff - llen - loc_local, loc_local))
+    in_bounds = ((wloc >= 0) & (loc_local >= 0)
+                 & (_wrap32(wloc + llen) <= tables["sizes"].to(torch.int64)[c]))
+    eligible = live & in_bounds & (wmm <= buds[rid])
+    return rid, c, crick, wloc, wmm, rank, eligible
+
+
+def dedup_slot(rid, c, wloc, muls, shift: int):
+    """Dedup hash-table slot of (read, chr, watson loc) keys
+    (device_engine.py:836-839)."""
+    m1, m2, m3 = muls
+    h = (_mul32(rid, m1) + _mul32(c, m2) + _mul32(wloc & M32, m3)) & M32
+    h = h ^ (h >> 16)
+    return _mul32(h, 0x9E3779B1) >> shift
+
+
+def dedup_table_size(cands: int) -> int:
+    return 1 << (2 * cands - 1).bit_length()
+
+
+def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
+                            tables) -> Cands:
+    """Plain twin of K3 (``_verify_impl``, device_engine.py:692-849, lean
+    and full alike): saturating scan of the B*NB slot counts, candidate ->
+    slot map, verify of every live candidate, then the 3-table cascaded
+    scatter-min dedup on (rid, chr, wloc)."""
+    nw, qw, rw, lens, buds, _rand, _mr = _unpack(rows)
+    dev = rows.device
+    cnt = slots.cnt.reshape(-1).to(torch.int64)
+    incl = torch.cumsum(torch.clamp(cnt, max=SATLIM), dim=0).clamp(max=SATLIM)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), incl])
+    total = int(starts[-1])
+    ncand = min(total, cands)
+    sidx = torch.arange(ncand, device=dev)
+    fid = torch.searchsorted(incl, sidx, right=True)
+    live = torch.ones(ncand, dtype=torch.bool, device=dev)
+    if ncand < cands:
+        # the dead last candidate: the JAX running max hands it the last
+        # non-empty slot (slot 0 when there is none)
+        nz = torch.nonzero((cnt > 0) & (starts[:-1] < cands))
+        last = int(nz[-1, 0]) if len(nz) else 0
+        sidx = torch.cat([sidx, torch.tensor([cands - 1], device=dev)])
+        fid = torch.cat([fid, torch.tensor([last], device=dev)])
+        live = torch.cat([live, torch.zeros(1, dtype=torch.bool,
+                                            device=dev)])
+    rid, c, crick, wloc, wmm, rank, elig = _eval_cands(
+        cfg, sidx, fid, live, starts, slots, qw, rw, lens, buds, tables)
+
+    T = dedup_table_size(cands)
+    shift = 32 - (T.bit_length() - 1)
+    unres = elig.clone()
+    first = torch.zeros_like(elig)
+    for muls in DEDUP_MULS:
+        slot = dedup_slot(rid, c, wloc, muls, shift)
+        tbl = torch.full((T,), cands, dtype=torch.int64, device=dev)
+        tbl.scatter_reduce_(0, slot[unres], sidx[unres], "amin")
+        u = torch.nonzero(unres)[:, 0]
+        w = tbl[slot[u]]                  # an unresolved candidate's index
+        same = (rid[w] == rid[u]) & (c[w] == c[u]) & (wloc[w] == wloc[u])
+        is_me = w == sidx[u]
+        first[u[is_me]] = True
+        unres[u[is_me | same]] = False
+
+    info = (elig.to(torch.int64) * INFO_ELIGIBLE
+            | unres.to(torch.int64) * INFO_UNRESOLVED
+            | first.to(torch.int64) * INFO_FIRST
+            | (wmm << INFO_WMM_SHIFT) | (rank << INFO_RANK_SHIFT))
+
+    def full(v):
+        out = torch.zeros(cands, dtype=torch.int32, device=dev)
+        out[sidx] = v.to(torch.int32)
+        return out
+
+    return Cands(starts.to(torch.int32), full(rid), full(2 * c + crick),
+                 full(wloc), full(info))
+
+
+# ---------------------------------------------------------------------------
+# K4: per-read reduce
+# ---------------------------------------------------------------------------
+
+def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
+                       slots: Slots) -> torch.Tensor:
+    """Plain twin of K4: the per-read half of ``_verify_impl`` (non-RRBS,
+    unsharded, ``hits_k=0``, device_engine.py:899-1067 lean and
+    :1103-1112 full rows)."""
+    nw, _qw, _rw, lens, buds, rand32, maxrank = _unpack(rows)
+    m = rows.shape[0]
+    dev = rows.device
+    MS, NB = cfg.maxseg, cfg.maxseg * cfg.I
+    starts = vc.starts.to(torch.int64)
+    total = int(starts[-1])
+    ncand = min(total, cands)
+    info = vc.info.to(torch.int64)[:ncand]
+    rid = vc.rid.to(torch.int64)[:ncand]
+    acc_pre = (info & INFO_FIRST) != 0
+    dd_fail = (info & INFO_UNRESOLVED) != 0
+    wmm = (info >> INFO_WMM_SHIFT) & 0xFF
+    rank = (info >> INFO_RANK_SHIFT) & 0x1F
+    sidx = torch.arange(ncand, device=dev)
+
+    # progressive-sensitivity early exit (align.cpp:445-449)
+    lev = torch.where(acc_pre, wmm, BIGLEVEL)
+    minw = torch.full((m * MS,), BIGLEVEL, dtype=torch.int64, device=dev)
+    minw.scatter_reduce_(0, rid * MS + rank, lev, "amin")
+    prefmin = torch.cummin(minw.reshape(m, MS), dim=1).values
+    r_i = torch.arange(MS, device=dev)
+    stopped = (prefmin <= r_i[None, :]) & (r_i[None, :] <= maxrank[:, None])
+    any_stop = stopped.any(dim=1)
+    s_star = torch.where(any_stop, torch.argmax(stopped.to(torch.int64),
+                                                dim=1), MS - 1)
+    accepted = acc_pre & (rank <= s_star[rid])
+    resolved = any_stop | (maxrank >= _seedseg(cfg, lens, buds) - 1)
+
+    # per-level counts (forward chain: chain 0 only); budgets keep wmm below
+    # maxseg, the guard only keeps a malformed row inside its own read
+    label = torch.where(accepted & (wmm < MS), wmm * 2, 2 * MS)
+    counts = torch.zeros(m * (2 * MS + 1), dtype=torch.int64, device=dev)
+    counts.index_add_(0, rid * (2 * MS + 1) + label, torch.ones_like(label))
+    counts = counts.reshape(m, 2 * MS + 1)[:, : 2 * MS].reshape(m, MS, 2)
+    lev_sums = counts.sum(dim=2)
+    found = lev_sums.sum(dim=1) > 0
+    ii = torch.argmax((lev_sums > 0).to(torch.int64), dim=1)
+    ssum = lev_sums.gather(1, ii[:, None])[:, 0]
+
+    dd = torch.zeros(m, dtype=torch.int64, device=dev)
+    dd.scatter_reduce_(0, rid, dd_fail.to(torch.int64), "amax")
+    replay = (lev_sums >= cfg.max_num_hits).any(dim=1) | (dd > 0)
+    if cfg.report_repeat_hits == 0:
+        replay = replay | (found & (ssum > 1))
+
+    # reproducible multi-hit selection (align.cpp:623-625)
+    j = rand32 % torch.clamp(ssum, min=1)
+    nfwd = counts[:, :, 0].gather(1, ii[:, None])[:, 0]
+    sel_chain = (j >= nfwd).to(torch.int64)
+    target = torch.where(sel_chain == 1, j - nfwd, j) + 1
+    ind = accepted & (wmm == ii[rid]) & (sel_chain[rid] == 0)
+    cs = torch.cumsum(ind.to(torch.int64), dim=0)
+    rstart = starts[torch.arange(m, device=dev) * NB]
+    rs_c = rstart[rid]
+    base = torch.where(rs_c > 0, cs[(rs_c - 1).clamp(min=0)], 0)
+    sel = ind & (cs - base == target[rid])
+
+    def first_of(mask):
+        out = torch.full((m,), cands, dtype=torch.int64, device=dev)
+        out.scatter_reduce_(0, rid, torch.where(mask, sidx, cands), "amin")
+        return out
+
+    chrp_all = vc.chrp.to(torch.int64)
+    wloc_all = vc.wloc.to(torch.int64)
+    sel_s = first_of(sel).clamp(max=cands - 1)
+    sel_chrp, sel_wloc = chrp_all[sel_s], wloc_all[sel_s]
+    h00 = first_of(accepted & (wmm == 0))
+    h00_found = h00 < cands
+    h00_s = h00.clamp(max=cands - 1)
+
+    rend = torch.cat([rstart[1:], starts[-1:]])
+    totals = rend - rstart
+    ok_all = rend <= cands
+    big_any = totals > cands
+    ftot = slots.ftot_rank[:, -1].to(torch.int64)
+    if cfg.lean:
+        multi = ssum != 1
+        if cfg.fixed:
+            multi = multi | (totals >= cfg.max_num_hits)
+        w1 = (found.to(torch.int64) | (sel_chain << 1)
+              | (replay.to(torch.int64) << 2) | (ok_all.to(torch.int64) << 3)
+              | (big_any.to(torch.int64) << 4) | (multi.to(torch.int64) << 5)
+              | (ii << 6) | (sel_chrp << 10)
+              | (resolved.to(torch.int64) << 26))
+        return torch.stack([sel_wloc, _wrap32(w1), ftot],
+                           dim=1).to(torch.int32)
+    b = lambda t: t.to(torch.int64)   # noqa: E731
+    extras = torch.stack(
+        [b(found), ii, ssum, sel_chain, sel_chrp, sel_wloc, b(h00_found),
+         chrp_all[h00_s], wloc_all[h00_s], b(replay), totals,
+         slots.s_off.to(torch.int64), torch.zeros_like(totals), b(ok_all),
+         b(big_any), b(resolved), ftot], dim=1)
+    return torch.cat([counts.reshape(m, 2 * MS), extras],
+                     dim=1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: kernel for CUDA tensors, twin for CPU tensors
+# ---------------------------------------------------------------------------
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check_cuda(cfg, rows, *tensors) -> None:
+    if cfg.chains_mode != "f":
+        raise ValueError("kernels cover the forward-chain program only")
+    if not (cfg.maxseg <= MAX_MS and cfg.S <= MAX_S and cfg.I <= MAX_I
+            and cfg.nw <= MAX_NW and cfg.P <= MAX_P):
+        raise ValueError(f"cfg outside the kernels' limits: {cfg}")
+    if rows.shape[1] != 2 * cfg.nw + 4:
+        raise ValueError(f"rows width {rows.shape[1]} != 2*nw+4")
+    for t in (rows,) + tensors:
+        if t.device != rows.device or not t.is_contiguous() \
+                or t.dtype != torch.int32:
+            raise ValueError("kernel inputs must be contiguous int32 "
+                             "tensors on one CUDA device")
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def _empty(dev, *shape):
+    return torch.empty(shape, dtype=torch.int32, device=dev)
+
+
+def fixed_schedule(cfg, rows, kmer_tab) -> Slots:
+    """K1 (csrc/fixed_schedule.cu) on CUDA tensors, the twin on CPU."""
+    if not rows.is_cuda:
+        return fixed_schedule_plain(cfg, rows, kmer_tab)
+    from . import _build
+    _check_cuda(cfg, rows, kmer_tab)
+    m, NB, MS = rows.shape[0], cfg.maxseg * cfg.I, cfg.maxseg
+    dev = rows.device
+    outs = [_empty(dev, m, NB) for _ in range(5)]
+    ftot = _empty(dev, m, MS)
+    err = _build.lib().bsmap_fixed_schedule(
+        _ptr(rows), m, cfg.nw, _ptr(kmer_tab), cfg.S, cfg.I, MS,
+        *[_ptr(o) for o in outs], _ptr(ftot), _stream(rows))
+    _launched("fixed_schedule", err)
+    fixed_schedule.launches += 1
+    return Slots(*outs, torch.zeros(m, dtype=torch.int32, device=dev), ftot)
+
+
+def exact_schedule(cfg, rows, kmer_tab, prof_a, probe: bool = False) -> Slots:
+    """K2 (csrc/exact_schedule.cu) on CUDA tensors, the twin on CPU.  With
+    ``probe`` only ``ftot_rank`` is written (the other tensors are left
+    uninitialised)."""
+    if not rows.is_cuda:
+        return exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe)
+    from . import _build
+    _check_cuda(cfg, rows, kmer_tab, prof_a)
+    m, NB, MS = rows.shape[0], cfg.maxseg * cfg.I, cfg.maxseg
+    dev = rows.device
+    outs = [_empty(dev, m, NB) for _ in range(5)]
+    s_off = _empty(dev, m)
+    ftot = _empty(dev, m, MS)
+    err = _build.lib().bsmap_exact_schedule(
+        _ptr(rows), m, cfg.nw, _ptr(kmer_tab), _ptr(prof_a), cfg.S, cfg.I,
+        MS, cfg.P, int(probe), *[_ptr(o) for o in outs], _ptr(s_off),
+        _ptr(ftot), _stream(rows))
+    _launched("exact_schedule", err)
+    exact_schedule.launches += 1
+    return Slots(*outs, s_off, ftot)
+
+
+def verify_candidates(cfg, cands: int, rows, slots: Slots,
+                      tables) -> Cands:
+    """K3 (csrc/verify_candidates.cu) on CUDA tensors, the twin on CPU."""
+    if not rows.is_cuda:
+        return verify_candidates_plain(cfg, cands, rows, slots, tables)
+    from . import _build
+    tk = ("catcat", "anchors", "sizes", "rcoff", "wlocs", "clocs")
+    _check_cuda(cfg, rows, slots.h, slots.off0, slots.off3, slots.wcnt,
+                slots.cnt, *[tables[k] for k in tk])
+    m, NB = rows.shape[0], cfg.maxseg * cfg.I
+    dev = rows.device
+    T = dedup_table_size(cands)
+    starts = _empty(dev, m * NB + 1)
+    scratch = _empty(dev, 1 + 3 * T)
+    out = [_empty(dev, cands) for _ in range(4)]
+    err = _build.lib().bsmap_verify_candidates(
+        _ptr(rows), m, cfg.nw, cfg.maxseg, cfg.I, cands,
+        _ptr(slots.h), _ptr(slots.off0), _ptr(slots.off3), _ptr(slots.wcnt),
+        _ptr(slots.cnt), _ptr(tables["catcat"]), cfg.W,
+        _ptr(tables["anchors"]), cfg.n_chr, _ptr(tables["sizes"]),
+        _ptr(tables["rcoff"]), _ptr(tables["wlocs"]),
+        tables["wlocs"].numel(), _ptr(tables["clocs"]),
+        tables["clocs"].numel(), T, _ptr(starts), _ptr(scratch),
+        *[_ptr(o) for o in out], _stream(rows))
+    _launched("verify_candidates", err)
+    verify_candidates.launches += 1
+    return Cands(starts, *out)
+
+
+def reduce_reads(cfg, cands: int, rows, vc: Cands,
+                 slots: Slots) -> torch.Tensor:
+    """K4 (csrc/reduce_reads.cu) on CUDA tensors, the twin on CPU."""
+    if not rows.is_cuda:
+        return reduce_reads_plain(cfg, cands, rows, vc, slots)
+    from . import _build
+    _check_cuda(cfg, rows, vc.starts, vc.chrp, vc.wloc, vc.info,
+                slots.ftot_rank, slots.s_off)
+    m, MS = rows.shape[0], cfg.maxseg
+    width = 3 if cfg.lean else 2 * MS + 17
+    out = _empty(rows.device, m, width)
+    err = _build.lib().bsmap_reduce_reads(
+        _ptr(rows), m, cfg.nw, MS, cfg.I, cfg.S, cands, _ptr(vc.starts),
+        _ptr(vc.chrp), _ptr(vc.wloc), _ptr(vc.info), _ptr(slots.ftot_rank),
+        _ptr(slots.s_off), cfg.max_num_hits, cfg.report_repeat_hits,
+        int(cfg.lean), int(cfg.fixed), _ptr(out), _stream(rows))
+    _launched("reduce_reads", err)
+    reduce_reads.launches += 1
+    return out
+
+
+KERNELS = (fixed_schedule, exact_schedule, verify_candidates, reduce_reads)
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def align_program(cfg, cands: int, tables, rows) -> torch.Tensor:
+    """The port of ``_align_fused_kernel`` (device_engine.py:1172) on
+    (m, 2nw+4) int32 dispatch rows: K1 or K2 (K2 alone under ``cfg.probe``,
+    returning the (m, maxseg) per-rank totals), then K3 and K4.  ``cands``
+    is the JAX program's capacity (its B rows, padding included), so the
+    ok/overflow bits and the dedup table size match its rows."""
+    if cfg.fixed and not cfg.probe:
+        slots = fixed_schedule(cfg, rows, tables["kmer_tab"])
+    else:
+        slots = exact_schedule(cfg, rows, tables["kmer_tab"],
+                               tables["prof_a"], probe=cfg.probe)
+    if cfg.probe:
+        return slots.ftot_rank
+    vc = verify_candidates(cfg, cands, rows, slots, tables)
+    return reduce_reads(cfg, cands, rows, vc, slots)

@@ -1,0 +1,290 @@
+"""Rows of the PyTorch port's kernel twins against the JAX program.
+
+Both packages get the same numpy inputs: one simulated genome and seed
+index (built by ``bsmap_tpu``), and dispatch rows packed from simulated
+reads of 50 nt, 100 nt (both nw = 7), 130 nt (nw = 10) and the mixed
+50/51 nt stale-schedule set.  The JAX side runs on the CPU exactly as the
+JAX package's own tests run it; the port side runs the plain-torch twins
+(what every kernel wrapper runs for a CPU tensor).  All values are int32,
+so every comparison is exact (``np.array_equal``)."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bsmap_tpu.engine import device_engine as J
+from bsmap_tpu.index import build_index
+from bsmap_tpu.params import Param
+from bsmap_tpu.readio import open_read_stream
+from bsmap_tpu.reference import load_genome
+from bsmap_tpu.utils import myrand_hash
+from bsmap_tpu_torch.engine import device_engine as T
+from bsmap_tpu_torch.engine import kernels as K
+
+from .conftest import simulate
+
+HITS_K = 48
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_kernels")
+    for L in (50, 100, 130):
+        simulate(d, genome_out="ref.fa", reads_out=f"r{L}.fq", n_reads=300,
+                 read_len=L, chr_len=12000, n_chr=3, seed=5, error_rate=0.02)
+    simulate(d, genome_out="ref.fa", reads_out="rm_raw.fq", n_reads=300,
+             read_len=51, chr_len=12000, n_chr=3, seed=5, error_rate=0.02)
+    raw = (d / "rm_raw.fq").read_text().splitlines()
+    out = []
+    for k in range(0, len(raw), 4):
+        name, seq, plus, qual = raw[k: k + 4]
+        if (k // 4) % 2 == 0:
+            seq, qual = seq[:50], qual[:50]
+        out += [name, seq, plus, qual]
+    (d / "rmix.fq").write_text("\n".join(out) + "\n")
+
+    p = Param()
+    p.randseed = 1
+    p.init_mapping()
+    genome = load_genome(str(d / "ref.fa"), p)
+    index = build_index(genome, p)
+    je = J.DeviceEngine(genome, index, p)
+    tabs = T.tables_from_numpy(genome, index, p)
+    return {"dir": d, "genome": genome, "index": index, "je": je,
+            "tabs": tabs, "rows": {}}
+
+
+def _param(v: int) -> Param:
+    p = Param()
+    p.max_snp_num = v
+    p.randseed = 1
+    p.init_mapping()
+    return p
+
+
+def rows_of(world, name: str, v: int, maxrank: int) -> np.ndarray:
+    """(n, 2nw+4) int32 dispatch rows of one read set: budgets of -v v,
+    myrand selection hashes (-S 1), the given maxrank."""
+    key = (name, v)
+    if key not in world["rows"]:
+        p = _param(v)
+        s = open_read_stream(str(world["dir"] / name), p, readset=0)
+        batch = s.next_batch(100000)
+        s.close()
+        res = [None] * len(batch)
+        je = world["je"]
+        saved = je.param
+        je.param = p                 # budgets of this -v
+        try:
+            live, buds = je._filter_batch(batch, res)
+            codes, regs, lens, buds, _rs, ridx = je._pack_host(batch, live,
+                                                               buds)
+        finally:
+            je.param = saved
+        rows = J._pack_inputs(codes, regs, lens, buds, myrand_hash(ridx, 1),
+                              np.zeros(len(lens), np.int32))
+        if lens.max() <= 112:        # nw = 7 layout (native encoder's)
+            rows = np.concatenate([rows[:, :7], rows[:, 10:17],
+                                   rows[:, 20:]], axis=1)
+        world["rows"][key] = rows
+    rows = world["rows"][key].copy()
+    rows[:, -1] = maxrank
+    return rows
+
+
+def cfgs(world, v: int, nw: int, **kw):
+    """(JAX Cfg, port Cfg) of one program."""
+    je = world["je"]
+    p = _param(v)
+    maxseg = min(15, v) + 1
+    cj = J.make_cfg(p, je.W, je.genome.n_chr, "f", maxseg, nw=nw)._replace(**kw)
+    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields})
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_schedule(cfg):
+    return jax.jit(functools.partial(J._schedule_impl, cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_verify(cfg, cands):
+    return jax.jit(functools.partial(J._verify_impl, cfg, cands))
+
+
+def jax_schedule(world, cfg, rows):
+    a = world["je"]._engine_args()
+    qw, rw, lens, buds, rand32, maxrank = J._unpack_inputs(jnp.asarray(rows))
+    out = _jit_schedule(cfg)(a[0], a[1], a[2], a[14], a[3], a[4], qw, rw,
+                             lens, buds, maxrank)
+    return out, (lens, buds, rand32, maxrank)
+
+
+def jax_verify(world, cfg, cands, sched, scal):
+    a = world["je"]._engine_args()
+    qw, rw, h, off0, off3, wcnt, cnt, wantv, s_off, c_off, ftot_rank = sched
+    lens, buds, rand32, maxrank = scal
+    return np.asarray(_jit_verify(cfg, cands)(
+        a[5], a[6], a[7], a[8], a[9], a[10], a[11], a[12], a[13],
+        qw, rw, lens, buds, rand32, maxrank, h, off0, off3, wcnt, cnt,
+        wantv, s_off, c_off, ftot_rank[:, -1]))
+
+
+def port_schedule(world, cfg, rows):
+    t = world["tabs"]
+    r = torch.from_numpy(rows)
+    if cfg.fixed:
+        return K.fixed_schedule(cfg, r, t["kmer_tab"])
+    return K.exact_schedule(cfg, r, t["kmer_tab"], t["prof_a"],
+                            probe=cfg.probe)
+
+
+def assert_rows_equal(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    bad = np.nonzero((got != want).reshape(len(got), -1).any(axis=1))[0]
+    assert len(bad) == 0, (f"{what}: {len(bad)} rows differ, first "
+                           f"{bad[:3]}: {got[bad[0]]} vs {want[bad[0]]}")
+
+
+# (read set, -v, maxrank: 0 = round-1 start rank, -1 = full rank)
+SCHED_CASES = [("r100.fq", 2, 0), ("r130.fq", 4, -1), ("r50.fq", 4, 0),
+               ("rmix.fq", 2, -1)]
+
+
+@pytest.mark.parametrize("name,v,rank", SCHED_CASES)
+def test_fixed_schedule_twin_matches_jax(world, name, v, rank):
+    """K1 against _fixed_schedule_impl + the fixed branch of
+    _schedule_impl: slot rows and per-rank totals."""
+    rows = rows_of(world, name, v, 0)
+    nw = (rows.shape[1] - 4) // 2
+    cj, ct = cfgs(world, v, nw, fixed=True, lean=True)
+    rows[:, -1] = rank % ct.maxseg
+    want, _ = jax_schedule(world, cj, rows)
+    got = port_schedule(world, ct, rows)
+    for f, w in zip(("h", "off0", "off3", "wcnt", "cnt"), want[2:7]):
+        assert_rows_equal(getattr(got, f).numpy(), w, f"K1 {f}")
+    assert_rows_equal(got.ftot_rank.numpy(), want[10], "K1 ftot_rank")
+
+
+@pytest.mark.parametrize("name,v,rank", SCHED_CASES)
+def test_exact_schedule_twin_matches_jax(world, name, v, rank):
+    """K2 against _schedule_impl's exact path: slot rows, chosen start
+    offset, per-rank totals; and the probe pass's totals."""
+    rows = rows_of(world, name, v, 0)
+    nw = (rows.shape[1] - 4) // 2
+    cj, ct = cfgs(world, v, nw)
+    rows[:, -1] = rank % ct.maxseg
+    want, _ = jax_schedule(world, cj, rows)
+    got = port_schedule(world, ct, rows)
+    for f, w in zip(("h", "off0", "off3", "wcnt", "cnt", "s_off"),
+                    list(want[2:7]) + [want[8]]):
+        assert_rows_equal(getattr(got, f).numpy(), w, f"K2 {f}")
+    assert_rows_equal(got.ftot_rank.numpy(), want[10], "K2 ftot_rank")
+    probe = port_schedule(world, ct._replace(probe=True), rows)
+    assert_rows_equal(probe.ftot_rank.numpy(), want[10], "K2 probe totals")
+
+
+@pytest.mark.parametrize("name,v,cands", [("r100.fq", 2, 4096),
+                                          ("r130.fq", 4, 4096),
+                                          ("r100.fq", 4, 4)])
+def test_verify_candidates_twin_matches_jax(world, name, v, cands):
+    """K3's accepted-candidate lists against _verify_impl run with pair-end
+    semantics (no early exit) and hit compaction, which returns every
+    deduplicated in-budget candidate of a read in discovery order."""
+    rows = rows_of(world, name, v, 0)
+    nw = (rows.shape[1] - 4) // 2
+    cj, ct = cfgs(world, v, nw)
+    rows[:, -1] = ct.maxseg - 1
+    sched, scal = jax_schedule(world, cj, rows)
+    full = jax_verify(world, cj._replace(pe=True, hits_k=HITS_K), cands,
+                      sched, scal)
+    slots = port_schedule(world, ct, rows)
+    vc = K.verify_candidates(ct, cands, torch.from_numpy(rows), slots,
+                             world["tabs"])
+    starts = vc.starts.numpy().astype(np.int64)
+    info = vc.info.numpy()
+    NB, MS = ct.maxseg * ct.I, ct.maxseg
+    n = len(rows)
+    loc = np.zeros((n, HITS_K), np.int32)
+    w1 = np.full((n, HITS_K), -1, np.int32)
+    for r in range(n):
+        lo = starts[r * NB]
+        hi = min(starts[(r + 1) * NB], cands)
+        acc = [s for s in range(lo, hi) if info[s] & K.INFO_FIRST]
+        for j, s in enumerate(acc[:HITS_K]):
+            wmm = (info[s] >> K.INFO_WMM_SHIFT) & 0xFF
+            rank = (info[s] >> K.INFO_RANK_SHIFT) & 0x1F
+            loc[r, j] = vc.wloc[s]
+            w1[r, j] = wmm | (rank << 5) | (int(vc.chrp[s]) << 9)
+    ex = 2 * MS + J.N_EXTRAS
+    assert (w1 >= 0).any(), "no accepted candidates: vacuous comparison"
+    assert_rows_equal(loc, full[:, ex: ex + HITS_K], "K3 hit locs")
+    assert_rows_equal(w1, full[:, ex + HITS_K:], "K3 hit words")
+    totals = np.diff(np.append(starts[::NB][:n], starts[-1]))
+    assert_rows_equal(totals, full[:, 2 * MS + J.X_TOTAL], "K3 totals")
+    if cands < 100:
+        assert (totals > cands).any(), "small capacity did not overflow"
+
+
+@pytest.mark.parametrize("name,v,lean,fixed,cands", [
+    ("r100.fq", 2, True, True, 4096),
+    ("r100.fq", 4, True, False, 4),
+    ("r130.fq", 4, False, False, 4096),
+    ("rmix.fq", 2, False, False, 4096),
+])
+def test_reduce_reads_twin_matches_jax(world, name, v, lean, fixed, cands):
+    """K4 (on K3's output) against _verify_impl's per-read half: lean rows
+    (with the fixed-schedule multi bit) and full rows."""
+    rows = rows_of(world, name, v, 0)
+    nw = (rows.shape[1] - 4) // 2
+    cj, ct = cfgs(world, v, nw, lean=lean, fixed=fixed)
+    sched, scal = jax_schedule(world, cj, rows)
+    want = jax_verify(world, cj, cands, sched, scal)
+    slots = port_schedule(world, ct, rows)
+    r = torch.from_numpy(rows)
+    vc = K.verify_candidates(ct, cands, r, slots, world["tabs"])
+    got = K.reduce_reads(ct, cands, r, vc, slots).numpy()
+    assert_rows_equal(got, want, "K4 rows")
+
+
+def _jax_program(world, cfg, cands, rows):
+    B = J.DEV_BATCH
+    pad = np.zeros((B, rows.shape[1]), np.int32)
+    pad[: len(rows)] = rows
+    out = J._align_fused_kernel(cfg, cands, *world["je"]._engine_args(),
+                                jnp.asarray(pad))
+    return np.asarray(out)[: len(rows)]
+
+
+@pytest.mark.parametrize("name,v,mode,cands_per_b", [
+    ("r100.fq", 2, "fixed", 2),
+    ("r100.fq", 2, "exact_lean", 0),     # capacity 2: overflow rows
+    ("r130.fq", 4, "exact_full", 2),
+    ("rmix.fq", 2, "exact_full", 16),
+    ("r50.fq", 4, "probe", 0),
+    ("r130.fq", 4, "fixed", 0),
+])
+def test_align_program_matches_jax(world, name, v, mode, cands_per_b):
+    """The whole program: align_program on live rows only against
+    _align_fused_kernel on the same rows zero-padded to B, with the
+    capacity a multiple of B (or tiny, so some reads overflow)."""
+    rows = rows_of(world, name, v, 0)
+    nw = (rows.shape[1] - 4) // 2
+    kw = {"fixed": dict(fixed=True, lean=True), "exact_lean": dict(lean=True),
+          "exact_full": {}, "probe": dict(probe=True)}[mode]
+    cj, ct = cfgs(world, v, nw, **kw)
+    cands = cands_per_b * J.DEV_BATCH or 2
+    if not cands_per_b:
+        rows[:, -1] = ct.maxseg - 1      # full rank: several per read
+    want = _jax_program(world, cj, cands, rows)
+    got = K.align_program(ct, cands, world["tabs"],
+                          torch.from_numpy(rows)).numpy()
+    assert_rows_equal(got, want, f"align_program {mode}")
+    if ct.lean and cands == 2:
+        ok = (want[:, 1] & J.BIT_OK) != 0
+        big = (want[:, 1] & J.BIT_BIG) != 0
+        assert (~ok).any() and big.any(), "tiny capacity did not overflow"

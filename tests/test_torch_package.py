@@ -1,0 +1,134 @@
+"""Package rules of the PyTorch port: it imports without JAX, its host
+modules are byte-identical copies of ``bsmap_tpu``'s, wrappers run their
+twins (and count nothing) on CPU tensors, and on a CUDA machine each kernel
+equals its twin bit for bit."""
+
+import filecmp
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from .conftest import REPO, simulate
+
+COPIED = ["params.py", "encoding.py", "utils.py", "readio.py", "blockio.py",
+          "reference.py", "index.py", "trim.py", "native/__init__.py",
+          "native/bsmap_native.cpp", "output/sam.py",
+          "engine/host_engine.py"]
+PORT = REPO / "bsmap_tpu_torch"
+
+
+def test_port_imports_without_jax():
+    """Every port module imports with ``jax`` blocked, and none of them
+    pulls in ``bsmap_tpu`` (whose __init__ imports JAX)."""
+    mods = ["bsmap_tpu_torch.cli", "bsmap_tpu_torch.engine.device_engine",
+            "bsmap_tpu_torch.engine.kernels", "bsmap_tpu_torch.engine._build",
+            "bsmap_tpu_torch.blockio", "bsmap_tpu_torch.output.sam"]
+    code = ("import sys; sys.modules['jax'] = None\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'bsmap_tpu') and sys.modules[m] is not None]\n"
+              "assert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("rel", COPIED)
+def test_host_module_is_identical_copy(rel):
+    """The framework-free host modules are copied, not imported (importing
+    any bsmap_tpu module imports JAX); the copies stay byte-identical."""
+    assert filecmp.cmp(PORT / rel, REPO / "bsmap_tpu" / rel, shallow=False)
+
+
+def test_port_never_names_jax_or_bsmap_tpu_imports():
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|bsmap_tpu)\b", re.M)
+    for f in PORT.rglob("*.py"):
+        assert not pat.search(f.read_text()), f
+
+
+def _tiny(tmp_path):
+    simulate(tmp_path, genome_out="ref.fa", reads_out="r.fq", n_reads=200,
+             read_len=100, chr_len=12000, n_chr=2, seed=9, error_rate=0.02)
+    from bsmap_tpu_torch.engine import device_engine as T
+    from bsmap_tpu_torch.index import build_index
+    from bsmap_tpu_torch.params import Param
+    from bsmap_tpu_torch.readio import open_read_stream
+    from bsmap_tpu_torch.reference import load_genome
+    from bsmap_tpu_torch.utils import myrand_hash
+    p = Param()
+    p.randseed = 1
+    p.init_mapping()
+    genome = load_genome(str(tmp_path / "ref.fa"), p)
+    index = build_index(genome, p)
+    eng = T.DeviceEngine(genome, index, p, device="cpu")
+    s = open_read_stream(str(tmp_path / "r.fq"), p, readset=0)
+    batch = s.next_batch(1000)
+    s.close()
+    live, buds = eng._filter_batch(batch, [None] * len(batch))
+    codes, regs, lens, buds, _rs, ridx = eng._pack_host(batch, live, buds)
+    rows = T._pack_inputs(codes, regs, lens, buds, myrand_hash(ridx, 1),
+                          np.full(len(lens), 2, np.int32))
+    rows = np.concatenate([rows[:, :7], rows[:, 10:17], rows[:, 20:]], 1)
+    return eng, rows
+
+
+def test_wrappers_run_twins_on_cpu_and_count_nothing(tmp_path):
+    """A CPU tensor takes the plain twin: same rows as calling the twins
+    directly, and no kernel launch is counted."""
+    from bsmap_tpu_torch.engine import kernels as K
+    eng, rows = _tiny(tmp_path)
+    cfg = eng._cfg("f", lean=True, nw=7)
+    r = torch.from_numpy(rows)
+    K.reset_launch_counts()
+    out = K.align_program(cfg, eng.CANDS, eng.tables, r)
+    assert K.launch_counts() == {k.__name__: 0 for k in K.KERNELS}
+    slots = K.exact_schedule_plain(cfg, r, eng.tables["kmer_tab"],
+                                   eng.tables["prof_a"])
+    vc = K.verify_candidates_plain(cfg, eng.CANDS, r, slots, eng.tables)
+    want = K.reduce_reads_plain(cfg, eng.CANDS, r, vc, slots)
+    assert torch.equal(out, want)
+    assert int((out[:, 1] & 1).sum()) > 0          # reads were found
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_equal_twins(tmp_path):
+    """On a CUDA device: each kernel (built from csrc/ with nvcc for
+    sm_90a) against its plain-torch twin on the same device tensors, for
+    fixed/exact lean and full rows at both capacity tiers and the probe
+    pass; exact equality, and one counted launch per wrapper call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    eng, rows = _tiny(tmp_path)
+    tabs = {k: v.cuda() for k, v in eng.tables.items()}
+    r = torch.from_numpy(rows).cuda()
+    base = eng._cfg("f", lean=True, nw=7)
+    K.reset_launch_counts()
+    for cfg, cands in [(base._replace(fixed=True), eng.CANDS),
+                       (base, eng.CANDS), (base._replace(lean=False),
+                                           eng.CANDS_BIG), (base, 2)]:
+        if cfg.fixed:
+            s = K.fixed_schedule(cfg, r, tabs["kmer_tab"])
+            w = K.fixed_schedule_plain(cfg, r, tabs["kmer_tab"])
+        else:
+            s = K.exact_schedule(cfg, r, tabs["kmer_tab"], tabs["prof_a"])
+            w = K.exact_schedule_plain(cfg, r, tabs["kmer_tab"],
+                                       tabs["prof_a"])
+        assert all(torch.equal(a, b) for a, b in zip(s, w))
+        vc = K.verify_candidates(cfg, cands, r, s, tabs)
+        vw = K.verify_candidates_plain(cfg, cands, r, s, tabs)
+        assert all(torch.equal(a, b) for a, b in zip(vc, vw))
+        assert torch.equal(K.reduce_reads(cfg, cands, r, vc, s),
+                           K.reduce_reads_plain(cfg, cands, r, vc, s))
+    p = K.exact_schedule(base._replace(probe=True), r, tabs["kmer_tab"],
+                         tabs["prof_a"], probe=True)
+    assert torch.equal(p.ftot_rank, K.exact_schedule_plain(
+        base, r, tabs["kmer_tab"], tabs["prof_a"]).ftot_rank)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"fixed_schedule": 1, "exact_schedule": 4,
+                                 "verify_candidates": 4, "reduce_reads": 4}
