@@ -1,15 +1,16 @@
 """Command-line driver with the reference's option surface (main.cpp:182-289),
-running the single-end path on PyTorch.
+running the single-end and pair-end WGBS paths on PyTorch.
 
 Supports both ``-x val`` and ``-x=val`` forms.  Output format is chosen by
 the -o suffix: .sam = SAM, anything else = BSP (main.cpp:293-296).  The
 alignment engine is ``--engine device`` (the default: PyTorch, on the
 device named by ``--device``, CUDA kernels on a GPU) or ``--engine host``
 (the exact sequential oracle).  A device request never turns into the host
-engine.  Pair-end, RRBS, BAM output, ``-n 1`` and multi-process runs are
-not ported yet and exit with an error.
+engine.  RRBS, BAM output, ``-n 1`` and multi-process runs are not ported
+yet and exit with an error.
 
     python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam --device cuda
+    python -m bsmap_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -o out.sam
 """
 
 from __future__ import annotations
@@ -27,8 +28,12 @@ from .utils import RandR, StepTimer
 
 USAGE = """Usage: bsmap_tpu_torch [options]
        -a  <str>   query a file, FASTA/FASTQ format
+       -b  <str>   query b file (pair-end mate 2)
        -d  <str>   reference sequences file, FASTA format
        -o  <str>   output alignment file, BSP/SAM format
+       -2  <str>   output file of unpaired hits (pair-end BSP output)
+       -m  <int>   minimal insert size (pair-end), default 28
+       -x  <int>   maximal insert size (pair-end), default 500
        -s  <int>   seed size, default=16. min=8, max=16
        -v  <int>   max mismatches per read (<=15), default=2
        -w  <int>   max equal best hits to count (<=1000)
@@ -51,8 +56,8 @@ USAGE = """Usage: bsmap_tpu_torch [options]
                                cuda; cpu runs the kernels' plain twins)
        --index-cache <dir>     persist/reuse the seed index
        -h          help
-   Not ported yet (see ROADMAP.md): -b (pair-end), -D (RRBS), -n 1,
-   .bam output, -p > 1, --nprocs.
+   Not ported yet (see ROADMAP.md): -D (RRBS), -n 1, .bam output,
+   -p > 1, --nprocs.
 """
 
 
@@ -64,8 +69,10 @@ class Options:
     def __init__(self) -> None:
         self.param = Param()
         self.query_a = ""
+        self.query_b = ""
         self.ref_file = ""
         self.out_file = ""
+        self.out_unpair = ""
         self.engine = "device"
         self.device = "cuda"
         self.index_cache = os.environ.get("BSMAP_TPU_INDEX_CACHE", "")
@@ -111,13 +118,14 @@ def parse_args(argv: list[str]) -> Options:
             if c == "a":
                 o.query_a = val()
             elif c == "b":
-                _unported("pair-end alignment (-b)")
+                o.query_b = val()
+                p.pairend = 1
             elif c == "d":
                 o.ref_file = val()
             elif c == "o":
                 o.out_file = val()
             elif c == "2":
-                _unported("pair-end unpaired output (-2)")
+                o.out_unpair = val()
             elif c == "s":
                 p.set_seed_size(int(val()))
             elif c == "m":
@@ -213,7 +221,8 @@ def make_engine(o: Options, genome, index):
 
 def run(argv: list[str], stats: dict | None = None) -> int:
     """Run the CLI on ``argv``; returns the exit code.  A ``stats`` dict
-    receives the alignment phase's ``reads``, ``align_s`` and ``engine``."""
+    receives the alignment phase's ``reads`` (SE) or ``pairs`` (PE),
+    ``align_s`` and ``engine``."""
     if not argv:
         print(USAGE)
         return 1
@@ -236,7 +245,11 @@ def run(argv: list[str], stats: dict | None = None) -> int:
           f" {timer.total():.1f} secs passed")
     index = get_index(o, genome)
     print(f"Create seed table. {timer.total():.1f} secs passed")
-    run_single_end(o, genome, index, stats=stats)
+    if o.query_a and o.query_b:
+        from .engine.pair_pipeline import run_pair_end
+        run_pair_end(o, genome, index, stats=stats)
+    else:
+        run_single_end(o, genome, index, stats=stats)
     print(f"Total time consumed:  {timer.total():.1f} secs")
     return 0
 

@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels (``csrc/*.cu``) at first use.
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ctypes.  The library lands in
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one process
+per ``.cu`` file, all started together, and linked into one shared library
+with a plain C interface, loaded with ctypes.  The library lands in
 ``bsmap_tpu_torch/_build/``, named by a hash of the sources, so an edited
 kernel is rebuilt and an unchanged one is loaded as built.  Nothing here
 runs at import time: a machine without ``nvcc`` or a GPU imports the
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -41,7 +42,9 @@ _SIGNATURES = {
                                 _P, _I, _P, _I, _P, _P, _P, _L, _P, _L, _I,
                                 _P, _P, _P, _P, _P, _P, _P],
     "bsmap_reduce_reads": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _I, _I, _P, _P],
+                           _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "bsmap_rc_words": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "bsmap_pair_join": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -70,21 +73,42 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the kernels unless this source hash is built; returns the
-    library path.  The compiler's resource report (-Xptxas -v) is kept
-    beside the library as ``<name>.log``."""
+    library path.  Every ``.cu`` compiles in its own nvcc process, all in
+    parallel, then one nvcc links them.  The compiler's resource report
+    (-Xptxas -v) is kept beside the library as ``<name>.log``."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in sources() if s.endswith(".cu")]]
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{so[:-3]}.{os.getpid()}"
+    nvcc = _nvcc()
+    cus = [s for s in sources() if s.endswith(".cu")]
+    objs = [f"{tag}.{os.path.basename(c)[:-3]}.o" for c in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, c] for c, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [pr.communicate()[0] for pr in procs]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", f"{tag}.tmp", *objs]
+    r = (subprocess.run(link, capture_output=True, text=True)
+         if all(pr.returncode == 0 for pr in procs) else None)
     with open(so[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        for c, out in zip(cmds, outs):
+            f.write(" ".join(c) + "\n" + out)
+        if r is not None:
+            f.write(" ".join(link) + "\n" + r.stdout + r.stderr)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [(c, out) for c, out, pr in zip(cus, outs, procs)
+              if pr.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{os.path.basename(c)}:\n{out}" for c, out in failed))
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, so)
+        raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                           f"{r.stderr}")
+    os.replace(f"{tag}.tmp", so)
     return so
 
 

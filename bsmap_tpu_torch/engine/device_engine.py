@@ -45,6 +45,10 @@ from ..trim import filter_read
 from ..utils import myrand_hash
 from . import kernels
 from .host_engine import HostEngine, SEResult
+# full result row layout: counts, then the X_* extras K4 writes
+from .kernels import (N_EXTRAS, X_CHAIN, X_CHRP, X_COFF, X_FOUND, X_FTOT,
+                      X_H00C, X_H00F, X_H00W, X_II, X_OK, X_REPLAY,
+                      X_RESOLVED, X_SOFF, X_SSUM, X_WLOC)
 
 # reads per dispatch window / candidate capacity per read of the window's B
 # (the same environment variables as bsmap_tpu, so one test configuration
@@ -61,42 +65,54 @@ class EngineUnsupported(RuntimeError):
     ported yet; there is no fallback to another engine."""
 
 
+def rc_tuple_of(param) -> tuple:
+    """Static 2-bit complement permutation + RC 'N' code for a Param."""
+    rc = tuple(int(param.alphabet[REV_CHAR[ord(param.useful_nt[c])]])
+               for c in range(4))
+    return rc, int(param.rev_alphabet[ord("N")])
+
+
 def make_cfg(param, W: int, n_chr: int, chains_mode: str, maxseg: int,
              lean: bool = False, nw: int = FIXELEMENT) -> "Cfg":
     """Kernel Cfg from a Param + genome shape facts alone."""
     S, I = param.seed_size, param.index_interval
     P = min(16 * nw - S + 1, maxseg * S + 2 * I)
+    rc, rc_n = rc_tuple_of(param)
     return Cfg(S=S, I=I, maxseg=maxseg, chains_mode=chains_mode, P=P,
                max_num_hits=param.max_num_hits,
                report_repeat_hits=param.report_repeat_hits,
-               W=W, n_chr=n_chr, lean=lean, nw=nw)
+               W=W, n_chr=n_chr, lean=lean, min_ins=param.min_insert,
+               max_ins=param.max_insert, rc=rc, rc_n=rc_n, nw=nw)
 
 
 class Cfg(NamedTuple):
     """Static configuration of one device program: the fields of
-    ``bsmap_tpu``'s Cfg that the single-end forward-chain program reads."""
+    ``bsmap_tpu``'s Cfg that the WGBS single-chain programs read."""
 
     S: int
     I: int
     maxseg: int            # seed segments per read: min(MAXSNPS, -v) + 1
-    chains_mode: str       # 'f' fwd-only ('r'/'b' are not ported yet)
+    chains_mode: str       # 'f' fwd-only, 'r' rc-only ('b' not ported yet)
     P: int                 # seed positions in the schedule table
     max_num_hits: int
     report_repeat_hits: int
     W: int                 # words per catcat half
     n_chr: int
     lean: bool = False     # 3-int32 packed rows (SAM fast path) vs full rows
+    pe: bool = False       # pair-end enumeration: no progressive early exit
+                           # (PairAlign runs every segment, pairs.cpp:163),
+                           # no -r 0 abort (align.cpp:210 pairend guard)
+    hits_k: int = 0        # also emit up to K compacted hits per read
+    min_ins: int = 0       # PE insert window (-m/-x) of the pair join
+    max_ins: int = 0
+    rc: tuple = (3, 2, 1, 0)   # 2-bit complement permutation (rc_code)
+    rc_n: int = 3          # rev_alphabet['N'] code for RC-chain N lanes
     probe: bool = False    # totals-only pre-pass: stage 1 alone, returns
                            # the (B, maxseg) per-rank candidate totals
     fixed: bool = False    # fixed-schedule stage 1 (pigeonhole covering at
                            # offset 0, cheapest segment first)
     nw: int = FIXELEMENT   # packed words per read: 7 for reads <= 112 nt
 
-
-N_EXTRAS = 17
-(X_FOUND, X_II, X_SSUM, X_CHAIN, X_CHRP, X_WLOC, X_H00F, X_H00C, X_H00W,
- X_REPLAY, X_TOTAL, X_SOFF, X_COFF, X_OK, X_BIG, X_RESOLVED,
- X_FTOT) = range(N_EXTRAS)
 
 # lean row bit layout (word 1; word 0 = watson loc), shared with the native
 # formatter (bsmap_native.cpp)
@@ -198,6 +214,24 @@ def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
     }
 
 
+def pack_spans(demand, B: int, cands: int, cands_big: int):
+    """Exact bin-packing of reads in order: (start, end, capacity) spans of
+    at most B reads whose summed per-read candidate demand (each at least
+    1) fits ``cands_big``; a span that fits ``cands`` gets the small tier."""
+    csum = np.cumsum(np.maximum(np.asarray(demand, dtype=np.int64), 1))
+    spans = []
+    s = 0
+    base = 0
+    for k in range(len(csum)):
+        if k - s == B or csum[k] - base > cands_big:
+            spans.append((s, k))
+            s = k
+            base = csum[k - 1]
+    spans.append((s, len(csum)))
+    return [(a, b, cands if csum[b - 1] - (csum[a - 1] if a else 0) <= cands
+             else cands_big) for a, b in spans]
+
+
 class DeviceEngine:
     def __init__(self, genome: PackedGenome, index: SeedIndex, param: Param,
                  device: torch.device | str = "cuda"):
@@ -272,9 +306,9 @@ class DeviceEngine:
 
     def _cfg(self, chains_mode: str, lean: bool = False,
              nw: int = FIXELEMENT) -> Cfg:
-        if chains_mode != "f":
+        if chains_mode not in ("f", "r"):
             raise EngineUnsupported(f"the '{chains_mode}' read chains "
-                                    f"(-n 1, PE mate 2) are {UNPORTED}")
+                                    f"(-n 1) are {UNPORTED}")
         return make_cfg(self.param, self.W, self.genome.n_chr, chains_mode,
                         self._maxseg, lean=lean, nw=nw)
 
@@ -545,24 +579,12 @@ class DeviceEngine:
             """Exactly bin-packed dispatches over reads `rem` (batch order)
             whose per-read candidate demand at this maxrank is `demand`.
             With collect_now=False the pending list is returned."""
-            d = np.maximum(np.asarray(demand, dtype=np.int64), 1)
-            csum = np.cumsum(d)
-            spans = []
-            s = 0
-            base = 0
-            for k in range(len(rem)):
-                if k - s == self.B or csum[k] - base > self.CANDS_BIG:
-                    spans.append((s, k))
-                    s = k
-                    base = csum[k - 1]
-            spans.append((s, len(rem)))
             pend = []
             t0 = _time.time()
             ranks = np.full(n, maxrank, dtype=np.int32)
-            for a, b in spans:
+            for a, b, cap in pack_spans(demand, self.B, self.CANDS,
+                                        self.CANDS_BIG):
                 sel = rem[a: b]
-                mass = int(csum[b - 1] - (csum[a - 1] if a else 0))
-                cap = self.CANDS if mass <= self.CANDS else self.CANDS_BIG
                 out = self._dispatch(cfg, self._window_rows(rows, sel, ranks),
                                      cap)
                 pend.append((sel, out))

@@ -1,0 +1,655 @@
+"""PyTorch pair-end engine: the port of ``bsmap_tpu.engine.pair_device``.
+
+The reference's lockstep escalation (pairs.cpp:137-190) is a pure function
+of the complete per-mate hit enumerations: a hit with w mismatches found at
+segment rank r is available for pairing at step i iff r <= i, and GetPairs
+at step i sweeps the (na, nb) combos with max(na, nb) == i, so the winning
+step is
+
+    i* = min over valid pairs of max(na, nb)   with rank_a, rank_b <= max(na, nb).
+
+Both mates therefore run the SE program once with ``cfg.pe`` (every
+segment, no early exit, no -r 0 abort) and ``hits_k`` compacted hits per
+read; mate 2 runs on the reverse-complement chain.  The pairing is a K x K
+join.
+
+  * Block path (SAM without trimming or -R): ``kernels.pair_program`` runs
+    both mates and the join on the device (K5, K2, K3, K4, K6) and only the
+    (n, 11) J_* rows come back.  Phase 1 enumerates rank 0 for every pair
+    and commits the pairs with i* == 0 (the reference stops at step 0 with
+    exactly the rank-0 hits); phase 2 re-dispatches the rest at full rank,
+    bin-packed by the per-pair candidate totals of phase 1.
+  * Per-pair path (BSP with -2, -R, trimming): two SE dispatches per window
+    (K5, K2, K3, K4) whose full rows come back to the host for the Python
+    formatter, then K6 on those rows.
+
+Sequential corners replay the PAIR on the exact host engine
+(PairHostEngine) with the per-mate MateState kept bit-exact: per-mate
+bucket-cap tightening and more than K hits (the K4 replay bit), a pairhits
+bucket reaching max_num_hits, stale seed-schedule reads, -S 0 draws, and
+pairs with a filtered mate.
+"""
+
+from __future__ import annotations
+
+import time as _time
+
+import numpy as np
+import torch
+
+from ..index import SeedIndex
+from ..params import FIXELEMENT, MAXSNPS, Param, REG_ALPHABET, REV_CHAR
+from ..readio import Read
+from ..reference import PackedGenome
+from ..trim import filter_read
+from ..utils import myrand_hash
+from . import kernels
+from .device_engine import (DeviceEngine, EngineUnsupported, UNPORTED,
+                            _pack_inputs, pack_spans)
+from .host_engine import SEResult
+from .kernels import (JN_COLS, N_EXTRAS, X_COFF, X_FTOT, X_OK, X_REPLAY,
+                      X_SOFF)
+from .pair_host import PairHit, PairHostEngine, PairResult, fix_pair_read_name
+
+PAIR_HITS_K = 16
+
+# compact join row layout, int32 x 11 (pair_device.py:63-70)
+(J_ALOC, J_BLOC, J_INS, J_WLOC_A, J_WLOC_B, J_FTOT, J_PAIR, J_CHRS,
+ J_MATE_A, J_MATE_B, J_FLAGS) = range(JN_COLS)
+# J_PAIR: paired(5b) | cnt<<5 (11b, clamped 2047) | chain<<16 | na<<17 (4b)
+#         | nb<<21 (4b)
+# J_CHRS: a_chr | b_chr<<16
+# J_MATE_*: found | sch<<1 | ii<<2 (4b) | min(ssum,1023)<<6 | chrp<<16
+# J_FLAGS: replay_a | replay_b<<1 | ok_both<<2 | cap_join<<3
+
+
+class _SelList:
+    """Stand-in for a per-level hit list when only the reproducibly-selected
+    element will ever be indexed (string_align_unpair's myrand pick)."""
+
+    def __init__(self, n: int, hit):
+        self._n = n
+        self._hit = hit
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, k):
+        return self._hit
+
+
+class PairSEView:
+    """SEResult-compatible view of one mate's full kernel row (counts +
+    the exact sorted-order selection), for the unpaired-fallback formatter.
+    The hit-list views are built lazily: properly-paired pairs never touch
+    them."""
+
+    filtered = False
+    aborted_repeat = False
+    __slots__ = ("n_hit", "n_chit", "read_max_snp_num", "_hit",
+                 "_hits", "_chits")
+
+    def __init__(self, row: np.ndarray, maxseg: int, budget: int, hit):
+        counts = row[: 2 * maxseg].reshape(maxseg, 2)
+        self.n_hit = np.zeros(MAXSNPS + 1, dtype=np.int64)
+        self.n_chit = np.zeros(MAXSNPS + 1, dtype=np.int64)
+        self.n_hit[:maxseg] = counts[:, 0]
+        self.n_chit[:maxseg] = counts[:, 1]
+        self.read_max_snp_num = budget
+        # `hit` is the exact draw: the myrand-index-th entry of the
+        # concatenated fwd-then-rc (chr, loc)-sorted best-level lists,
+        # recomputed by K6 from the K compacted hits
+        self._hit = hit
+        self._hits = None
+        self._chits = None
+
+    @property
+    def hits(self):
+        if self._hits is None:
+            self._hits = [_SelList(int(h), self._hit) for h in self.n_hit]
+        return self._hits
+
+    @property
+    def chits(self):
+        if self._chits is None:
+            self._chits = [_SelList(int(h), self._hit) for h in self.n_chit]
+        return self._chits
+
+
+class PairDeviceEngine:
+    """Batch PE aligner on one torch device: one ``pair_program`` per
+    window on the block path, two SE dispatches + K6 per window on the
+    per-pair path."""
+
+    def __init__(self, genome: PackedGenome, index: SeedIndex, param: Param,
+                 device: torch.device | str = "cuda"):
+        if param.RRBS_flag:
+            raise EngineUnsupported(f"RRBS is {UNPORTED}")
+        # -S 0 (the reference default) is handled like the SE engine does:
+        # the sequential rand_r draws fire only for a multi-hit pair
+        # (pairs.cpp:235) or an unpaired mate with >1 best hits
+        # (pairs.cpp:258,271) — those pairs replay on the exact host engine;
+        # draw-free pairs stay on the device and consume nothing
+        self.param = param
+        self.se = DeviceEngine(genome, index, param, device=device)
+        self.pair_host = PairHostEngine(self.se.host)   # exact replay path
+        self.K = PAIR_HITS_K
+        self.MS = self.se._maxseg
+        self.n_replayed = 0
+
+    def _cfg(self, readset: int, nw: int = FIXELEMENT):
+        mode = "b" if self.param.chains else ("f" if readset == 1 else "r")
+        return self.se._cfg(mode, nw=nw)._replace(
+            pe=True, hits_k=self.K, min_ins=self.param.min_insert,
+            max_ins=self.param.max_insert)
+
+    def supports_pair_blocks(self) -> bool:
+        """SAM PE output without trimming/-R runs on the native block path;
+        everything else uses the per-pair path."""
+        from .. import native
+        p = self.param
+        return (native.get_lib() is not None and not p.adapters
+                and p.qual_threshold == 0 and p.out_sam >= 1
+                and not p.out_ref)
+
+    # -- dispatch core ---------------------------------------------------------
+
+    def _pair_join(self, cfg, rows_a, rows_b, in_a, in_b) -> np.ndarray:
+        """K6 on host full rows: uploads them to the engine's device and
+        returns the (n, 11) J_* rows."""
+        dev = self.se.device
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (rows_a, rows_b, in_a, in_b)]
+        return kernels.pair_join(cfg, *t).cpu().numpy()
+
+    def _align_join(self, rows_in_a, rows_in_b, cfg_a, cfg_b):
+        """Two-phase dispatch over both mates' dispatch rows, then K6 on the
+        collected full rows (the per-pair path).
+
+        Phase 1 enumerates RANK 0 ONLY: the reference's step-0 pairing
+        sweeps exactly the hits its cheapest segments discovered
+        (pairs.cpp:163-172 breaks at the first step with a pair), so a
+        complete rank-0 enumeration fully determines every i*==0 pair —
+        the winning set, count, sweep order AND the mates' hit lists as the
+        reference's formatter sees them.  Pairs without a step-0 pair
+        re-dispatch ONCE at full rank, exactly bin-packed by the rank-0
+        round's full-rank totals.
+
+        Returns (rows_a, rows_b, jrows)."""
+        se = self.se
+        MS, K = self.MS, self.K
+        n = rows_in_a.shape[0]
+        width = 2 * MS + N_EXTRAS + 2 * K
+        rows_a = np.zeros((n, width), dtype=np.int32)
+        rows_b = np.zeros((n, width), dtype=np.int32)
+        okp = np.zeros(n, dtype=bool)
+        ftot = np.zeros(n, dtype=np.int64)
+
+        def collect_pair(sel, ra_, rb_, into_ok):
+            okb = (ra_[:, 2 * MS + X_OK] != 0) & \
+                  (rb_[:, 2 * MS + X_OK] != 0)
+            # per-dispatch capacity must hold BOTH mates' enumerations
+            ftot[sel] = np.maximum(ra_[:, 2 * MS + X_FTOT],
+                                   rb_[:, 2 * MS + X_FTOT])
+            rows_a[sel[okb]] = ra_[okb]
+            rows_b[sel[okb]] = rb_[okb]
+            into_ok[sel[okb]] = True
+
+        def dispatch_all(spans, rank, into_ok):
+            ranks = np.full(n, rank, dtype=np.int32)
+            pend = []
+            for sel, cap in spans:
+                for cfg, rows in ((cfg_a, rows_in_a), (cfg_b, rows_in_b)):
+                    pend.append(se._dispatch(
+                        cfg, se._window_rows(rows, sel, ranks), cap))
+                    se.n_dispatched += 1
+            arrs = se._collect(pend)
+            for k, (sel, _) in enumerate(spans):
+                collect_pair(sel, arrs[2 * k], arrs[2 * k + 1], into_ok)
+
+        def replay(ks):
+            rows_a[ks] = 0
+            rows_a[ks, 2 * MS + X_REPLAY] = 1    # -> J_FLAGS replay_a
+            rows_b[ks] = 0
+
+        def join(sel):
+            return self._pair_join(cfg_a, rows_a[sel], rows_b[sel],
+                                   rows_in_a[sel], rows_in_b[sel])
+
+        # --- phase 1: rank-0 windows at the small capacity ------------------
+        dispatch_all([(np.arange(i, min(i + se.B, n), dtype=np.int64),
+                       se.CANDS) for i in range(0, n, se.B)], 0, okp)
+        jrows = join(np.arange(n))
+        commit = okp & ((jrows[:, J_PAIR] & 31) == 1)   # i* == 0: exact
+
+        # --- phase 2: full rank for the rest, exactly bin-packed -----------
+        redo = np.nonzero(~commit)[0]
+        cap_max = min(se.CANDS_BIG, (1 << 27) - 1)
+        replay(redo[ftot[redo] >= cap_max])
+        rem = redo[ftot[redo] < cap_max]
+        if len(rem):
+            ok2 = np.zeros(n, dtype=bool)
+            dispatch_all([(rem[a0: b0], cap) for a0, b0, cap in pack_spans(
+                ftot[rem], se.B, se.CANDS, se.CANDS_BIG)], MS - 1, ok2)
+            replay(rem[~ok2[rem]])               # defensive
+        if len(redo):
+            jrows[redo] = join(redo)
+        return rows_a, rows_b, jrows
+
+    def _dispatch_pair(self, cfg_a, cfg_b, rows_a, rows_b, cap: int):
+        """Enqueue ``pair_program`` on two (m <= B, 2nw+4) windows; returns
+        the device (m, 11) J_* rows."""
+        se = self.se
+        t0 = _time.time()
+        da = torch.from_numpy(rows_a).to(se.device)
+        db = torch.from_numpy(rows_b).to(se.device)
+        se.t_h2d += _time.time() - t0
+        t0 = _time.time()
+        out = kernels.pair_program(cfg_a, cfg_b, cap, se.tables, da, db)
+        se.t_call += _time.time() - t0
+        se.n_dispatched += 1
+        return out
+
+    def _align_join_fused(self, rows_in_a, rows_in_b, cfg_a, cfg_b):
+        """Two-phase dispatch of ``pair_program``: phase 1 at rank 0
+        (enqueued here; commits every i*==0 pair), phase 2 full-rank
+        bin-packed for the rest.  Returns finish() -> (n, 11) J_* rows."""
+        se = self.se
+        MS = self.MS
+        n = rows_in_a.shape[0]
+        jrows = np.zeros((n, JN_COLS), dtype=np.int32)
+
+        def dispatch(sel, cap, rank):
+            ranks = np.full(n, rank, dtype=np.int32)
+            return sel, self._dispatch_pair(
+                cfg_a, cfg_b, se._window_rows(rows_in_a, sel, ranks),
+                se._window_rows(rows_in_b, sel, ranks), cap)
+
+        t0 = _time.time()
+        pend1 = [dispatch(np.arange(i, min(i + se.B, n), dtype=np.int64),
+                          se.CANDS, 0)
+                 for i in range(0, n, se.B)]
+        se.t_enqueue += _time.time() - t0
+
+        def collect(pend):
+            for (sel, _), arr in zip(pend, se._collect([o for _, o in pend])):
+                jrows[sel] = arr
+
+        def finish():
+            collect(pend1)
+            ok = (jrows[:, J_FLAGS] >> 2) & 1
+            paired = jrows[:, J_PAIR] & 31
+            commit = (ok == 1) & (paired == 1)      # i* == 0: exact
+            ftot = jrows[:, J_FTOT].astype(np.int64)
+            rem = np.nonzero(~commit)[0]
+            cap_max = min(se.CANDS_BIG, (1 << 27) - 1)
+            too_big = rem[ftot[rem] >= cap_max]
+            jrows[too_big] = 0
+            jrows[too_big, J_FLAGS] = 1             # replay
+            rem = rem[ftot[rem] < cap_max]
+            if len(rem):
+                t0 = _time.time()
+                pend2 = [dispatch(rem[a0: b0], cap, MS - 1)
+                         for a0, b0, cap in pack_spans(
+                             ftot[rem], se.B, se.CANDS, se.CANDS_BIG)]
+                se.t_enqueue += _time.time() - t0
+                collect(pend2)
+                bad = rem[((jrows[rem, J_FLAGS] >> 2) & 1) == 0]
+                jrows[bad] = 0
+                jrows[bad, J_FLAGS] = 1             # replay (defensive)
+            return jrows
+
+        return finish
+
+    def _replay_flag(self, jrows, risk):
+        """Pairs whose exact output needs the sequential host engine: a
+        mate's K4 replay bit (bucket cap, more than K hits), a pairhits
+        bucket at max_num_hits, stale seed-schedule reads, -r 0 multi-pairs
+        past step 0 (their fallback hit lists froze at step i*), and under
+        -S 0 every pair whose output consumes a sequential rand_r draw."""
+        p = self.param
+        flags = jrows[:, J_FLAGS]
+        paired = jrows[:, J_PAIR] & 31
+        cnt = (jrows[:, J_PAIR] >> 5) & 2047
+        flag = ((flags & 3) != 0) | (((flags >> 3) & 1) != 0) | risk
+        if p.report_repeat_hits == 0:
+            flag = flag | ((paired > 1) & (cnt > 1))
+        if p.randseed == 0:
+            fnd_a = (jrows[:, J_MATE_A] & 1) != 0
+            fnd_b = (jrows[:, J_MATE_B] & 1) != 0
+            ss_a = (jrows[:, J_MATE_A] >> 6) & 1023
+            ss_b = (jrows[:, J_MATE_B] >> 6) & 1023
+            flag = flag | ((paired > 0) & (cnt > 1)) \
+                | ((paired == 0) & ((fnd_a & (ss_a != 1))
+                                    | (fnd_b & (ss_b != 1))))
+        return flag
+
+    @staticmethod
+    def _prow_from_jrows(jrows):
+        """Decode compact join rows into the native formatter's 22-col
+        prow layout: paired, cnt, chain, na, nb, insert, a_chr, a_loc,
+        b_chr, b_loc, then per mate found, ii, ssum, chain, chrp, wloc."""
+        j = jrows
+        pairw = j[:, J_PAIR]
+        ma, mb = j[:, J_MATE_A], j[:, J_MATE_B]
+        return np.stack([
+            pairw & 31, (pairw >> 5) & 2047, (pairw >> 16) & 1,
+            (pairw >> 17) & 15, (pairw >> 21) & 15, j[:, J_INS],
+            j[:, J_CHRS] & 0xFFFF, j[:, J_ALOC],
+            (j[:, J_CHRS] >> 16) & 0xFFFF, j[:, J_BLOC],
+            ma & 1, (ma >> 2) & 15, (ma >> 6) & 1023, (ma >> 1) & 1,
+            (ma >> 16) & 0xFFFF, j[:, J_WLOC_A],
+            mb & 1, (mb >> 2) & 15, (mb >> 6) & 1023, (mb >> 1) & 1,
+            (mb >> 16) & 0xFFFF, j[:, J_WLOC_B],
+        ], axis=1).astype(np.int32)
+
+    # -- per-pair path ---------------------------------------------------------
+
+    def _host_pair(self, ra: Read, rb: Read, fa: bool, fb: bool,
+                   bud_a: int, bud_b: int) -> PairResult:
+        """PairHostEngine.align_pair (pairs.cpp:198-217) on a pair this
+        engine has already filtered.  FilterReads trims in place, so a
+        second pass could trim again (an adapter-like tail left by the
+        first cut, the -z quality rescale); bsmap_tpu's device engine runs
+        it twice on replayed pairs, the reference and its host engine
+        once."""
+        ph = self.pair_host
+        if not fa and not fb:
+            return ph._run_pair(ra, rb, bud_a, bud_b)
+        return PairResult(
+            paired=0, pairhits=[],
+            res_a=(SEResult(filtered=True) if fa
+                   else ph.single.run_align(ra, bud_a, ph.state_a)),
+            res_b=(SEResult(filtered=True) if fb
+                   else ph.single.run_align(rb, bud_b, ph.state_b)),
+            filtered_a=fa, filtered_b=fb)
+
+    def align_batch(self, batch_a: list[Read], batch_b: list[Read]):
+        p = self.param
+        se = self.se
+        n0 = len(batch_a)
+        results: list = [None] * n0
+
+        filt_a = np.zeros(n0, dtype=bool)
+        filt_b = np.zeros(n0, dtype=bool)
+        buds_a0 = np.zeros(n0, dtype=np.int32)
+        buds_b0 = np.zeros(n0, dtype=np.int32)
+        for i, (ra, rb) in enumerate(zip(batch_a, batch_b)):
+            fa, ba = filter_read(ra, p)
+            fb, bb = filter_read(rb, p)
+            fix_pair_read_name(ra, rb, p)
+            filt_a[i], filt_b[i] = fa, fb
+            buds_a0[i], buds_b0[i] = ba, bb
+
+        live = ~(filt_a | filt_b)
+        live_pos = np.nonzero(live)[0]
+        n = len(live_pos)
+        MS = self.MS
+
+        if n:
+            idxs = [int(i) for i in live_pos]
+            arrs_a = se._pack_host(batch_a, idxs, buds_a0[live_pos])
+            arrs_b = se._pack_host(batch_b, idxs, buds_b0[live_pos])
+            ca, ga, la, ba_, _, ridx_a = arrs_a
+            cb, gb, lb, bb_, _, ridx_b = arrs_b
+            if p.randseed == 0:
+                # draw-dependent pairs replay below; j = 0 % 1 for the rest
+                rand_a = np.zeros(n, dtype=np.uint32)
+                rand_b = np.zeros(n, dtype=np.uint32)
+            else:
+                rand_a = myrand_hash(ridx_a, p.randseed)
+                rand_b = myrand_hash(ridx_b, p.randseed)
+            rows_in_a = _pack_inputs(ca, ga, la, ba_, rand_a,
+                                     np.full(n, MS - 1, np.int32))
+            rows_in_b = _pack_inputs(cb, gb, lb, bb_, rand_b,
+                                     np.full(n, MS - 1, np.int32))
+            cfg_a, cfg_b = self._cfg(1), self._cfg(2)
+            risk = se._stale_risk(la, ba_) | se._stale_risk(lb, bb_)
+            rows_a, rows_b, jrows = self._align_join(rows_in_a, rows_in_b,
+                                                     cfg_a, cfg_b)
+            replay_flag = self._replay_flag(jrows, risk)
+            prow = self._prow_from_jrows(jrows)
+        else:
+            replay_flag = np.zeros(0, dtype=bool)
+            la = lb = None
+            rows_a = rows_b = np.zeros((0, 1), dtype=np.int32)
+
+        # --- in-order assembly with exact dual MateState maintenance --------
+        # All host-path pairs (replays, and pairs with a filtered mate whose
+        # surviving mate runs SE-style: pairs.cpp:206-212) must mutate the
+        # per-mate states in BATCH order; device spans in between are synced
+        # lazily before any host pair that may read stale state.
+        st_a, st_b = self.pair_host.state_a, self.pair_host.state_b
+        read_a = lambda t: batch_a[int(live_pos[t])]  # noqa: E731
+        read_b = lambda t: batch_b[int(live_pos[t])]  # noqa: E731
+        live_row = np.full(n0, -1, dtype=np.int64)
+        live_row[live_pos] = np.arange(n)
+
+        def sync_to(cursor: int, t: int) -> int:
+            se._sync_state_span(read_a, cursor, t,
+                                rows_a[:, 2 * MS + X_SOFF],
+                                rows_a[:, 2 * MS + X_COFF], la,
+                                replay_flag, "f", state=st_a)
+            se._sync_state_span(read_b, cursor, t,
+                                rows_b[:, 2 * MS + X_SOFF],
+                                rows_b[:, 2 * MS + X_COFF], lb,
+                                replay_flag, "r", state=st_b)
+            return t
+
+        cursor = 0
+        next_live = 0
+        for i in range(n0):
+            t = int(live_row[i])
+            if t >= 0:
+                next_live = t + 1
+                if not replay_flag[t]:
+                    continue
+                if risk[t]:
+                    cursor = sync_to(cursor, t) + 1
+                self.n_replayed += 1
+            else:
+                # filtered-mate pair: the surviving mate's run_align may
+                # read schedule state -> sync the preceding device span
+                cursor = sync_to(cursor, next_live)
+            results[i] = self._host_pair(batch_a[i], batch_b[i], filt_a[i],
+                                         filt_b[i], int(buds_a0[i]),
+                                         int(buds_b0[i]))
+        if n:
+            sync_to(cursor, n)
+
+        for t in range(n):
+            if replay_flag[t]:
+                continue
+            i = int(live_pos[t])
+            # prow layout: see _prow_from_jrows
+            pr = [int(x) for x in prow[t]]
+            paired, cnt, chain, na, nb, ins = pr[:6]
+            pairhits: list = [[] for _ in range(2 * MAXSNPS + 1)]
+            if paired:
+                ph = PairHit(chain=chain, na=na, nb=nb, insert=ins,
+                             a=(pr[6], pr[7]), b=(pr[8], pr[9]))
+                # the winning bucket is the selected pair's total na + nb
+                pairhits[na + nb] = _SelList(cnt, ph)
+            hit_a, hit_b = (pr[14], pr[15]), (pr[20], pr[21])
+            results[i] = PairResult(
+                paired=paired, pairhits=pairhits,
+                res_a=PairSEView(rows_a[t], MS, int(buds_a0[i]), hit_a),
+                res_b=PairSEView(rows_b[t], MS, int(buds_b0[i]), hit_b),
+                filtered_a=False, filtered_b=False)
+        return results
+
+    def format_batch(self, batch_a, batch_b, fmt):
+        """Same contract as pair_pipeline.HostPairBatch.format_batch."""
+        p = self.param
+        results = self.align_batch(batch_a, batch_b)
+        main_parts: list[str] = []
+        unpair_parts: list[str] = []
+        for ra, rb, pres in zip(batch_a, batch_b, results):
+            fell = 1
+            if pres.paired:
+                text, fell = fmt.string_align_pair(ra, rb, pres)
+                main_parts.append(text)
+            if fell == 1 or not pres.paired:
+                up = fmt.string_align_unpair(
+                    ra, rb, pres.filtered_a, pres.filtered_b, pres)
+                (main_parts if p.out_sam else unpair_parts).append(up)
+        return "".join(main_parts), "".join(unpair_parts)
+
+    # -- native block path ----------------------------------------------------
+
+    def encode_block_pair(self, blk_a, blk_b):
+        """Native name-fix + encode for one block pair; runs in the
+        parse-ahead thread (native calls release the GIL).  Caches
+        (nw, rows_a, rows_b) on blk_a."""
+        if blk_a.enc is not None:
+            return blk_a.enc
+        from .. import native
+        p = self.param
+        lib = native.get_lib()
+        bad = native.fix_pair_names(lib, blk_a.buf, blk_a.rec,
+                                    blk_b.buf, blk_b.rec)
+        if bad >= 0:
+            raise ValueError("Paired reads name not match:\n"
+                             f"{blk_a.name(bad)}\n{blk_b.name(bad)}")
+        max_len = max(int(blk_a.rec[:, 3].max()),
+                      int(blk_b.rec[:, 3].max())) if len(blk_a) else 0
+        nw = 7 if min(max_len, p.max_readlen) <= 112 else FIXELEMENT
+        rows_a = native.encode_block_words(
+            lib, blk_a.buf, blk_a.rec, p.alphabet, REG_ALPHABET, nw)
+        rows_b = native.encode_block_words(
+            lib, blk_b.buf, blk_b.rec, p.alphabet, REG_ALPHABET, nw)
+        blk_a.enc = (nw, rows_a, rows_b)
+        return blk_a.enc
+
+    def block_pair_rows(self, blk_a, blk_b):
+        """Dispatch rows of one block pair's live pairs (both mates
+        encodable and unfiltered): (nw, live, live_pos, rows_a, rows_b),
+        each (n, 2nw+4) int32 with budgets and selection hashes filled in
+        and the maxrank column 0."""
+        p = self.param
+        if len(blk_b) != len(blk_a):
+            raise ValueError("PE block length mismatch")
+        nw, rows_in_a0, rows_in_b0 = self.encode_block_pair(blk_a, blk_b)
+        live = np.ones(len(blk_a), dtype=bool)
+        for r in (rows_in_a0, rows_in_b0):
+            live &= ((r[:, 2 * nw] >= p.min_read_size)
+                     & (r[:, 2 * nw + 3] <= p.max_ns))
+        live_pos = np.nonzero(live)[0]
+        rows = []
+        for r, blk in ((rows_in_a0, blk_a), (rows_in_b0, blk_b)):
+            r = r[live_pos]
+            ln = r[:, 2 * nw].astype(np.int64)
+            r[:, 2 * nw + 1] = (p.max_snp_num + 1) * (ln - 1) // np.maximum(
+                ln, 1)
+            r[:, 2 * nw + 2] = (0 if p.randseed == 0 else myrand_hash(
+                blk.indices[live_pos].astype(np.uint64), p.randseed).astype(
+                np.uint32).view(np.int32))
+            r[:, 2 * nw + 3] = 0
+            rows.append(r)
+        return nw, live, live_pos, rows[0], rows[1]
+
+    def align_block_pair(self, blk_a, blk_b):
+        """Encode one pair of ReadBlocks and ENQUEUE the phase-1 (rank-0)
+        dispatches; returns collect() -> the aligned block for
+        ``emit_block``.  The block pipeline calls collect() for block N
+        only after block N+1's phase 1 is on the device, so phase 2, the
+        replay flags and the formatting overlap kernel time."""
+        se = self.se
+        nw, live, live_pos, rows_in_a, rows_in_b = self.block_pair_rows(
+            blk_a, blk_b)
+        n = len(live_pos)
+        la = rows_in_a[:, 2 * nw].astype(np.int64)
+        lb = rows_in_b[:, 2 * nw].astype(np.int64)
+        risk = (se._stale_risk(la, rows_in_a[:, 2 * nw + 1])
+                | se._stale_risk(lb, rows_in_b[:, 2 * nw + 1]))
+        fin = (self._align_join_fused(rows_in_a, rows_in_b, self._cfg(1, nw),
+                                      self._cfg(2, nw)) if n else None)
+
+        def collect():
+            if n:
+                jr = fin()
+                replay_flag = self._replay_flag(jr, risk)
+                prow_live = self._prow_from_jrows(jr)
+            else:
+                replay_flag = np.zeros(0, dtype=bool)
+                prow_live = np.zeros((0, 22), dtype=np.int32)
+            return (blk_a, blk_b, live, live_pos, la, lb, risk, replay_flag,
+                    prow_live)
+
+        return collect
+
+    def emit_block(self, fmt, aligned) -> bytes:
+        """SAM bytes of one collected block: exact host replays in pair
+        order with MateState sync (the J_* rows carry no start offsets: the
+        sync recomputes them), prow scatter, native pair formatting +
+        splicing."""
+        (blk_a, blk_b, live, live_pos, la, lb, risk, replay_flag,
+         prow_live) = aligned
+        from .. import native
+        p = self.param
+        se = self.se
+        lib = native.get_lib()
+        n_all = len(blk_a)
+        n = len(live_pos)
+        st_a, st_b = self.pair_host.state_a, self.pair_host.state_b
+        read_a = lambda t: blk_a.read_obj(int(live_pos[t]))  # noqa: E731
+        read_b = lambda t: blk_b.read_obj(int(live_pos[t]))  # noqa: E731
+
+        def sync_to(cursor: int, t: int) -> int:
+            se._sync_state_span(read_a, cursor, t, None, None, la,
+                                replay_flag, "f", state=st_a)
+            se._sync_state_span(read_b, cursor, t, None, None, lb,
+                                replay_flag, "r", state=st_b)
+            return t
+
+        status = np.full(n_all, 2, dtype=np.int32)
+        status[~live] = 0
+        rflag_pos = live_pos[replay_flag] if n else live_pos[:0]
+        status[rflag_pos] = 0
+        py_parts: dict[int, str] = {}
+        lcum = np.concatenate([[0], np.cumsum(live)])
+        cursor = 0
+        for i in np.nonzero(status == 0)[0]:
+            i = int(i)
+            t = int(lcum[i])              # live row of this pair (if live)
+            if live[i]:
+                if risk[t]:
+                    cursor = sync_to(cursor, t) + 1
+            else:
+                cursor = sync_to(cursor, t)
+            ra, rb = blk_a.read_obj(i), blk_b.read_obj(i)
+            pres = self.pair_host.align_pair(ra, rb)
+            self.n_replayed += 1
+            fell = 1
+            text = ""
+            if pres.paired:
+                ptext, fell = fmt.string_align_pair(ra, rb, pres)
+                text += ptext
+            if fell == 1 or not pres.paired:
+                text += fmt.string_align_unpair(
+                    ra, rb, pres.filtered_a, pres.filtered_b, pres)
+            py_parts[i] = text
+        if n:
+            sync_to(cursor, n)
+
+        prow = np.zeros((n_all, 22), dtype=np.int32)
+        if n:
+            prow[live_pos] = prow_live
+        out, line_off, (npair, na_, nb_) = native.format_pair_block(
+            lib, blk_a.buf, blk_a.rec, blk_b.buf, blk_b.rec, status,
+            prow, se._chrname_buf, se._chrname_off, REV_CHAR,
+            bool(p.out_unmap), p.report_repeat_hits, blk_a.synth_qual,
+            blk_b.synth_qual)
+        fmt.n_aligned_pairs += npair
+        fmt.n_aligned_a += na_
+        fmt.n_aligned_b += nb_
+        if not py_parts:
+            return out
+        pieces, prev = [], 0
+        for i in sorted(py_parts):
+            cut = int(line_off[i])
+            pieces.append(out[prev:cut])
+            pieces.append(py_parts[i].encode("latin1"))
+            prev = cut
+        pieces.append(out[prev:])
+        return b"".join(pieces)

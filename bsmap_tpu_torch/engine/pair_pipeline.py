@@ -1,0 +1,214 @@
+"""Pair-end batch driver (Do_PairAlign equivalent, main.cpp:116-131): the
+port of ``bsmap_tpu.engine.pair_pipeline``.
+
+SAM mode writes paired + unpaired lines into one file; BSP mode writes pairs
+to -o and unpaired hits to the -2 file (main.cpp:103-107).
+
+The native PE block pipeline (SAM, no trimming, no -R) streams both mates
+through chunked native parsing, one ``pair_program`` per window and the
+native pair formatter, with parse-ahead and write-behind threads like the
+SE block path."""
+
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import time
+
+from ..output.pair_sam import PairFormatter
+from ..output.sam import sam_header
+from ..readio import BATCH_NUM, detect_format, open_read_stream
+from ..utils import RandR, StepTimer
+
+# windows per PE block: smaller blocks than SE, because the deferred-finish
+# overlap (phase 2 + join + format of block N under block N+1's phase 1)
+# needs several blocks in flight to engage
+PE_BLOCK_WINDOWS = 2
+
+
+def run_pair_end(o, genome, index, stats: dict | None = None) -> int:
+    """Align every pair of ``o.query_a``/``o.query_b``; returns the pair
+    count and, into ``stats``, the alignment phase's wall time (engine
+    set-up excluded) and the engine."""
+    p = o.param
+    engine = make_pair_engine(o, genome, index)
+    from ..cli import _randr_seed
+    fmt = PairFormatter(genome, p, RandR(_randr_seed()))
+    t0 = time.perf_counter()
+    if (getattr(engine, "supports_pair_blocks", lambda: False)()
+            and detect_format(o.query_a) < 2
+            and detect_format(o.query_b) < 2):
+        total = run_pair_end_blocks(o, genome, engine, fmt)
+    else:
+        total = run_pair_end_reads(o, genome, engine, fmt)
+    if stats is not None:
+        stats.update(pairs=total, align_s=time.perf_counter() - t0,
+                     engine=engine)
+    denom = max(total, 1)
+    print("Total number of aligned reads: \n"
+          f"pairs:       {fmt.n_aligned_pairs} "
+          f"({100.0 * fmt.n_aligned_pairs / denom:.2g}%)\n"
+          f"single a:    {fmt.n_aligned_a} "
+          f"({100.0 * fmt.n_aligned_a / denom:.2g}%)\n"
+          f"single b:    {fmt.n_aligned_b} "
+          f"({100.0 * fmt.n_aligned_b / denom:.2g}%)")
+    return total
+
+
+def run_pair_end_reads(o, genome, engine, fmt) -> int:
+    """Per-pair path: exact for every configuration (BSP, -R, trim)."""
+    p = o.param
+    if not p.out_sam and not o.out_unpair:
+        raise SystemExit("failed to open output file for unpaired hits "
+                         "(check -2 option)")
+    timer = StepTimer()
+    total = 0
+    with contextlib.ExitStack() as stack:
+        sa = stack.enter_context(contextlib.closing(
+            open_read_stream(o.query_a, p, readset=1)))
+        sb = stack.enter_context(contextlib.closing(
+            open_read_stream(o.query_b, p, readset=2)))
+        fout = stack.enter_context(open(o.out_file, "w"))
+        fout_unpair = (fout if p.out_sam
+                       else stack.enter_context(open(o.out_unpair, "w")))
+        if p.out_sam:
+            fout.write(sam_header(genome))
+        while True:
+            batch_a = sa.next_batch(BATCH_NUM)
+            batch_b = sb.next_batch(BATCH_NUM)
+            if not batch_a or len(batch_a) != len(batch_b):
+                break
+            paired_out, unpair_out = engine.format_batch(batch_a, batch_b,
+                                                         fmt)
+            fout.write(paired_out)
+            fout_unpair.write(unpair_out)
+            total += len(batch_a)
+            print(f"{total} reads finished. {timer.total():.1f} secs passed")
+    return total
+
+
+def run_pair_end_blocks(o, genome, engine, fmt) -> int:
+    """Native PE block pipeline: parse-ahead producer, align main loop that
+    finishes block N after block N+1's phase 1 is enqueued, write-behind
+    thread (the native calls release the GIL)."""
+    from .. import native
+    from ..blockio import BlockReadStream
+
+    p = o.param
+    lib = native.get_lib()
+    sa = BlockReadStream(o.query_a, p, readset=1, lib=lib)
+    sb = BlockReadStream(o.query_b, p, readset=2, lib=lib)
+    blk_n = PE_BLOCK_WINDOWS * engine.se.B
+    q_in: "queue.Queue" = queue.Queue(maxsize=2)
+    q_out: "queue.Queue" = queue.Queue(maxsize=4)
+    errors: list[BaseException] = []
+
+    def producer():
+        # geometric first-block ramp, as in the SE pipeline: the device
+        # starts on a one-window block instead of idling through the full
+        # first parse
+        try:
+            size = engine.se.B
+            while True:
+                ba = sa.next_block(min(size, blk_n))
+                bb = sb.next_block(min(size, blk_n))
+                size *= 2
+                if ba is None or bb is None or len(ba) != len(bb):
+                    break
+                engine.encode_block_pair(ba, bb)   # GIL-releasing natives
+                q_in.put((ba, bb))
+        except BaseException as e:   # surfaced by the align loop
+            errors.append(e)
+        q_in.put(None)
+
+    def writer():
+        try:
+            with open(o.out_file, "wb") as fout:
+                fout.write(sam_header(genome).encode("latin1"))
+                while True:
+                    item = q_out.get()
+                    if item is None:
+                        break
+                    fout.write(item)
+        except BaseException as e:   # surfaced after the join
+            errors.append(e)
+            while q_out.get() is not None:   # keep the align loop moving
+                pass
+
+    t_prod = threading.Thread(target=producer, daemon=True)
+    t_wr = threading.Thread(target=writer, daemon=True)
+    t_prod.start()
+    t_wr.start()
+    timer = StepTimer()
+    total = 0
+    prev = None            # (collect, n): block N-1, collected only after
+    try:                   # block N's phase 1 is on the device
+        while True:
+            item = q_in.get()
+            if item is None:
+                break
+            ba, bb = item
+            cur = engine.align_block_pair(ba, bb)
+            if prev is not None:
+                q_out.put(engine.emit_block(fmt, prev[0]()))
+                total += prev[1]
+                print(f"{total} read pairs finished. "
+                      f"{timer.total():.1f} secs passed")
+            prev = (cur, len(ba))
+        if prev is not None:
+            q_out.put(engine.emit_block(fmt, prev[0]()))
+            total += prev[1]
+            print(f"{total} read pairs finished. "
+                  f"{timer.total():.1f} secs passed")
+    finally:
+        q_out.put(None)
+        t_wr.join()
+        while t_prod.is_alive():     # unblock a producer parked on q_in
+            try:
+                q_in.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        t_prod.join()
+        sa.close()
+        sb.close()
+    if errors:
+        raise errors[0]
+    return total
+
+
+def make_pair_engine(o, genome, index):
+    """``--engine host`` is the exact per-pair host engine; anything else
+    is the PyTorch PE engine on ``o.device`` (which raises when that device
+    is missing)."""
+    if o.engine == "host":
+        return HostPairBatch(genome, index, o.param)
+    from .pair_device import PairDeviceEngine
+    return PairDeviceEngine(genome, index, o.param, device=o.device)
+
+
+class HostPairBatch:
+    """Batch wrapper over the exact per-pair engine."""
+
+    def __init__(self, genome, index, param):
+        from .pair_host import PairHostEngine
+        self.engine = PairHostEngine(genome, index, param)
+        self.param = param
+
+    def format_batch(self, batch_a, batch_b, fmt: PairFormatter):
+        p = self.param
+        main_parts = []
+        unpair_parts = []
+        # the reference appends pair + unpaired lines per read, in read
+        # order; in SAM mode both go to the same stream (pairs.cpp:213-217)
+        for ra, rb in zip(batch_a, batch_b):
+            pres = self.engine.align_pair(ra, rb)
+            fell = 1
+            if pres.paired:
+                text, fell = fmt.string_align_pair(ra, rb, pres)
+                main_parts.append(text)
+            if fell == 1 or not pres.paired:
+                up = fmt.string_align_unpair(
+                    ra, rb, pres.filtered_a, pres.filtered_b, pres)
+                (main_parts if p.out_sam else unpair_parts).append(up)
+        return "".join(main_parts), "".join(unpair_parts)

@@ -256,9 +256,17 @@ def _mmap_npz(path: str) -> dict:
                 name_len, extra_len = struct.unpack("<HH", hdr[26:30])
                 data_off = info.header_offset + 30 + name_len + extra_len
                 fh.seek(data_off)
+                # the public header readers (numpy 2.3+ has no private
+                # _read_array_header); version 3.0 raises, and callers
+                # fall back to a plain np.load
                 version = np.lib.format.read_magic(fh)
-                shape, fortran, dtype = np.lib.format._read_array_header(
-                    fh, version)
+                if version == (1, 0):
+                    hdr_fn = np.lib.format.read_array_header_1_0
+                elif version == (2, 0):
+                    hdr_fn = np.lib.format.read_array_header_2_0
+                else:
+                    raise ValueError(f"npy format {version} not mappable")
+                shape, fortran, dtype = hdr_fn(fh)
                 arr_off = fh.tell()
             name = info.filename[:-4] if info.filename.endswith(".npy") \
                 else info.filename

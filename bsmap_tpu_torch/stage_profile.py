@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Stage breakdown of the PyTorch port's single-end path on one GPU.
+"""Stage breakdown of the PyTorch port's block paths on one GPU.
 
-    python3 -m bsmap_tpu_torch.stage_profile [--reads N] [--repeat]
+    python3 -m bsmap_tpu_torch.stage_profile [--reads N] [--repeat | --pe]
 
 Generates the headline data (2 x 5 Mb genome, fully converted 100 nt reads,
-tools/genreads.generate) or, with --repeat, the chr21-class data (46.7 Mb,
-8% repeats), aligns it at -v 2 -S 17 and times each stage on its own:
+tools/genreads.generate), with --repeat the chr21-class data (46.7 Mb, 8%
+repeats), or with --pe the pair-end data (4.6 Mb, 76 nt pairs,
+tools/genreads.generate_pe; N is then the pair count).  It aligns at -v 2
+-S 17 (SE) or -S 17 (PE) and times each stage on its own:
 
   parse    native parse + filter + encode of every block (one thread)
-  align    DeviceEngine.align_block + finish over the pre-encoded blocks
-           (rounds 1 and 2, collection, host replays), with the engine's
-           h2d / launch / collect timers
+  align    SE: DeviceEngine.align_block + finish (rounds 1 and 2,
+           collection, host replays); PE: PairDeviceEngine.align_block_pair
+           + collect (phase 1, phase 2, J rows, replay flags); with the
+           engine's h2d / launch / collect timers
   kernels  CUDA kernel time inside a second align pass (torch.profiler),
            and the device's idle share of that pass's wall time
-  format   native SAM formatting + file write of the aligned blocks
+  format   native SAM formatting + file write of the aligned blocks (PE:
+           emit_block, which also runs the exact host replays)
   pipeline the whole CLI (cli.run: the three stages overlapped in threads)
 
 Prints one JSON object as the last line, after the card's name and power
@@ -47,67 +51,138 @@ def _kernel_ms(prof) -> dict[str, float]:
     return out
 
 
+def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda"):
+    """The SE engine's stages over the headline or chr21-class blocks.
+    (``dev`` = "cpu" rehearses them with the kernels' twins.)"""
+    import torch
+    from . import cli, native
+    from .blockio import BlockReadStream
+    from .engine.device_engine import DeviceEngine
+    from .output.sam import SamFormatter
+    from .utils import RandR
+
+    flags = ["-a", rpath, "-d", gpath, "-v", "2", "-S", "17"]
+    o = cli.parse_args(flags + ["-o", os.path.join(root, "x.sam")])
+    p = o.param
+    p.out_sam = 1
+    genome = cli.load_genome(gpath, p)
+    index = cli.get_index(o, genome)
+    eng = DeviceEngine(genome, index, p, device=dev)
+    t0 = time.perf_counter()
+    stream = BlockReadStream(rpath, p, readset=0, lib=native.get_lib())
+    blocks = []
+    while (blk := stream.next_block(8 * eng.B)) is not None:
+        eng.encode_block(blk)
+        blocks.append(blk)
+    stream.close()
+    t_parse = time.perf_counter() - t0
+
+    def align_all():
+        out = []
+        for blk in blocks:
+            live_pos, fin, buds = eng.align_block(blk)
+            res = fin()
+            out.append((blk, (live_pos, lambda r=res: r, buds)))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    def fmt_all(aligned, path):
+        fmt = SamFormatter(genome, p, RandR(1))
+        with open(path, "wb") as f:
+            for blk, al in aligned:
+                f.write(eng.format_aligned_block(blk, al, fmt))
+
+    return flags, eng, eng, t_parse, align_all, fmt_all
+
+
+def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda"):
+    """The PE engine's stages over the pe_76nt block pairs."""
+    import torch
+    from . import cli, native
+    from .blockio import BlockReadStream
+    from .engine.pair_device import PairDeviceEngine
+    from .engine.pair_pipeline import PE_BLOCK_WINDOWS
+    from .output.pair_sam import PairFormatter
+    from .utils import RandR
+
+    flags = ["-a", r1, "-b", r2, "-d", gpath, "-S", "17"]
+    o = cli.parse_args(flags + ["-o", os.path.join(root, "x.sam")])
+    p = o.param
+    genome = cli.load_genome(gpath, p)
+    index = cli.get_index(o, genome)
+    eng = PairDeviceEngine(genome, index, p, device=dev)
+    lib = native.get_lib()
+    t0 = time.perf_counter()
+    sa = BlockReadStream(r1, p, readset=1, lib=lib)
+    sb = BlockReadStream(r2, p, readset=2, lib=lib)
+    blocks = []
+    while (ba := sa.next_block(PE_BLOCK_WINDOWS * eng.se.B)) is not None:
+        bb = sb.next_block(len(ba))
+        eng.encode_block_pair(ba, bb)
+        blocks.append((ba, bb))
+    sa.close()
+    sb.close()
+    t_parse = time.perf_counter() - t0
+
+    def align_all():
+        out = [eng.align_block_pair(ba, bb)() for ba, bb in blocks]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    def fmt_all(aligned, path):
+        fmt = PairFormatter(genome, p, RandR(1))
+        with open(path, "wb") as f:
+            for al in aligned:
+                f.write(eng.emit_block(fmt, al))
+
+    return flags, eng, eng.se, t_parse, align_all, fmt_all
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("stage_profile: torch sees no CUDA device", file=sys.stderr)
         return 2
     ap = argparse.ArgumentParser()
-    ap.add_argument("--reads", type=int, default=1_000_000)
-    ap.add_argument("--repeat", action="store_true")
+    ap.add_argument("--reads", type=int, default=None,
+                    help="reads (SE, default 1,000,000) or pairs (--pe, "
+                    "default 200,000)")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--repeat", action="store_true")
+    kind.add_argument("--pe", action="store_true")
     args = ap.parse_args()
-    from tools.genreads import generate, generate_chr21
-    from . import cli, native
-    from .blockio import BlockReadStream
+    from tools.genreads import generate, generate_chr21, generate_pe
+    from . import cli
     from .engine import _build
-    from .engine.device_engine import DeviceEngine
-    from .output.sam import SamFormatter
-    from .utils import RandR
 
+    n = args.reads or (200_000 if args.pe else 1_000_000)
+    _build.lib()
     root = tempfile.mkdtemp(prefix="bsmap_prof_")
     try:
-        gen = generate_chr21 if args.repeat else generate
-        gpath, rpath = gen(root, n_reads=args.reads)
-        flags = ["-a", rpath, "-d", gpath, "-v", "2", "-S", "17"]
-        o = cli.parse_args(flags + ["-o", os.path.join(root, "x.sam")])
-        p = o.param
-        p.out_sam = 1
-        genome = cli.load_genome(gpath, p)
-        index = cli.get_index(o, genome)
-        _build.lib()
-        eng = DeviceEngine(genome, index, p, device="cuda")
-        lib = native.get_lib()
-        blk_n = 8 * eng.B
-
-        t0 = time.perf_counter()
-        stream = BlockReadStream(rpath, p, readset=0, lib=lib)
-        blocks = []
-        while (blk := stream.next_block(blk_n)) is not None:
-            eng.encode_block(blk)
-            blocks.append(blk)
-        stream.close()
-        t_parse = time.perf_counter() - t0
-
-        def align_all():
-            out = []
-            for blk in blocks:
-                live_pos, fin, buds = eng.align_block(blk)
-                res = fin()
-                out.append((blk, (live_pos, lambda r=res: r, buds)))
-            torch.cuda.synchronize()
-            return out
+        if args.pe:
+            gpath, r1, r2 = generate_pe(root, n_pairs=n)
+            flags, eng, se, t_parse, align_all, fmt_all = _pe_stages(
+                root, gpath, r1, r2)
+        else:
+            gen = generate_chr21 if args.repeat else generate
+            gpath, rpath = gen(root, n_reads=n)
+            flags, eng, se, t_parse, align_all, fmt_all = _se_stages(
+                root, gpath, rpath)
+        timer_keys = ("t_h2d", "t_call", "t_collect", "t_enqueue")
 
         align_all()                                  # warm-up pass
-        for k in ("t_h2d", "t_call", "t_collect", "t_enqueue"):
-            setattr(eng, k, 0.0)
-        eng.n_dispatched = eng.n_replayed = eng.n_probe = 0
+        for k in timer_keys:
+            setattr(se, k, 0.0)
+        se.n_dispatched = eng.n_replayed = se.n_probe = 0
         t0 = time.perf_counter()
         aligned = align_all()
         t_align = time.perf_counter() - t0
-        timers = {k: getattr(eng, k) for k in
-                  ("t_h2d", "t_call", "t_collect", "t_enqueue")}
-        counts = {k: getattr(eng, k) for k in
-                  ("n_dispatched", "n_probe", "n_replayed")}
+        timers = {k: getattr(se, k) for k in timer_keys}
+        # SE replays run in align, PE replays in format (emit_block)
+        counts = {"n_dispatched": se.n_dispatched, "n_probe": se.n_probe,
+                  "n_replayed": eng.n_replayed}
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -118,13 +193,12 @@ def main() -> int:
         kms = _kernel_ms(prof)
         k_total = sum(kms.values())
 
-        fmt = SamFormatter(genome, p, RandR(1))
+        r0 = eng.n_replayed
         t0 = time.perf_counter()
-        with open(os.path.join(root, "fmt.sam"), "wb") as f:
-            for blk, al in aligned:
-                f.write(eng.format_aligned_block(blk, al, fmt))
+        fmt_all(aligned, os.path.join(root, "fmt.sam"))
         t_fmt = time.perf_counter() - t0
-        del eng, aligned
+        counts["n_replayed"] += eng.n_replayed - r0
+        del eng, se, aligned, align_all, fmt_all
         torch.cuda.empty_cache()
 
         st: dict = {}
@@ -135,16 +209,17 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    n = args.reads
+    unit = "pairs" if args.pe else "reads"
     res = {
-        "data": "chr21_class" if args.repeat else "headline", "reads": n,
+        "data": ("pe_76nt" if args.pe else
+                 "chr21_class" if args.repeat else "headline"), unit: n,
         "parse_s": t_parse, "align_s": t_align, "format_s": t_fmt,
         "align_timers_s": timers, "engine_counts": counts,
         "profiled_align_s": t_prof, "kernel_ms_total": k_total,
         "device_idle_share": 1.0 - k_total / 1000.0 / t_prof,
         "kernel_ms": dict(sorted(kms.items(), key=lambda kv: -kv[1])[:12]),
         "pipeline_align_s": st["align_s"],
-        "pipeline_reads_per_s": st["reads"] / st["align_s"],
+        f"pipeline_{unit}_per_s": st[unit] / st["align_s"],
     }
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -18,12 +18,28 @@ Phases (each raises on failure; any failure exits non-zero):
   5. repeat-heavy data: one 46.7 Mb chromosome with 8% repeats, 100,000
      reads (probe mode and round 2);
   6. byte parity: the first 10,000 reads of both datasets, GPU run against
-     the port's exact host engine.
+     the port's exact host engine;
+  7. pair-end data: one 4.6 Mb chromosome, 200,000 pairs of 76 nt
+     (tools/genreads.generate_pe, BASELINE config 2); genome + index;
+  8. the pair-end kernels against their twins on the first 65,536-pair
+     window: rc_words, both mates' K2/K3/K4 with cfg.pe and 16 hits at
+     rank 0 and full rank on both capacity tiers, and pair_join; equal bit
+     for bit, CUDA-event medians of 7 runs;
+  9. the pair-end main path: ``cli.run`` with -a/-b on all 200,000 pairs
+     on cuda; at least 90% properly paired;
+ 10. byte parity: the first 10,000 pairs, GPU run against the host engine;
+ 11. the pair-end paths that error-free pairs never reach: 10,000 simulated
+     pairs with 2% errors (tools/simulate.py), every 8th cut to 51 nt (a
+     length whose seed schedule may read stale state: host replays),
+     through the block path (SAM; phase 2 at full rank) and the per-pair
+     path (BSP with -2), each byte-identical to the host engine.
 
 The kernels' launch counters are zeroed right before phase 4 and read right
-after phase 5; every kernel must have run there.  The last lines are the
-per-kernel JSON, the card's name and power limit, and the result line.
-Exits non-zero without printing a result when torch sees no CUDA device.
+after phase 5 (the single-end path: K1-K4 must have run), and zeroed right
+before each GPU run of phases 9 and 11 and read right after it (the
+pair-end paths: K2-K6 must have run in each).  The last lines are the per-kernel JSON, the card's name and power
+limit, and the result line.  Exits non-zero without printing a result when
+torch sees no CUDA device.
 """
 
 from __future__ import annotations
@@ -43,7 +59,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 N_HEADLINE = 1_000_000
 N_REPEAT = 100_000
 N_PARITY = 10_000
+N_PAIRS = 200_000
+# phase 11: (tag, flags, output suffix [, -2], the least n_dispatched and
+# n_replayed that show the path's corners ran: phase 2, host replays)
+PE_PATH_RUNS = (
+    ("block path", ["-S", "1", "-v", "2", "-u"], ("sam",), 2, 1),
+    ("per-pair path", ["-S", "3", "-v", "3"], ("bsp", "-2"), 4, 1),
+)
 ALIGN_FLAGS = ["-v", "2", "-S", "17"]
+PE_FLAGS = ["-S", "17"]
 KERNEL_SOURCES = {
     "fixed_schedule": ("bsmap_tpu_torch/csrc/fixed_schedule.cu",
                        "bsmap_tpu/engine/device_engine.py:350"),
@@ -53,7 +77,15 @@ KERNEL_SOURCES = {
                           "bsmap_tpu/engine/device_engine.py:679"),
     "reduce_reads": ("bsmap_tpu_torch/csrc/reduce_reads.cu",
                      "bsmap_tpu/engine/device_engine.py:899"),
+    "rc_words": ("bsmap_tpu_torch/csrc/rc_words.cu",
+                 "bsmap_tpu/engine/device_engine.py:302"),
+    "pair_join": ("bsmap_tpu_torch/csrc/pair_join.cu",
+                  "bsmap_tpu/engine/pair_device.py:73"),
 }
+SE_PATH = ("fixed_schedule", "exact_schedule", "verify_candidates",
+           "reduce_reads")
+PE_PATH = ("exact_schedule", "verify_candidates", "reduce_reads", "rc_words",
+           "pair_join")
 
 
 def log(msg: str) -> None:
@@ -97,6 +129,31 @@ def run_cli(argv: list[str]) -> dict:
     return stats
 
 
+def check(errs: dict, name: str, case: str, got, want) -> None:
+    """Kernel outputs against twin outputs: equal shapes, max |diff| 0;
+    the largest difference seen is kept in ``errs[name]``."""
+    import torch
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape:
+            raise AssertionError(f"{name} [{case}] output {i}: shape "
+                                 f"{tuple(a.shape)} != {tuple(b.shape)}")
+        d = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+        errs[name] = max(errs.get(name, 0), d)
+        if d != 0:
+            raise AssertionError(f"{name} [{case}] output {i} differs "
+                                 f"from its twin (max |diff| {d})")
+
+
+def timed_pair(name: str, kern, plain, what: str) -> dict:
+    """Kernel and twin timed in turns (plain, kernel, kernel, plain)."""
+    p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
+                      cuda_ms(plain))
+    log(f"    {name}: kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} "
+        f"ms ({what})")
+    return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
+
+
 def phase_build() -> None:
     from bsmap_tpu_torch.engine import _build
     t0 = time.time()
@@ -110,10 +167,23 @@ def phase_build() -> None:
                     log("    " + line.strip())
 
 
+def check_index_cache(o, index, tag: str) -> None:
+    """The index cache written by ``get_index`` memory-maps back equal."""
+    import numpy as np
+    from bsmap_tpu_torch.index import index_cache_key, load_index
+    path = os.path.join(o.index_cache,
+                        f"idx_{index_cache_key(o.ref_file, o.param)}.npz")
+    mapped = load_index(path, mmap=True)
+    if not (isinstance(mapped.locs, np.memmap)
+            and np.array_equal(mapped.locs, index.locs)
+            and np.array_equal(mapped.offsets, index.offsets)):
+        raise AssertionError(f"{tag}: the memory-mapped index cache differs")
+
+
 def phase_data(root: str, gen, tag: str, **kw):
-    """Generate one dataset and build its genome and index.  (Each CLI run
-    below builds its own again: the memory-mapped index cache of
-    ``index._mmap_npz`` does not load under numpy 2.3+.)"""
+    """Generate one dataset, build its genome and index, and check that the
+    index cache (``BSMAP_TPU_INDEX_CACHE``, which every CLI run below
+    loads) memory-maps back equal."""
     from bsmap_tpu_torch.cli import get_index, parse_args
     from bsmap_tpu_torch.reference import load_genome
     d = os.path.join(root, tag)
@@ -123,9 +193,10 @@ def phase_data(root: str, gen, tag: str, **kw):
     o = parse_args(["-a", rpath, "-d", gpath, "-o", "x.sam"] + ALIGN_FLAGS)
     genome = load_genome(gpath, o.param)
     index = get_index(o, genome)
+    check_index_cache(o, index, tag)
     log(f"[2] {tag}: data {t1 - t0:.1f} s, genome+index "
         f"{time.time() - t1:.1f} s ({genome.sum_length} bp, "
-        f"{len(index.locs)} index entries)")
+        f"{len(index.locs)} index entries; cache memory-maps)")
     return gpath, rpath, o, genome, index
 
 
@@ -159,20 +230,7 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda") -> dict:
          eng.CANDS_BIG, rowsF),
         ("probe", cfg_lean._replace(probe=True, lean=False), 1, rowsF),
     ]
-    errs = {k: 0 for k in KERNEL_SOURCES}
-
-    def check(name, case, got, want):
-        for i, (a, b) in enumerate(zip(got, want)):
-            if a.shape != b.shape:
-                raise AssertionError(f"{name} [{case}] output {i}: shape "
-                                     f"{tuple(a.shape)} != {tuple(b.shape)}")
-            d = int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
-                if a.numel() else 0
-            errs[name] = max(errs[name], d)
-            if d != 0:
-                raise AssertionError(f"{name} [{case}] output {i} differs "
-                                     f"from its twin (max |diff| {d})")
-
+    errs = {k: 0 for k in SE_PATH}
     tabs = eng.tables
     for case, cfg, cands, rows in cases:
         if cfg.probe:
@@ -180,23 +238,24 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda") -> dict:
                                    tabs["prof_a"], probe=True)
             want = K.exact_schedule_plain(cfg, rows, tabs["kmer_tab"],
                                           tabs["prof_a"], probe=True)
-            check("exact_schedule", case, [got.ftot_rank], [want.ftot_rank])
+            check(errs, "exact_schedule", case, [got.ftot_rank],
+                  [want.ftot_rank])
             continue
         if cfg.fixed:
             slots = K.fixed_schedule(cfg, rows, tabs["kmer_tab"])
             want = K.fixed_schedule_plain(cfg, rows, tabs["kmer_tab"])
-            check("fixed_schedule", case, slots, want)
+            check(errs, "fixed_schedule", case, slots, want)
         else:
             slots = K.exact_schedule(cfg, rows, tabs["kmer_tab"],
                                      tabs["prof_a"])
             want = K.exact_schedule_plain(cfg, rows, tabs["kmer_tab"],
                                           tabs["prof_a"])
-            check("exact_schedule", case, slots, want)
+            check(errs, "exact_schedule", case, slots, want)
         vc = K.verify_candidates(cfg, cands, rows, slots, tabs)
-        check("verify_candidates", case, vc,
+        check(errs, "verify_candidates", case, vc,
               K.verify_candidates_plain(cfg, cands, rows, slots, tabs))
         out = K.reduce_reads(cfg, cands, rows, vc, slots)
-        check("reduce_reads", case, [out],
+        check(errs, "reduce_reads", case, [out],
               [K.reduce_reads_plain(cfg, cands, rows, vc, slots)])
         n_total = int(vc.starts[-1])
         lean = out[:, 1] if cfg.lean else None
@@ -230,16 +289,10 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda") -> dict:
     }
     res = {}
     for name, (kern, plain) in timed.items():
-        if dev != "cuda":
-            res[name] = {"max_abs_err": errs[name]}
-            continue
-        # plain, kernel, kernel, plain: both measured in turns
-        p1, k1, k2, p2 = (cuda_ms(plain), cuda_ms(kern), cuda_ms(kern),
-                          cuda_ms(plain))
-        res[name] = {"max_abs_err": errs[name], "ms": min(k1, k2),
-                     "plain_ms": min(p1, p2)}
-        log(f"[3] {name}: kernel {k1:.3f}/{k2:.3f} ms, plain "
-            f"{p1:.3f}/{p2:.3f} ms ({rows0.shape[0]} reads)")
+        res[name] = {"max_abs_err": errs[name]}
+        if dev == "cuda":
+            res[name].update(timed_pair(f"[3] {name}", kern, plain,
+                                        f"{rows0.shape[0]} reads"))
     del eng, tabs, s_f, vc_f, rows0, rowsF
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -270,23 +323,248 @@ def phase_align(tag: str, gpath: str, rpath: str, out: str,
             "n_replayed": eng.n_replayed}
 
 
+def assert_same_file(tag: str, got: str, want: str) -> int:
+    """The GPU run's file byte-identical to the host engine's; returns its
+    size."""
+    with open(got, "rb") as f:
+        a = f.read()
+    with open(want, "rb") as f:
+        b = f.read()
+    if a != b:
+        la, lb = a.splitlines(), b.splitlines()
+        bad = next(i for i in range(min(len(la), len(lb)) + 1)
+                   if i >= min(len(la), len(lb)) or la[i] != lb[i])
+        raise AssertionError(f"{tag}: GPU output {os.path.basename(got)} "
+                             f"differs from the host engine at line {bad}")
+    return len(a)
+
+
 def phase_parity(tag: str, gpath: str, rpath: str, d: str,
                  dev: str = "cuda") -> None:
     outs = []
     for eng in (["--device", dev], ["--engine", "host"]):
-        out = os.path.join(d, f"parity_{eng[1]}.sam")
-        run_cli(["-a", rpath, "-d", gpath, "-o", out, "-E", str(N_PARITY)]
-                + ALIGN_FLAGS + eng)
-        with open(out, "rb") as f:
-            outs.append(f.read())
-    if outs[0] != outs[1]:
-        a, b = outs[0].splitlines(), outs[1].splitlines()
-        bad = next(i for i in range(min(len(a), len(b)) + 1)
-                   if i >= min(len(a), len(b)) or a[i] != b[i])
-        raise AssertionError(f"{tag}: GPU SAM differs from the host engine "
-                             f"at line {bad}")
+        outs.append(os.path.join(d, f"parity_{eng[1]}.sam"))
+        run_cli(["-a", rpath, "-d", gpath, "-o", outs[-1], "-E",
+                 str(N_PARITY)] + ALIGN_FLAGS + eng)
+    size = assert_same_file(tag, *outs)
     log(f"[6] {tag}: first {N_PARITY} reads byte-identical to the host "
-        f"engine ({len(outs[0])} bytes)")
+        f"engine ({size} bytes)")
+
+
+def phase_pe_data(root: str):
+    """Generate the pair-end dataset and build its genome and index."""
+    from bsmap_tpu_torch.cli import get_index, parse_args
+    from bsmap_tpu_torch.reference import load_genome
+    from tools.genreads import generate_pe
+    t0 = time.time()
+    gpath, r1, r2 = generate_pe(os.path.join(root, "pe"))
+    t1 = time.time()
+    o = parse_args(["-a", r1, "-b", r2, "-d", gpath, "-o", "x.sam"]
+                   + PE_FLAGS)
+    genome = load_genome(gpath, o.param)
+    index = get_index(o, genome)
+    check_index_cache(o, index, "pe")
+    log(f"[7] pe: data {t1 - t0:.1f} s, genome+index {time.time() - t1:.1f} "
+        f"s ({genome.sum_length} bp, {len(index.locs)} index entries; "
+        "cache memory-maps)")
+    return gpath, r1, r2, o, genome, index
+
+
+def phase_pe_kernels(o, genome, index, r1: str, r2: str,
+                     dev: str = "cuda") -> dict:
+    """The pair-end kernels against their twins on the first window:
+    rc_words, both mates' K2/K3/K4 (cfg.pe, 16 hits) at rank 0 on the
+    small tier and at full rank on both tiers, and pair_join.  Returns
+    per-kernel {max_abs_err[, ms, plain_ms]} (times at the phase-1 shapes:
+    rank 0, small tier; K2-K4 on mate 2, the rc chain)."""
+    import torch
+    from bsmap_tpu_torch import native
+    from bsmap_tpu_torch.blockio import BlockReadStream
+    from bsmap_tpu_torch.engine import kernels as K
+    from bsmap_tpu_torch.engine.pair_device import PairDeviceEngine
+
+    eng = PairDeviceEngine(genome, index, o.param, device=dev)
+    se = eng.se
+    blks = []
+    for readset, path in ((1, r1), (2, r2)):
+        stream = BlockReadStream(path, o.param, readset=readset,
+                                 lib=native.get_lib())
+        blks.append(stream.next_block(se.B))
+        stream.close()
+    nw, _live, _pos, ra_np, rb_np = eng.block_pair_rows(*blks)
+    cfg_a, cfg_b = eng._cfg(1, nw), eng._cfg(2, nw)
+    tabs = se.tables
+    MS = se._maxseg
+    errs = {k: 0 for k in PE_PATH}
+
+    def to_dev(rows_np, rank):
+        r = rows_np.copy()
+        r[:, -1] = rank
+        return torch.from_numpy(r).to(dev)
+
+    window = {}
+    for rank, cands, case in ((0, se.CANDS, "rank 0, small tier"),
+                              (MS - 1, se.CANDS, "full rank, small tier"),
+                              (MS - 1, se.CANDS_BIG, "full rank, big tier")):
+        da, db = to_dev(ra_np, rank), to_dev(rb_np, rank)
+        rc = K.rc_words(cfg_b, db)
+        check(errs, "rc_words", case, [rc], [K.rc_words_plain(cfg_b, db)])
+        full, n_cand = [], []
+        for cfg, rows in ((cfg_a, da), (cfg_b, rc)):
+            slots = K.exact_schedule(cfg, rows, tabs["kmer_tab"],
+                                     tabs["prof_a"])
+            check(errs, "exact_schedule", case, slots,
+                  K.exact_schedule_plain(cfg, rows, tabs["kmer_tab"],
+                                         tabs["prof_a"]))
+            vc = K.verify_candidates(cfg, cands, rows, slots, tabs)
+            check(errs, "verify_candidates", case, vc,
+                  K.verify_candidates_plain(cfg, cands, rows, slots, tabs))
+            out = K.reduce_reads(cfg, cands, rows, vc, slots)
+            check(errs, "reduce_reads", case, [out],
+                  [K.reduce_reads_plain(cfg, cands, rows, vc, slots)])
+            full.append(out)
+            n_cand.append(int(vc.starts[-1]))
+        j = K.pair_join(cfg_a, full[0], full[1], da, db)
+        check(errs, "pair_join", case, [j],
+              [K.pair_join_plain(cfg_a, full[0], full[1], da, db)])
+        paired = int(((j[:, 6] & 31) > 0).sum())
+        log(f"[8] {case}: {da.shape[0]} pairs, {n_cand[0]}/{n_cand[1]} "
+            f"candidates (mate 1/2), {paired} paired — kernels == twins")
+        window.setdefault("rows", (da, db, rc, full, cands))
+    res = {k: {"max_abs_err": v} for k, v in errs.items()}
+    if dev == "cuda":
+        da, db, rc, full, cands = window["rows"]
+        s_b = K.exact_schedule(cfg_b, rc, tabs["kmer_tab"], tabs["prof_a"])
+        vc_b = K.verify_candidates(cfg_b, cands, rc, s_b, tabs)
+        what = f"{da.shape[0]} pairs, mate 2, rank 0, small tier"
+        timed = {
+            "rc_words": (lambda: K.rc_words(cfg_b, db),
+                         lambda: K.rc_words_plain(cfg_b, db)),
+            "exact_schedule": (
+                lambda: K.exact_schedule(cfg_b, rc, tabs["kmer_tab"],
+                                         tabs["prof_a"]),
+                lambda: K.exact_schedule_plain(cfg_b, rc, tabs["kmer_tab"],
+                                               tabs["prof_a"])),
+            "verify_candidates": (
+                lambda: K.verify_candidates(cfg_b, cands, rc, s_b, tabs),
+                lambda: K.verify_candidates_plain(cfg_b, cands, rc, s_b,
+                                                  tabs)),
+            "reduce_reads": (
+                lambda: K.reduce_reads(cfg_b, cands, rc, vc_b, s_b),
+                lambda: K.reduce_reads_plain(cfg_b, cands, rc, vc_b, s_b)),
+            "pair_join": (
+                lambda: K.pair_join(cfg_a, full[0], full[1], da, db),
+                lambda: K.pair_join_plain(cfg_a, full[0], full[1], da, db)),
+        }
+        for name, (kern, plain) in timed.items():
+            res[name].update(timed_pair(f"[8] {name}", kern, plain, what))
+        del s_b, vc_b
+    del eng, tabs, window
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_pe_align(gpath: str, r1: str, r2: str, out: str, n_pairs: int,
+                   dev: str = "cuda") -> dict:
+    """The pair-end CLI run on the card; checks the pair count and the
+    properly-paired share, prints pairs/s and the engine counters."""
+    st = run_cli(["-a", r1, "-b", r2, "-d", gpath, "-o", out, "--device",
+                  dev] + PE_FLAGS)
+    eng = st["engine"]
+    if st["pairs"] != n_pairs:
+        raise AssertionError(f"pe: aligned {st['pairs']} of {n_pairs} pairs")
+    proper = 0
+    with open(out, "rb") as f:
+        for ln in f:
+            if not ln.startswith(b"@") and int(ln.split(b"\t", 2)[1]) & 2:
+                proper += 1
+    proper //= 2                                  # two records per pair
+    if proper < 0.9 * n_pairs:
+        raise AssertionError(f"pe: {proper} of {n_pairs} fully converted, "
+                             "error-free pairs properly paired")
+    rate = st["pairs"] / st["align_s"]
+    log(f"[9] {st['pairs']} pairs in {st['align_s']:.3f} s = {rate:.1f} "
+        f"pairs/s; {proper} properly paired; n_dispatched "
+        f"{eng.se.n_dispatched}, n_replayed {eng.n_replayed}")
+    return {"pairs_per_s": rate, "align_s": st["align_s"],
+            "n_dispatched": eng.se.n_dispatched,
+            "n_replayed": eng.n_replayed}
+
+
+def phase_pe_parity(gpath: str, r1: str, r2: str, d: str,
+                    dev: str = "cuda") -> None:
+    os.makedirs(d, exist_ok=True)
+    outs = []
+    for eng in (["--device", dev], ["--engine", "host"]):
+        outs.append(os.path.join(d, f"pe_parity_{eng[1]}.sam"))
+        run_cli(["-a", r1, "-b", r2, "-d", gpath, "-o", outs[-1], "-E",
+                 str(N_PARITY)] + PE_FLAGS + eng)
+    size = assert_same_file("pe", *outs)
+    log(f"[10] pe: first {N_PARITY} pairs byte-identical to the host engine "
+        f"({size} bytes)")
+
+
+def phase_pe_paths(root: str, dev: str = "cuda") -> dict:
+    """Phase 11: simulated pairs with errors through the block path and the
+    per-pair path on ``dev``, each against the host engine byte for byte;
+    returns the kernels' launch counts summed over the two GPU runs, each
+    of which must have launched every pair-end kernel."""
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "pe_err")
+    os.makedirs(d)
+    g, r1, r2 = (os.path.join(d, x) for x in ("ref.fa", "r1.fq", "r2.fq"))
+    t0 = time.time()
+    subprocess.run([sys.executable, os.path.join(REPO, "tools", "simulate.py"),
+                    "--pe", "--n-reads", str(N_PARITY), "--read-len", "76",
+                    "--n-chr", "2", "--chr-len", "1000000", "--error-rate",
+                    "0.02", "--seed", "41", "--genome-out", g, "--reads-out",
+                    r1, "--reads2-out", r2], check=True, timeout=600)
+    for path in (r1, r2):                # every 8th pair to 51 nt
+        with open(path) as f:
+            lines = f.read().splitlines()
+        for k in range(0, len(lines), 32):
+            lines[k + 1], lines[k + 3] = lines[k + 1][:51], lines[k + 3][:51]
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    log(f"[11] data: {N_PARITY} pairs of 76 nt (every 8th cut to 51 nt) "
+        f"with 2% errors, 2 x 1 Mb genome, in {time.time() - t0:.1f} s")
+    total = {k: 0 for k in K.launch_counts()}
+    for tag, flags, (suffix, *unpaired), min_disp, min_rep in PE_PATH_RUNS:
+        outs = {}
+        for eng in (["--device", dev], ["--engine", "host"]):
+            files = [os.path.join(d, f"{eng[1]}.{suffix}")]
+            argv = ["-o", files[0]]
+            if unpaired:
+                files.append(os.path.join(d, f"{eng[1]}_unpaired.{suffix}"))
+                argv += ["-2", files[1]]
+            outs[eng[0]] = files
+            if eng[0] == "--engine":
+                run_cli(["-a", r1, "-b", r2, "-d", g] + flags + argv + eng)
+                continue
+            K.reset_launch_counts()
+            st = run_cli(["-a", r1, "-b", r2, "-d", g] + flags + argv + eng)
+            counts = K.launch_counts()
+            missing = [k for k in PE_PATH if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"{tag}: kernels never launched: "
+                                     f"{missing}")
+            for k, v in counts.items():
+                total[k] += v
+            engine = st["engine"]
+            n_disp, n_rep = engine.se.n_dispatched, engine.n_replayed
+            if n_disp < min_disp or n_rep < min_rep:
+                raise AssertionError(f"{tag}: n_dispatched {n_disp}, "
+                                     f"n_replayed {n_rep}: the path's "
+                                     "corners did not run")
+            t_gpu = st["align_s"]
+        sizes = [assert_same_file(f"pe {tag}", a, b) for a, b in
+                 zip(outs["--device"], outs["--engine"])]
+        log(f"[11] {tag} ({' '.join(flags)}, {suffix}): {N_PARITY} pairs "
+            f"in {t_gpu:.3f} s on {dev}; n_dispatched {n_disp}, n_replayed "
+            f"{n_rep}; launches {counts}; byte-identical to the host engine "
+            f"({' + '.join(map(str, sizes))} bytes)")
+    return total
 
 
 def main() -> int:
@@ -305,6 +583,8 @@ def main() -> int:
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
     phase_build()
     root = tempfile.mkdtemp(prefix="bsmap_smoke_")
+    # every index below is built once and memory-mapped by each later run
+    os.environ["BSMAP_TPU_INDEX_CACHE"] = os.path.join(root, "cache")
     try:
         g1, r1, o1, genome, index = phase_data(
             root, generate, "headline", n_reads=N_HEADLINE)
@@ -320,28 +600,52 @@ def main() -> int:
         counts4 = K.launch_counts()
         rep = phase_align("5", g2, r2, os.path.join(root, "rep.sam"),
                           N_REPEAT, 0.5)
-        counts = K.launch_counts()
+        se_counts = K.launch_counts()
         log(f"[4] launches, headline run: {counts4}")
-        log(f"[5] launches, headline + repeat-heavy runs: {counts}")
-        missing = [k for k, v in counts.items() if v == 0]
+        log(f"[5] launches, headline + repeat-heavy runs: {se_counts}")
+        missing = [k for k in SE_PATH if se_counts[k] == 0]
         if missing:
-            raise AssertionError(f"kernels never launched on the main "
-                                 f"path: {missing}")
+            raise AssertionError(f"kernels never launched on the single-end "
+                                 f"main path: {missing}")
         from bsmap_tpu_torch import native
         if native.get_lib() is None:
             raise AssertionError("native block path not taken")
 
         phase_parity("headline", g1, r1, os.path.join(root, "headline"))
         phase_parity("repeat", g2, r2, os.path.join(root, "repeat"))
+
+        gp, p1, p2, op, genome, index = phase_pe_data(root)
+        pres = phase_pe_kernels(op, genome, index, p1, p2)
+        del genome, index
+        K.reset_launch_counts()
+        pe = phase_pe_align(gp, p1, p2, os.path.join(root, "pe.sam"),
+                            N_PAIRS)
+        pe_counts = K.launch_counts()
+        log(f"[9] launches, pair-end run: {pe_counts}")
+        missing = [k for k in PE_PATH if pe_counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the pair-end "
+                                 f"main path: {missing}")
+        phase_pe_parity(gp, p1, p2, os.path.join(root, "pe_parity"))
+        path_counts = phase_pe_paths(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     log(f"[summary] headline {head['reads_per_s']:.1f} reads/s, "
-        f"repeat-heavy {rep['reads_per_s']:.1f} reads/s")
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": src, "replaces": rep_,
-         "launches": counts[k], **kres[k]}
-        for k, (src, rep_) in KERNEL_SOURCES.items()]}), flush=True)
+        f"repeat-heavy {rep['reads_per_s']:.1f} reads/s, pair-end "
+        f"{pe['pairs_per_s']:.1f} pairs/s")
+    rows = []
+    for k, (src, rep_) in KERNEL_SOURCES.items():
+        se_r, pe_r = kres.get(k, {}), pres.get(k, {})
+        times = se_r if "ms" in se_r else pe_r     # the main path's shapes
+        rows.append({"name": k, "route": "cuda", "source": src,
+                     "replaces": rep_,
+                     "launches": se_counts[k] + pe_counts[k]
+                     + path_counts[k],
+                     "max_abs_err": max(se_r.get("max_abs_err", 0),
+                                        pe_r.get("max_abs_err", 0)),
+                     "ms": times["ms"], "plain_ms": times["plain_ms"]})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """Byte parity of the PyTorch port's CLI (``--device cpu``: the kernels'
-plain twins) with ``bsmap_tpu``'s device and host engines, and the port's
-refusals of what it does not run yet."""
+plain twins) with ``bsmap_tpu``'s device and host engines, single-end and
+pair-end, and the port's refusals of what it does not run yet."""
 
 import pathlib
 import subprocess
@@ -10,6 +10,7 @@ import pytest
 
 from .conftest import REPO, simulate
 from .test_golden_se import assert_same
+from .test_pe_corners import repeat_pe_data  # noqa: F401 (fixture)
 
 ENV = {"PYTHONPATH": str(REPO), "BSMAP_TPU_CPU_JIT_CACHE": "1",
        "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
@@ -36,6 +37,18 @@ def cli_data(tmp_path_factory):
             seq, qual = seq[:50], qual[:50]
         out += [name, seq, plus, qual]
     (d / "readsm.fq").write_text("\n".join(out) + "\n")
+    # pairs of 76 nt, and two sets with short inserts read into the
+    # adapter (trimming): pa, and pt (same genome as pe) whose reads
+    # include tails that a second FilterReads pass would trim again
+    simulate(d, genome_out="refpe.fa", reads_out="pe1.fq",
+             reads2_out="pe2.fq", pe=True, n_reads=400, read_len=76,
+             chr_len=30000, n_chr=2, seed=24, error_rate=0.02)
+    for name, ref, seed in (("pa", "refpa.fa", 26), ("pt", "refpe.fa", 24)):
+        simulate(d, genome_out=ref, reads_out=f"{name}1.fq",
+                 reads2_out=f"{name}2.fq", pe=True, n_reads=300,
+                 read_len=76, chr_len=30000, n_chr=2, seed=seed,
+                 error_rate=0.02, insert_min=50, insert_max=200,
+                 adapter="AGATCGGAAGAGC")
     return d
 
 
@@ -43,6 +56,22 @@ def _cli(d, module, args):
     r = subprocess.run([sys.executable, "-m", module] + args, cwd=d,
                        capture_output=True, env=ENV)
     assert r.returncode == 0, r.stderr.decode()
+
+
+def _three_way(d, base, outs):
+    """Run the port (``--device cpu``) and both bsmap_tpu engines on
+    ``base``; ``outs`` maps each -o/-2 flag to a file name and every output
+    file must be byte-identical across the three runs."""
+    runs = {"torch": ("bsmap_tpu_torch.cli", ["--device", "cpu"]),
+            "device": ("bsmap_tpu.cli", ["--engine", "device"]),
+            "host": ("bsmap_tpu.cli", ["--engine", "host"])}
+    for tag, (module, extra) in runs.items():
+        files = [x for flag, name in outs.items()
+                 for x in (flag, f"{tag}_{name}")]
+        _cli(d, module, base + files + extra)
+    for name in outs.values():
+        assert_same(d, f"host_{name}", f"torch_{name}")
+        assert_same(d, f"device_{name}", f"torch_{name}")
 
 
 @pytest.mark.parametrize("reads,ref,flags,suffix", [
@@ -71,14 +100,82 @@ def test_torch_cli_matches_jax_engines(cli_data, reads, ref, flags, suffix):
     assert_same(cli_data, outs["device"], outs["torch"])
 
 
+@pytest.mark.parametrize("pairs,ref,flags,suffix", [
+    ("pe", "refpe.fa", ["-S", "1", "-v", "2", "-u"], "sam"),
+    ("pe", "refpe.fa", ["-S", "0", "-v", "2", "-u"], "sam"),
+    ("pe", "refpe.fa", ["-S", "3", "-v", "2", "-u", "-r", "0"], "sam"),
+    ("pe", "refpe.fa", ["-S", "2", "-v", "3"], "bsp"),
+    ("pe", "refpe.fa", ["-S", "1", "-v", "2", "-R", "-u"], "sam"),
+    ("pa", "refpa.fa", ["-S", "2", "-v", "2", "-q", "20",
+                        "-A", "AGATCGGAAGAGC", "-u"], "sam"),
+])
+def test_torch_cli_pe_matches_jax_engines(cli_data, pairs, ref, flags,
+                                          suffix):
+    """Pair-end (-b): SAM with -S 1, -S 0 (pinned rand_r seed) and -r 0,
+    BSP with the -2 unpaired file, XR tags (-R) and adapter/quality
+    trimming: the port's bytes equal both bsmap_tpu engines'."""
+    tag = f"{pairs}_{'_'.join(flags)}".replace("-", "")
+    base = ["-a", f"{pairs}1.fq", "-b", f"{pairs}2.fq", "-d", ref] + flags
+    outs = {"-o": f"{tag}.{suffix}"}
+    if suffix == "bsp":
+        outs["-2"] = f"{tag}_unpaired.bsp"
+    _three_way(cli_data, base, outs)
+
+
+def test_torch_cli_pe_replays_filter_once(cli_data):
+    """A replayed pair is aligned with the reads as the first FilterReads
+    pass left them.  In the pt set, read r82/1 ends, after its adapter is
+    cut, in AGTTCG, which the adapter scan accepts again: a second pass
+    would cut 6 more bases and lose the pair.  bsmap_tpu's device engine
+    runs the second pass on replayed pairs (its SAM differs at that pair);
+    the port's bytes equal the host engine's, which runs it once as the
+    reference does."""
+    base = ["-a", "pt1.fq", "-b", "pt2.fq", "-d", "refpe.fa", "-S", "2",
+            "-v", "2", "-q", "20", "-A", "AGATCGGAAGAGC", "-u"]
+    _cli(cli_data, "bsmap_tpu_torch.cli",
+         base + ["-o", "torch_pt.sam", "--device", "cpu"])
+    _cli(cli_data, "bsmap_tpu.cli",
+         base + ["-o", "host_pt.sam", "--engine", "host"])
+    assert_same(cli_data, "host_pt.sam", "torch_pt.sam")
+    assert b"r82_chr2_1640\t83\t" in (cli_data / "torch_pt.sam").read_bytes()
+
+
+def test_torch_cli_pe_repeat_corners(repeat_pe_data):
+    """The repeat-heavy pairs of test_pe_corners (multi-hit pairs, the
+    (chr, loc)-sorted unpaired fallback, mates with >K hits): the port's
+    SAM equals both bsmap_tpu engines'."""
+    base = ["-a", "p1.fq", "-b", "p2.fq", "-d", "g.fa", "-S", "17", "-v",
+            "2", "-u"]
+    _three_way(repeat_pe_data, base, {"-o": "rep.sam"})
+
+
+def test_torch_cli_pe_per_pair_many_hits(tmp_path):
+    """The per-pair path (BSP with -2) under -S 1 on pairs whose mates have
+    twenty equal-best hits, more than the K = 16 compacted ones: the
+    unpaired draw may fall past the K hits (the pair replays, so the pick
+    must not fail first).  The port's bytes equal the host engine's."""
+    from .test_torch_pair import _rep_genome
+    _rep_genome(tmp_path)
+    base = ["-a", "rep_1.fq", "-b", "rep_2.fq", "-d", "rep.fa", "-S", "1",
+            "-v", "2"]
+    runs = (("torch", "bsmap_tpu_torch.cli", ["--device", "cpu"]),
+            ("host", "bsmap_tpu.cli", ["--engine", "host"]))
+    for tag, module, extra in runs:
+        _cli(tmp_path, module, base + ["-o", f"{tag}.bsp", "-2",
+                                       f"{tag}_unpaired.bsp"] + extra)
+    for name in ("", "_unpaired"):
+        assert_same(tmp_path, f"host{name}.bsp", f"torch{name}.bsp")
+    assert (tmp_path / "torch.bsp").stat().st_size > 0
+
+
 @pytest.mark.parametrize("flags", [
-    ["-b", "r2.fq"], ["-D", "C-CGG"], ["-n", "1"], ["-p", "2"],
+    ["-b", "r2.fq", "-n", "1"], ["-D", "C-CGG"], ["-n", "1"], ["-p", "2"],
     ["--nprocs", "2"], ["--engine", "sharded"], ["-o", "out.bam"],
 ])
 def test_torch_cli_refuses_unported(flags):
-    """Pair-end, RRBS, -n 1, multi-process, the sharded engines and BAM
-    output exit non-zero with a pointer to ROADMAP.md (no silent engine
-    or format substitution)."""
+    """RRBS, -n 1 (single-end and pair-end), multi-process, the sharded
+    engines and BAM output exit non-zero with a pointer to ROADMAP.md (no
+    silent engine or format substitution)."""
     from bsmap_tpu_torch import cli
     argv = ["-a", "r.fq", "-d", "ref.fa", "-o", "out.sam"] + flags
     with pytest.raises(SystemExit) as e:
@@ -98,3 +195,10 @@ def test_torch_cuda_request_without_gpu_raises(monkeypatch, cli_data):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.run(argv)
     assert not (cli_data / "never.sam").exists()
+    # pair-end too
+    argv = ["-a", str(cli_data / "pe1.fq"), "-b", str(cli_data / "pe2.fq"),
+            "-d", str(cli_data / "refpe.fa"), "-o",
+            str(cli_data / "never_pe.sam"), "-S", "1", "--device", "cuda"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run(argv)
+    assert not (cli_data / "never_pe.sam").exists()
