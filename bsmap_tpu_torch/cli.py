@@ -1,16 +1,18 @@
 """Command-line driver with the reference's option surface (main.cpp:182-289),
-running the single-end and pair-end WGBS paths on PyTorch.
+running the single-end and pair-end WGBS paths and single-end RRBS on
+PyTorch.
 
 Supports both ``-x val`` and ``-x=val`` forms.  Output format is chosen by
 the -o suffix: .sam = SAM, anything else = BSP (main.cpp:293-296).  The
 alignment engine is ``--engine device`` (the default: PyTorch, on the
 device named by ``--device``, CUDA kernels on a GPU) or ``--engine host``
 (the exact sequential oracle).  A device request never turns into the host
-engine.  RRBS, BAM output, ``-n 1`` and multi-process runs are not ported
-yet and exit with an error.
+engine.  Pair-end RRBS runs on ``--engine host`` only; BAM output, ``-n 1``
+and multi-process runs are not ported yet and exit with an error.
 
     python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam --device cuda
     python -m bsmap_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -o out.sam
+    python -m bsmap_tpu_torch.cli -a rrbs.fq -d ref.fa -D C-CGG -o out.sam
 """
 
 from __future__ import annotations
@@ -34,12 +36,12 @@ USAGE = """Usage: bsmap_tpu_torch [options]
        -2  <str>   output file of unpaired hits (pair-end BSP output)
        -m  <int>   minimal insert size (pair-end), default 28
        -x  <int>   maximal insert size (pair-end), default 500
-       -s  <int>   seed size, default=16. min=8, max=16
+       -s  <int>   seed size, default=16 (WGBS), 12 (RRBS). min=8, max=16
        -v  <int>   max mismatches per read (<=15), default=2
        -w  <int>   max equal best hits to count (<=1000)
        -B  <int>   start from the Nth read
        -E  <int>   end at the Nth read
-       -I  <int>   index interval, default=4
+       -I  <int>   index interval, default=4 (WGBS), 1 (RRBS)
        -p  <int>   processors (1 only)
        -S  <int>   random seed for multi-hit selection (0 = clock)
        -M  <str>   alignment transition, default TC
@@ -49,6 +51,7 @@ USAGE = """Usage: bsmap_tpu_torch [options]
        -A  <str>   3' adapter sequence
        -L  <int>   map first N nucleotides
        -r  [0,1]   repeat-hit reporting: 0 none, 1 random one
+       -D  <str>   RRBS digestion site, e.g. C-CGG
        -R          print reference sequence (XR tag)
        -u          report unmapped reads
        --engine {device,host}  alignment engine (default device)
@@ -56,8 +59,8 @@ USAGE = """Usage: bsmap_tpu_torch [options]
                                cuda; cpu runs the kernels' plain twins)
        --index-cache <dir>     persist/reuse the seed index
        -h          help
-   Not ported yet (see ROADMAP.md): -D (RRBS), -n 1, .bam output,
-   -p > 1, --nprocs.
+   Not ported yet (see ROADMAP.md): -n 1, .bam output, -p > 1,
+   --nprocs; pair-end -D runs on --engine host only.
 """
 
 
@@ -128,6 +131,8 @@ def parse_args(argv: list[str]) -> Options:
                 o.out_unpair = val()
             elif c == "s":
                 p.set_seed_size(int(val()))
+                if p.RRBS_flag:
+                    p.set_seed_size(12)
             elif c == "m":
                 p.min_insert = int(val())
             elif c == "x":
@@ -136,6 +141,8 @@ def parse_args(argv: list[str]) -> Options:
                 p.report_repeat_hits = int(val())
             elif c == "I":
                 p.index_interval = int(val())
+                if p.RRBS_flag:
+                    p.index_interval = 1
                 if p.index_interval > 16:
                     sys.exit("index interval exceeds max value:16")
             elif c == "v":
@@ -167,7 +174,7 @@ def parse_args(argv: list[str]) -> Options:
             elif c == "E":
                 p.read_end = int(val())
             elif c == "D":
-                _unported("RRBS (-D)")
+                p.set_digestion_site(val())
             elif c == "M":
                 v = val()
                 p.set_align(v[0], v[1])

@@ -1,9 +1,10 @@
 // K2 exact_schedule: the exact (reference-order) seed schedule.
 //
 // Replaces bsmap_tpu/engine/device_engine.py:_schedule_impl (:404-672),
-// forward chain, non-RRBS: chain_schedule (:445-550), slot_desc (:574-632)
-// and the per-rank totals (:649-664).  With `probe` set it writes only the
-// per-rank totals, the stage-1-only pre-pass of probe mode (:1186-1191).
+// forward chain: chain_schedule (:445-550), slot_desc (:574-632) and the
+// per-rank totals (:649-664).  With `probe` set it writes only the per-rank
+// totals, the stage-1-only pre-pass of probe mode (:1186-1191).  With
+// `rrbs` set it runs the RRBS branches instead (bsm_rrbs_schedule below).
 //
 // Per read (ReorderSeed / AdjustSeedStartArray / seedindex,
 // align.cpp:454-577): bucket cost cnt+2 at each of P seed positions, the
@@ -20,10 +21,82 @@
 
 #include "common.cuh"
 
+// Stable ascending insertion sort of segment ids by key (<= 16 keys).
+static __device__ __forceinline__ void bsm_order_segments(const uint32_t* key,
+                                                          int MS, int* order) {
+  for (int j = 0; j < MS; ++j) {
+    int p = j;
+    while (p > 0 && key[order[p - 1]] > key[j]) {
+      order[p] = order[p - 1];
+      --p;
+    }
+    order[p] = j;
+  }
+}
+
+// The RRBS branches (chain_schedule :464-478, slot_desc :596-609), forward
+// chain: one probed position per segment at start offset 0, segments in a
+// stable order of the RAW bucket count (signed), and each slot's
+// (segment, strand) class 2*segment looked up in the tag-partitioned
+// offsets tag_off[seed * J2 + class] (J2 = (ntag - 1) / 3^S); the count is
+// 0 unless the probe is fresh and the class exists.  The reference scans
+// the raw bucket and filters on the tag (align.cpp:183-196); the
+// partitioned table enumerates the same entries in the same order.
+static __device__ void bsm_rrbs_schedule(
+    const int* row, int nw, const int4* __restrict__ kmer_tab,
+    const int* __restrict__ prof_a, const int* __restrict__ tag_off,
+    long long ntag, int S, int I, int MS, int P, int probe, int len,
+    int bud, int maxrank, size_t b, int* h_out, int* off0_out,
+    int* off3_out, int* wcnt_out, int* cnt_out, int* soff_out,
+    int* ftot_out) {
+  const int NB = MS * I;
+  const int seedseg = bsm_seedseg(len, bud, S, I, MS);
+  uint32_t key[BSM_MAX_MS];
+  int order[BSM_MAX_MS];
+  for (int n = 0; n < MS; ++n) {
+    int pos = bsm_clampi(__ldg(&prof_a[n * I]), 0, P - 1);
+    int cn = __ldg(&kmer_tab[bsm_seed_at(row, nw, S, pos)].y);
+    key[n] = n < seedseg ? ((uint32_t)cn ^ 0x80000000u) : 0xFFFFFFFFu;
+  }
+  bsm_order_segments(key, MS, order);
+  long long p3 = 1;
+  for (int j = 0; j < S; ++j) p3 *= 3;
+  const long long J2 = (ntag - 1) / p3;
+  if (!probe) soff_out[b] = 0;
+  BsmRankTotals tot;
+  tot.init();
+  for (int j = 0; j < MS; ++j) {
+    const int mode = order[j];
+    uint32_t rsum = 0;
+    for (int i = 0; i < I; ++i) {
+      int a = __ldg(&prof_a[mode * I + i]);
+      int k = a - i;
+      int kc = bsm_clampi(k, 0, P - 1);
+      bool fresh = k >= 0 && k <= len - S;
+      long long idx = (long long)bsm_seed_at(row, nw, S, kc) * J2 + 2 * mode;
+      idx = idx < 0 ? 0 : (idx > ntag - 2 ? ntag - 2 : idx);
+      int off = __ldg(&tag_off[idx]);
+      int cn = __ldg(&tag_off[idx + 1]) - off;
+      bool ok = fresh && 2 * mode + 1 < J2;
+      int c = tot.slot(j, ok ? cn : 0, seedseg, maxrank, &rsum);
+      if (!probe) {
+        size_t o = b * NB + j * I + i;
+        h_out[o] = -a + i;
+        off0_out[o] = off;
+        wcnt_out[o] = 0;
+        off3_out[o] = 0;
+        cnt_out[o] = c;
+      }
+    }
+    ftot_out[b * MS + j] = tot.close_rank(rsum);
+  }
+}
+
 __global__ void bsm_exact_schedule_kernel(
     const int* __restrict__ rows, int m, int nw,
     const int4* __restrict__ kmer_tab, const int* __restrict__ prof_a,
-    int S, int I, int MS, int P, int probe,
+    int S, int I, int MS, int P, int probe, int rrbs,
+    const int* __restrict__ tag_off, long long ntag,
     int* __restrict__ h_out, int* __restrict__ off0_out,
     int* __restrict__ off3_out, int* __restrict__ wcnt_out,
     int* __restrict__ cnt_out, int* __restrict__ soff_out,
@@ -34,6 +107,12 @@ __global__ void bsm_exact_schedule_kernel(
   const int* row = rows + (size_t)b * width;
   const int len = row[2 * nw], bud = row[2 * nw + 1];
   const int maxrank = row[2 * nw + 3];
+  if (rrbs) {
+    bsm_rrbs_schedule(row, nw, kmer_tab, prof_a, tag_off, ntag, S, I, MS, P,
+                      probe, len, bud, maxrank, (size_t)b, h_out, off0_out,
+                      off3_out, wcnt_out, cnt_out, soff_out, ftot_out);
+    return;
+  }
   const int NB = MS * I;
   const int WLEN = MS * S + I;
   const int L = min(P, WLEN);
@@ -96,14 +175,7 @@ __global__ void bsm_exact_schedule_kernel(
   int order[BSM_MAX_MS];
   for (int n = 0; n < MS; ++n)
     key[n] = n < seedseg ? (BSM_T(n, start[n]) ^ 0x80000000u) : BIG;
-  for (int j = 0; j < MS; ++j) {
-    int p = j;
-    while (p > 0 && key[order[p - 1]] > key[j]) {
-      order[p] = order[p - 1];
-      --p;
-    }
-    order[p] = j;
-  }
+  bsm_order_segments(key, MS, order);
 #undef BSM_T
 
   if (!probe) soff_out[b] = s_off;
@@ -136,15 +208,17 @@ __global__ void bsm_exact_schedule_kernel(
 extern "C" int bsmap_exact_schedule(const int* rows, int m, int nw,
                                     const int* kmer_tab, const int* prof_a,
                                     int S, int I, int MS, int P, int probe,
-                                    int* h, int* off0, int* off3, int* wcnt,
-                                    int* cnt, int* soff, int* ftot,
-                                    cudaStream_t stream) {
+                                    int rrbs, const int* tag_off,
+                                    long long ntag, int* h, int* off0,
+                                    int* off3, int* wcnt, int* cnt, int* soff,
+                                    int* ftot, cudaStream_t stream) {
   if (m > 0) {
     const int threads = 128;
     bsm_exact_schedule_kernel<<<(m + threads - 1) / threads, threads, 0,
                                 stream>>>(
         rows, m, nw, reinterpret_cast<const int4*>(kmer_tab), prof_a, S, I,
-        MS, P, probe, h, off0, off3, wcnt, cnt, soff, ftot);
+        MS, P, probe, rrbs, tag_off, ntag, h, off0, off3, wcnt, cnt, soff,
+        ftot);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // K3 verify_candidates: candidate layout, verify and dedup.
 //
 // Replaces the candidate stage of bsmap_tpu/engine/device_engine.py:
-// _verify_impl (:692-849), non-RRBS, unsharded, forward chain.  Three parts:
+// _verify_impl (:692-897), unsharded, forward chain.  Three parts:
 //
 //  1. bsm_slot_scan: saturating (2^30) exclusive scan of the B*NB slot
 //     counts -> `starts` (total last), and the last non-empty slot that
@@ -16,6 +16,13 @@
 //     coordinate, the bounds check and the budget.  The last capacity slot
 //     is always evaluated, live or not, because the JAX program's
 //     selection falls back to its values for reads with no pick.
+//     Under `rrbs` (:724-738, :802-812) the entry is a chromosome-local loc
+//     of the slot's own tag class and its tag names the chromosome and
+//     strand (no search); loc + h must be >= 0.  An eligible candidate
+//     then gets the SE fragment filter's verdict (CCGG_seglen, :866-897)
+//     as the INFO_FRAG bit, which K4 ANDs into acceptance: the dedup below
+//     still counts a filtered hit, as the reference inserts into its
+//     hitset before the filter.
 //  3. the dedup cascade on (read, chr, watson loc): three rounds of
 //     atomicMin of the candidate index into T slots, then a resolve pass,
 //     with the JAX program's multipliers, table size and slot hash so the
@@ -23,7 +30,8 @@
 //
 // Bound on the card: per candidate, two dependent random gathers (entry,
 // then NW+1 genome words of one 32-44 byte span) plus a log2(n_chr)
-// search; the dedup rounds are atomics into a T-word table that fits L2.
+// search (RRBS: two log2(n_sites) searches over the sites); the dedup
+// rounds are atomics into a T-word table that fits L2.
 // Design: thread per candidate over the flat candidate axis, so load is
 // balanced whatever the bucket sizes; neighbouring threads read
 // neighbouring entries of one bucket.
@@ -69,6 +77,44 @@ __global__ void bsm_slot_scan_kernel(const int* __restrict__ cnt, int N,
   if (t == 0) *lastslot = lastv;
 }
 
+// CCGG_seglen's fragment length test (device_engine.py:866-897,
+// dbseq.cpp:541-567): upper_bound - 1 of anchor + wloc and lower_bound of
+// the read's end - tail over the GLOBAL sorted uint32 sites, each clipped
+// to chromosome c's range; seg_start is the floor site (never the last),
+// seg_end the first site at or after the next one whose end covers the
+// read, else the last site's end; no site on c gives zl = 0.
+static __device__ bool bsm_frag_ok(const uint32_t* __restrict__ sites,
+                                   int ns, const int* __restrict__ site_off,
+                                   uint32_t anchor, int c, int wloc, int llen,
+                                   int tail, int min_ins, int max_ins) {
+  const int lo_c = site_off[c], nsit = site_off[c + 1] - lo_c;
+  int zl = 0;
+  if (nsit > 0) {
+    const uint32_t key1 = anchor + (uint32_t)max(wloc, 0);
+    int lo = 0, hi = ns;
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (sites[mid] <= key1) lo = mid + 1; else hi = mid;
+    }
+    const int left = min(max(lo - 1, lo_c), max(lo_c + nsit - 2, lo_c));
+    const int seg_start = (int)(sites[bsm_clampi(left, 0, ns - 1)] - anchor);
+    const int right0 = min(left + 1, lo_c + nsit - 1);
+    const int end = (int)((uint32_t)wloc + (uint32_t)llen - (uint32_t)tail);
+    const uint32_t key2 = anchor + (uint32_t)max(end, 0);
+    lo = 0;
+    hi = ns;
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (sites[mid] < key2) lo = mid + 1; else hi = mid;
+    }
+    const int right = min(max(max(right0, lo), lo_c), lo_c + nsit - 1);
+    const uint32_t seg_end =
+        sites[bsm_clampi(right, 0, ns - 1)] - anchor + (uint32_t)tail;
+    zl = (int)(seg_end - (uint32_t)seg_start);
+  }
+  return zl >= min_ins && zl <= max_ins;
+}
+
 __global__ void bsm_verify_kernel(
     const int* __restrict__ rows, int nw, int NB, int I, int cands, int N,
     const int* __restrict__ starts, const int* __restrict__ lastslot,
@@ -78,8 +124,10 @@ __global__ void bsm_verify_kernel(
     const uint32_t* __restrict__ anchors, int n_chr,
     const int* __restrict__ sizes, const int* __restrict__ rcoff,
     const uint32_t* __restrict__ wlocs, long long nwl,
-    const uint32_t* __restrict__ clocs, long long ncl,
-    int* __restrict__ crid, int* __restrict__ cchrp,
+    const uint32_t* __restrict__ clocs, long long ncl, int rrbs,
+    const int* __restrict__ tags, const uint32_t* __restrict__ sites,
+    const int* __restrict__ site_off, int nsites, int tail, int min_ins,
+    int max_ins, int* __restrict__ crid, int* __restrict__ cchrp,
     int* __restrict__ cwloc, int* __restrict__ cinfo) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= cands) return;
@@ -107,17 +155,29 @@ __global__ void bsm_verify_kernel(
   const int rid = fid / NB;
   const int rank = (fid - rid * NB) / I;
   const int e = s - starts[fid];
-  const int g_wc = wcnt[fid];
-  const bool crick = e >= g_wc;
-  uint32_t entry;
-  if (crick) {
-    long long i3 = (int)((uint32_t)off3[fid] + (uint32_t)(e - g_wc));
-    entry = clocs[i3 < 0 ? 0 : (i3 >= ncl ? ncl - 1 : i3)];
+  long long i0 = (int)((uint32_t)off0[fid] + (uint32_t)e);
+  i0 = i0 < 0 ? 0 : (i0 >= nwl ? nwl - 1 : i0);
+  bool crick;
+  int c = 0, loc_local = 0;
+  uint32_t g;
+  if (rrbs) {
+    const int chrp = tags[i0] & 0xFFFF;
+    c = chrp >> 1;
+    crick = (chrp & 1) != 0;
+    loc_local = (int)(wlocs[i0] + (uint32_t)h[fid]);
+    g = anchors[c] + (uint32_t)max(loc_local, 0);
   } else {
-    long long i0 = (int)((uint32_t)off0[fid] + (uint32_t)e);
-    entry = wlocs[i0 < 0 ? 0 : (i0 >= nwl ? nwl - 1 : i0)];
+    const int g_wc = wcnt[fid];
+    crick = e >= g_wc;
+    uint32_t entry;
+    if (crick) {
+      long long i3 = (int)((uint32_t)off3[fid] + (uint32_t)(e - g_wc));
+      entry = clocs[i3 < 0 ? 0 : (i3 >= ncl ? ncl - 1 : i3)];
+    } else {
+      entry = wlocs[i0];
+    }
+    g = entry + (uint32_t)h[fid];
   }
-  const uint32_t g = entry + (uint32_t)h[fid];
   const int NW = nw;
   const int wbase = bsm_clampi((int)(g >> 4) + (crick ? W : 0), 0,
                                2 * W - NW - 1);
@@ -135,24 +195,31 @@ __global__ void bsm_verify_kernel(
     cur = nxt;
   }
   const int llen = row[2 * nw];
-  int lo = 0, hi = n_chr;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (anchors[mid] <= g) lo = mid + 1; else hi = mid;
+  if (!rrbs) {
+    int lo = 0, hi = n_chr;
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (anchors[mid] <= g) lo = mid + 1; else hi = mid;
+    }
+    c = bsm_clampi(lo - 1, 0, n_chr - 1);
+    loc_local = (int)(g - anchors[c]);
   }
-  const int c = bsm_clampi(lo - 1, 0, n_chr - 1);
-  const int loc_local = (int)(g - anchors[c]);
   const int wloc = crick ? (int)((uint32_t)rcoff[c] - (uint32_t)llen -
                                  (uint32_t)loc_local)
                          : loc_local;
   const bool in_bounds = wloc >= 0 && loc_local >= 0 &&
                          (int)((uint32_t)wloc + (uint32_t)llen) <= sizes[c];
+  // (under rrbs, in_bounds holds the tag check loc + h >= 0)
   const bool elig = live && in_bounds && wmm <= row[2 * nw + 1];
+  const bool frag = rrbs && elig &&
+                    bsm_frag_ok(sites, nsites, site_off, anchors[c], c, wloc,
+                                llen, tail, min_ins, max_ins);
   crid[s] = rid;
   cchrp[s] = 2 * c + (crick ? 1 : 0);
   cwloc[s] = wloc;
   cinfo[s] = (elig ? (BSM_INFO_ELIGIBLE | BSM_INFO_UNRESOLVED) : 0) |
-             (wmm << BSM_INFO_WMM_SHIFT) | (rank << BSM_INFO_RANK_SHIFT);
+             (frag ? BSM_INFO_FRAG : 0) | (wmm << BSM_INFO_WMM_SHIFT) |
+             (rank << BSM_INFO_RANK_SHIFT);
 }
 
 __constant__ uint32_t bsm_dd_muls[3][3] = {
@@ -216,7 +283,9 @@ extern "C" int bsmap_verify_candidates(
     const int* off0, const int* off3, const int* wcnt, const int* cnt,
     const int* catcat, int W, const int* anchors, int n_chr, const int* sizes,
     const int* rcoff, const int* wlocs, long long nwl, const int* clocs,
-    long long ncl, int T, int* starts, int* scratch, int* crid, int* cchrp,
+    long long ncl, int rrbs, const int* tags, const int* sites,
+    const int* site_off, long long nsites, int tail, int min_ins,
+    int max_ins, int T, int* starts, int* scratch, int* crid, int* cchrp,
     int* cwloc, int* cinfo, cudaStream_t stream) {
   const int NB = MS * I, N = m * NB;
   const int threads = 256;
@@ -237,8 +306,9 @@ extern "C" int bsmap_verify_candidates(
       reinterpret_cast<const uint32_t*>(catcat), W,
       reinterpret_cast<const uint32_t*>(anchors), n_chr, sizes, rcoff,
       reinterpret_cast<const uint32_t*>(wlocs), nwl,
-      reinterpret_cast<const uint32_t*>(clocs), ncl, crid, cchrp, cwloc,
-      cinfo);
+      reinterpret_cast<const uint32_t*>(clocs), ncl, rrbs, tags,
+      reinterpret_cast<const uint32_t*>(sites), site_off, (int)nsites, tail,
+      min_ins, max_ins, crid, cchrp, cwloc, cinfo);
   BSM_CHECK();
   for (int r = 0; r < 3; ++r) {
     int* t = tbl + (size_t)r * T;

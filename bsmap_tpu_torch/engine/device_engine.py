@@ -81,13 +81,16 @@ def make_cfg(param, W: int, n_chr: int, chains_mode: str, maxseg: int,
     return Cfg(S=S, I=I, maxseg=maxseg, chains_mode=chains_mode, P=P,
                max_num_hits=param.max_num_hits,
                report_repeat_hits=param.report_repeat_hits,
-               W=W, n_chr=n_chr, lean=lean, min_ins=param.min_insert,
-               max_ins=param.max_insert, rc=rc, rc_n=rc_n, nw=nw)
+               W=W, n_chr=n_chr, lean=lean, rrbs=bool(param.RRBS_flag),
+               min_ins=param.min_insert, max_ins=param.max_insert,
+               tail=len(param.digest_site) - 2 * param.digest_pos
+               if param.RRBS_flag else 0,
+               rc=rc, rc_n=rc_n, nw=nw)
 
 
 class Cfg(NamedTuple):
     """Static configuration of one device program: the fields of
-    ``bsmap_tpu``'s Cfg that the WGBS single-chain programs read."""
+    ``bsmap_tpu``'s Cfg that the single-chain programs read."""
 
     S: int
     I: int
@@ -103,8 +106,12 @@ class Cfg(NamedTuple):
                            # (PairAlign runs every segment, pairs.cpp:163),
                            # no -r 0 abort (align.cpp:210 pairend guard)
     hits_k: int = 0        # also emit up to K compacted hits per read
-    min_ins: int = 0       # PE insert window (-m/-x) of the pair join
-    max_ins: int = 0
+    rrbs: bool = False     # digestion-site index: tag-partitioned slots,
+                           # chr-local entries, SE fragment filter
+                           # (align.cpp:175-251, dbseq.cpp:541-567)
+    min_ins: int = 0       # PE insert window (-m/-x) of the pair join; the
+    max_ins: int = 0       # fragment-length window under rrbs
+    tail: int = 0          # RRBS: len(digest_site) - 2*digest_pos
     rc: tuple = (3, 2, 1, 0)   # 2-bit complement permutation (rc_code)
     rc_n: int = 3          # rev_alphabet['N'] code for RC-chain N lanes
     probe: bool = False    # totals-only pre-pass: stage 1 alone, returns
@@ -153,9 +160,9 @@ def _pack_inputs(codes, regs, lens, buds, rand32, maxrank):
 
 def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
                       param: Param) -> dict[str, torch.Tensor]:
-    """The device tables of ``bsmap_tpu``'s DeviceEngine (the non-RRBS
-    branch of device_engine.py:1229-1331) as CPU int32 tensors; uint32
-    arrays keep their bits.
+    """The device tables of ``bsmap_tpu``'s DeviceEngine
+    (device_engine.py:1229-1331) as CPU int32 tensors; uint32 arrays keep
+    their bits.
 
       catcat   (2W,)      refcat ++ crefcat, 2-bit packed, 16 bases/word
       anchors  (n_chr,)   global per-strand base offset of each chromosome
@@ -166,9 +173,18 @@ def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
       wlocs    (nw,)      Watson entries, bucket order
       clocs    (nc,)      Crick entries, bucket order
       prof_a   (16, I)    seed profile start positions
+
+    Under RRBS (:1239-1286) the index is tag-partitioned instead:
+
+      kmer_tab (3^S, 4)   [raw offset, raw count, 0, 0]
+      wlocs    (n,)       chr-local entries ordered by (bucket, tag class
+                          2*segment + rc, original position)
+      tags     (n,)       their packed chrp | j << 16 | rc << 24 tags
+      tag_off  (3^S*J2+1,) class offsets, J2 = 2 * max_seedseg_num
+      sites    (ns,)      global (anchor + local) digestion sites, uint32
+      site_off (n_chr+1,) each chromosome's range of ``sites``
+      clocs    (1,)       unused
     """
-    if param.RRBS_flag:
-        raise EngineUnsupported(f"RRBS tables are {UNPORTED}")
     if param.profile is None:
         param.init_mapping()
 
@@ -181,6 +197,19 @@ def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
     one = np.zeros(1, dtype=np.uint32)
     tk = index.total_kmers
     counts = np.diff(index.offsets)
+    I = param.index_interval
+    prof_a = [[param.profile[n][i].a for i in range(I)]
+              for n in range(MAXSNPS + 1)]
+    base = {
+        "catcat": t(np.concatenate([genome.refcat, genome.crefcat]),
+                    np.uint32),
+        "anchors": t(genome.anchors[:genome.n_chr], np.uint32),
+        "sizes": t(genome.sizes),
+        "rcoff": t(genome.rc_offsets),
+        "prof_a": t(prof_a),
+    }
+    if param.RRBS_flag:
+        return {**base, **_rrbs_tables(genome, index, param, t, one)}
     wc = index.wcounts.astype(np.int64)
     cc = counts - wc
     kmer_tab = np.zeros((tk, 4), dtype=np.int32)
@@ -198,19 +227,50 @@ def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
     is_w = np.cumsum(diff[:total], dtype=np.int8) > 0
     wl = index.locs[is_w]
     cl = index.locs[~is_w]
-    I = param.index_interval
-    prof_a = [[param.profile[n][i].a for i in range(I)]
-              for n in range(MAXSNPS + 1)]
     return {
-        "catcat": t(np.concatenate([genome.refcat, genome.crefcat]),
-                    np.uint32),
-        "anchors": t(genome.anchors[:genome.n_chr], np.uint32),
-        "sizes": t(genome.sizes),
-        "rcoff": t(genome.rc_offsets),
+        **base,
         "kmer_tab": torch.from_numpy(kmer_tab),
         "wlocs": t(wl if len(wl) else one, np.uint32),
         "clocs": t(cl if len(cl) else one, np.uint32),
-        "prof_a": t(prof_a),
+    }
+
+
+def _rrbs_tables(genome: PackedGenome, index: SeedIndex, param: Param, t,
+                 one) -> dict[str, torch.Tensor]:
+    """The tag-partitioned RRBS tables (device_engine.py:1239-1286): each
+    probe enumerates exactly its (segment, strand) class, and within a
+    class the original bucket order (the reference's discovery order) is
+    kept."""
+    tk = index.total_kmers
+    counts = np.diff(index.offsets)
+    kmer_tab = np.zeros((tk, 4), dtype=np.int32)
+    kmer_tab[:, 0] = index.offsets[:-1]
+    kmer_tab[:, 1] = counts              # RAW size: schedule cost parity
+    J2 = 2 * param.max_seedseg_num
+    tag_off = np.zeros(tk * J2 + 1, dtype=np.int32)
+    wlocs, tags = one, one
+    if len(index.locs):
+        tags_u = index.tags.astype(np.uint32)
+        cls = (((tags_u >> 16) & 0xFF) * 2
+               + ((tags_u >> 24) & 1)).astype(np.int64)
+        bucket_id = np.repeat(np.arange(tk, dtype=np.int64), counts)
+        order = np.lexsort((np.arange(len(cls)), cls, bucket_id))
+        key2 = bucket_id[order] * J2 + cls[order]
+        tag_off[1:] = np.cumsum(np.bincount(key2, minlength=tk * J2))
+        wlocs, tags = index.locs[order], tags_u[order]
+    site_off = np.zeros(genome.n_chr + 1, dtype=np.int32)
+    np.cumsum([len(s) for s in genome.ccgg_sites], out=site_off[1:])
+    sites = (np.concatenate([s + genome.anchors[c]
+                             for c, s in enumerate(genome.ccgg_sites)])
+             if site_off[-1] else one)
+    return {
+        "kmer_tab": torch.from_numpy(kmer_tab),
+        "wlocs": t(wlocs, np.uint32),
+        "clocs": t(one, np.uint32),
+        "tags": t(tags, np.uint32),
+        "tag_off": t(tag_off),
+        "sites": t(sites, np.uint32),
+        "site_off": t(site_off),
     }
 
 
@@ -240,8 +300,6 @@ class DeviceEngine:
         # rand-independent (j = draw % 1), so the kernels run with
         # rand32 = 0, the formatter keeps the stream position, and only
         # genuinely multi-hit reads replay on the exact host engine.
-        if param.RRBS_flag:
-            raise EngineUnsupported(f"RRBS is {UNPORTED}")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA device requested but torch sees no "
@@ -282,15 +340,29 @@ class DeviceEngine:
         # reference's _mapseq is stateful across reads: align.h:132)
         self._mapseq_buf = np.zeros(256, dtype=np.uint8)
         self._anchors_i64 = genome.anchors[: genome.n_chr].astype(np.int64)
-        # no digestion sites outside RRBS (native ZP/ZL tag inputs)
+        # chr-local digestion sites for the native ZP/ZL tags
+        # (dbseq.cpp:541); none outside RRBS
         self._sites_local = np.zeros(1, np.int64)
         self._site_off_l = np.zeros(genome.n_chr + 1, np.int64)
+        self._rr_tail = 0
+        if param.RRBS_flag and genome.ccgg_sites is not None:
+            np.cumsum([len(s) for s in genome.ccgg_sites],
+                      out=self._site_off_l[1:])
+            if self._site_off_l[-1]:
+                self._sites_local = np.concatenate(
+                    genome.ccgg_sites).astype(np.int64)
+            self._rr_tail = len(param.digest_site) - 2 * param.digest_pos
 
     def _set_tiers(self, b: int) -> None:
         """Two candidate capacities: a SMALL one for optimistic round-1
-        windows and a BIG one for exactly bin-packed re-dispatches."""
+        windows and a BIG one for exactly bin-packed re-dispatches.  RRBS
+        gets the big one alone: its demand is about 10-20 candidates per
+        read even tag-partitioned, so a small round would overflow
+        wholesale."""
         mults = sorted({CANDS_PER_READ, max(CANDS_BIG_PER_READ,
                                             CANDS_PER_READ)})
+        if self.param.RRBS_flag:
+            mults = mults[-1:]
         self.cands_tiers = [m * b for m in mults]
         self.CANDS = self.cands_tiers[0]
         self.CANDS_BIG = self.cands_tiers[-1]
@@ -309,6 +381,8 @@ class DeviceEngine:
         if chains_mode not in ("f", "r"):
             raise EngineUnsupported(f"the '{chains_mode}' read chains "
                                     f"(-n 1) are {UNPORTED}")
+        if chains_mode == "r" and self.param.RRBS_flag:
+            raise EngineUnsupported(f"the RRBS rc chain is {UNPORTED}")
         return make_cfg(self.param, self.W, self.genome.n_chr, chains_mode,
                         self._maxseg, lean=lean, nw=nw)
 
@@ -342,7 +416,7 @@ class DeviceEngine:
         schedule-independent) and all offset-0 probes within the fresh seed
         range."""
         p = self.param
-        if len(lens) == 0:
+        if p.RRBS_flag or len(lens) == 0:
             return False
         S, I = p.seed_size, p.index_interval
         lens = np.ascontiguousarray(lens, dtype=np.int64)
@@ -356,8 +430,11 @@ class DeviceEngine:
     def _stale_risk(self, lens: np.ndarray, budgets: np.ndarray) -> np.ndarray:
         """True for reads whose schedule may read stale per-instance state
         (previous reads' seed buffers / start offsets, align.cpp:454-469):
-        max_offset == 0, or any probed / cost position can exceed len - S."""
+        max_offset == 0, or any probed / cost position can exceed len - S.
+        RRBS never reads that state (fixed zero offsets, in-range probes)."""
         p = self.param
+        if p.RRBS_flag:
+            return np.zeros(len(lens), dtype=bool)
         S, I = p.seed_size, p.index_interval
         lens = np.ascontiguousarray(lens, dtype=np.int32)
         max_off = (lens - I + 1) % S
@@ -571,8 +648,9 @@ class DeviceEngine:
             served[sel[ok]] = True
             return int(fin.sum()), int((ok & ~res).sum())
 
-        probing = self.probe_mode
-        init_rank = min(self.rank_start, full_rank)
+        # RRBS runs every segment (align.cpp:450): no probe, full rank
+        probing = self.probe_mode and not cfg.rrbs
+        init_rank = full_rank if cfg.rrbs else min(self.rank_start, full_rank)
         cap_max = min(self.CANDS_BIG, FTOT_CLAMP - 1)
 
         def dispatch_packs(rem, demand, maxrank, collect_now=True):
@@ -661,7 +739,7 @@ class DeviceEngine:
                 n_esc += e
             if n:
                 rem_mass = int(ftot[~done].sum())
-                if rem_mass > 2 * n_win * self.CANDS:
+                if rem_mass > 2 * n_win * self.CANDS and not cfg.rrbs:
                     # most of the demand overflowed the optimistic round:
                     # repeat-heavy genome — switch to probe + exact packing,
                     # for this call's overflowed reads too
@@ -941,7 +1019,8 @@ class DeviceEngine:
                 0x40 * block.readset, bool(p.out_unmap),
                 p.report_repeat_hits, block.synth_qual,
                 self.genome.refcat, total_codes, self._anchors_i64, un,
-                self._mapseq_buf, 0, self._sites_local, self._site_off_l, 0)
+                self._mapseq_buf, int(p.RRBS_flag), self._sites_local,
+                self._site_off_l, self._rr_tail)
         else:
             out, _lo, na = native.format_bsp_block(
                 lib, block.buf, block.rec, status, rows_all, MS,
@@ -976,7 +1055,8 @@ class DeviceEngine:
             lib, block.buf, block.rec, status, rows_all,
             self._chrname_buf, self._chrname_off, REV_CHAR,
             0x40 * block.readset, bool(p.out_unmap), p.report_repeat_hits,
-            block.synth_qual, 0, self._sites_local, self._site_off_l, 0)
+            block.synth_qual, int(p.RRBS_flag), self._sites_local,
+            self._site_off_l, self._rr_tail)
         fmt.n_aligned += na
         fcum = None
         if p.randseed == 0:

@@ -44,8 +44,8 @@ from ..reference import PackedGenome
 from ..trim import filter_read
 from ..utils import myrand_hash
 from . import kernels
-from .device_engine import (DeviceEngine, EngineUnsupported, UNPORTED,
-                            _pack_inputs, pack_spans)
+from .device_engine import (DeviceEngine, EngineUnsupported, _pack_inputs,
+                            pack_spans)
 from .host_engine import SEResult
 from .kernels import (JN_COLS, N_EXTRAS, X_COFF, X_FTOT, X_OK, X_REPLAY,
                       X_SOFF)
@@ -124,7 +124,7 @@ class PairDeviceEngine:
     def __init__(self, genome: PackedGenome, index: SeedIndex, param: Param,
                  device: torch.device | str = "cuda"):
         if param.RRBS_flag:
-            raise EngineUnsupported(f"RRBS is {UNPORTED}")
+            raise EngineUnsupported("device PE: RRBS runs on the host engine")
         # -S 0 (the reference default) is handled like the SE engine does:
         # the sequential rand_r draws fire only for a multi-hit pair
         # (pairs.cpp:235) or an unpaired mate with >1 best hits

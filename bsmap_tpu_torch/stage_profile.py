@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
 """Stage breakdown of the PyTorch port's block paths on one GPU.
 
-    python3 -m bsmap_tpu_torch.stage_profile [--reads N] [--repeat | --pe]
+    python3 -m bsmap_tpu_torch.stage_profile [--reads N]
+                                             [--repeat | --pe | --rrbs]
 
 Generates the headline data (2 x 5 Mb genome, fully converted 100 nt reads,
 tools/genreads.generate), with --repeat the chr21-class data (46.7 Mb, 8%
-repeats), or with --pe the pair-end data (4.6 Mb, 76 nt pairs,
-tools/genreads.generate_pe; N is then the pair count).  It aligns at -v 2
--S 17 (SE) or -S 17 (PE) and times each stage on its own:
+repeats), with --pe the pair-end data (4.6 Mb, 76 nt pairs,
+tools/genreads.generate_pe; N is then the pair count), or with --rrbs
+BASELINE config 3 (10 Mb, 200,000 MspI-fragment 76 nt reads,
+tools/genreads.generate_rrbs).  It aligns at -v 2 -S 17 (SE), -S 17 (PE)
+or -D C-CGG -A AGATCGGAAGAGC -q 2 -S 17 (RRBS) and times each stage on its
+own:
 
-  parse    native parse + filter + encode of every block (one thread)
+  parse    native parse + filter (trimming under --rrbs) + encode of every
+           block (one thread)
   align    SE: DeviceEngine.align_block + finish (rounds 1 and 2,
            collection, host replays); PE: PairDeviceEngine.align_block_pair
            + collect (phase 1, phase 2, J rows, replay flags); with the
            engine's h2d / launch / collect timers
   kernels  CUDA kernel time inside a second align pass (torch.profiler),
            and the device's idle share of that pass's wall time
-  format   native SAM formatting + file write of the aligned blocks (PE:
-           emit_block, which also runs the exact host replays)
+  format   native SAM formatting (ZP/ZL tags under --rrbs) + file write of
+           the aligned blocks (PE: emit_block, which also runs the exact
+           host replays)
   pipeline the whole CLI (cli.run: the three stages overlapped in threads)
 
 Prints one JSON object as the last line, after the card's name and power
@@ -51,9 +57,14 @@ def _kernel_ms(prof) -> dict[str, float]:
     return out
 
 
-def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda"):
-    """The SE engine's stages over the headline or chr21-class blocks.
-    (``dev`` = "cpu" rehearses them with the kernels' twins.)"""
+SE_FLAGS = ["-v", "2", "-S", "17"]
+RRBS_FLAGS = ["-D", "C-CGG", "-A", "AGATCGGAAGAGC", "-q", "2", "-S", "17"]
+
+
+def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
+               align_flags=SE_FLAGS):
+    """The SE engine's stages over the headline, chr21-class or RRBS
+    blocks.  (``dev`` = "cpu" rehearses them with the kernels' twins.)"""
     import torch
     from . import cli, native
     from .blockio import BlockReadStream
@@ -61,7 +72,7 @@ def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda"):
     from .output.sam import SamFormatter
     from .utils import RandR
 
-    flags = ["-a", rpath, "-d", gpath, "-v", "2", "-S", "17"]
+    flags = ["-a", rpath, "-d", gpath] + align_flags
     o = cli.parse_args(flags + ["-o", os.path.join(root, "x.sam")])
     p = o.param
     p.out_sam = 1
@@ -152,12 +163,14 @@ def main() -> int:
     kind = ap.add_mutually_exclusive_group()
     kind.add_argument("--repeat", action="store_true")
     kind.add_argument("--pe", action="store_true")
+    kind.add_argument("--rrbs", action="store_true")
     args = ap.parse_args()
-    from tools.genreads import generate, generate_chr21, generate_pe
+    from tools.genreads import (generate, generate_chr21, generate_pe,
+                                generate_rrbs)
     from . import cli
     from .engine import _build
 
-    n = args.reads or (200_000 if args.pe else 1_000_000)
+    n = args.reads or (200_000 if args.pe or args.rrbs else 1_000_000)
     _build.lib()
     root = tempfile.mkdtemp(prefix="bsmap_prof_")
     try:
@@ -165,6 +178,10 @@ def main() -> int:
             gpath, r1, r2 = generate_pe(root, n_pairs=n)
             flags, eng, se, t_parse, align_all, fmt_all = _pe_stages(
                 root, gpath, r1, r2)
+        elif args.rrbs:
+            gpath, rpath = generate_rrbs(root, n_reads=n)
+            flags, eng, se, t_parse, align_all, fmt_all = _se_stages(
+                root, gpath, rpath, align_flags=RRBS_FLAGS)
         else:
             gen = generate_chr21 if args.repeat else generate
             gpath, rpath = gen(root, n_reads=n)
@@ -211,8 +228,8 @@ def main() -> int:
 
     unit = "pairs" if args.pe else "reads"
     res = {
-        "data": ("pe_76nt" if args.pe else
-                 "chr21_class" if args.repeat else "headline"), unit: n,
+        "data": ("pe_76nt" if args.pe else "rrbs_mspi_trim" if args.rrbs
+                 else "chr21_class" if args.repeat else "headline"), unit: n,
         "parse_s": t_parse, "align_s": t_align, "format_s": t_fmt,
         "align_timers_s": timers, "engine_counts": counts,
         "profiled_align_s": t_prof, "kernel_ms_total": k_total,

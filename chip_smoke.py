@@ -32,12 +32,26 @@ Phases (each raises on failure; any failure exits non-zero):
      pairs with 2% errors (tools/simulate.py), every 8th cut to 51 nt (a
      length whose seed schedule may read stale state: host replays),
      through the block path (SAM; phase 2 at full rank) and the per-pair
-     path (BSP with -2), each byte-identical to the host engine.
+     path (BSP with -2), each byte-identical to the host engine;
+ 12. RRBS data: BASELINE config 3 (tools/genreads.generate_rrbs defaults:
+     one 10 Mb chromosome, 200,000 MspI-fragment 76 nt reads); genome and
+     the tag-partitioned index;
+ 13. K2, K3 and K4 with cfg.rrbs against their twins on the first
+     65,536-read window (trimmed, full rank, big tier), lean and full rows;
+     equal bit for bit, CUDA-event medians of 7 runs;
+ 14. the RRBS main path: ``cli.run`` with -D C-CGG -A AGATCGGAAGAGC -q 2
+     -S 17 on all 200,000 reads on cuda; at least 90% aligned;
+ 15. RRBS byte parity against the host engine: the first 10,000 reads of
+     phase 12 (SAM, trimming), and 10,000 mixed-strand reads with
+     mismatches on a two-chromosome digest (``make_rrbs_set``, the CPU
+     tests' generator) as SAM with -m 100 -x 150 and as BSP.
 
 The kernels' launch counters are zeroed right before phase 4 and read right
-after phase 5 (the single-end path: K1-K4 must have run), and zeroed right
+after phase 5 (the single-end path: K1-K4 must have run), zeroed right
 before each GPU run of phases 9 and 11 and read right after it (the
-pair-end paths: K2-K6 must have run in each).  The last lines are the per-kernel JSON, the card's name and power
+pair-end paths: K2-K6 must have run in each), and zeroed right before
+phase 14 and read right after it (the RRBS path: K2-K4 must have run, K1
+never).  The last lines are the per-kernel JSON, the card's name and power
 limit, and the result line.  Exits non-zero without printing a result when
 torch sees no CUDA device.
 """
@@ -48,6 +62,8 @@ import contextlib
 import io
 import json
 import os
+import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -68,6 +84,14 @@ PE_PATH_RUNS = (
 )
 ALIGN_FLAGS = ["-v", "2", "-S", "17"]
 PE_FLAGS = ["-S", "17"]
+N_RRBS = 200_000
+RRBS_FLAGS = ["-D", "C-CGG", "-A", "AGATCGGAAGAGC", "-q", "2", "-S", "17"]
+# phase 15 on the mixed-strand set: (flags, output suffix)
+RRBS_SET_RUNS = (
+    (["-D", "C-CGG", "-S", "1", "-v", "2", "-u", "-m", "100", "-x", "150"],
+     "sam"),
+    (["-D", "C-CGG", "-S", "2", "-v", "4", "-u"], "bsp"),
+)
 KERNEL_SOURCES = {
     "fixed_schedule": ("bsmap_tpu_torch/csrc/fixed_schedule.cu",
                        "bsmap_tpu/engine/device_engine.py:350"),
@@ -86,6 +110,74 @@ SE_PATH = ("fixed_schedule", "exact_schedule", "verify_candidates",
            "reduce_reads")
 PE_PATH = ("exact_schedule", "verify_candidates", "reduce_reads", "rc_words",
            "pair_join")
+RRBS_PATH = ("exact_schedule", "verify_candidates", "reduce_reads")
+RRBS_ADAPTER = "AGATCGGAAGAGC"
+
+
+def make_rrbs_set(d, n_reads: int, n_chr: int = 2, chr_len: int = 30000,
+                  n_pairs: int = 0, seed: int = 77) -> None:
+    """An MspI-digested genome ``rrbs.fa`` (``n_chr`` chromosomes of random
+    30-300 bp segments joined by CCGG) and ``se.fq``: fragment-start reads
+    of 60 or 76 nt from both strands, 90% of C converted, a quarter with
+    one and a quarter with two random substitutions.  With ``n_pairs``,
+    also ``pe1.fq``/``pe2.fq``: whole fragments with the adapter read
+    through, cut to 60 nt."""
+    comp = str.maketrans("ACGT", "TGCA")
+    rng = random.Random(seed)
+    chrs = []
+    for _ in range(n_chr):
+        parts, pos = [], 0
+        while pos < chr_len:
+            seg = "".join(rng.choice("ACGT")
+                          for _ in range(rng.randint(30, 300)))
+            parts += [seg, "CCGG"]
+            pos += len(seg) + 4
+        chrs.append("".join(parts))
+    with open(os.path.join(d, "rrbs.fa"), "w") as f:
+        for c, g in enumerate(chrs):
+            f.write(f">chr{c + 1}\n")
+            for i in range(0, len(g), 70):
+                f.write(g[i:i + 70] + "\n")
+    sites = [[m.start() for m in re.finditer("CCGG", g)] for g in chrs]
+
+    def fragment():
+        while True:
+            c = rng.randrange(n_chr)
+            i = rng.randrange(len(sites[c]) - 1)
+            start = sites[c][i] + 1
+            frag = chrs[c][start: sites[c][i + 1] + 3]
+            if 28 <= len(frag) <= 500:
+                return c, start, frag
+
+    def conv(s):
+        return "".join("T" if ch == "C" and rng.random() < 0.9 else ch
+                       for ch in s)
+
+    def qual(s):
+        return "".join(chr(33 + rng.randint(20, 40)) for _ in s)
+
+    with open(os.path.join(d, "se.fq"), "w") as f:
+        for n in range(n_reads):
+            c, start, frag = fragment()
+            L = min(rng.choice((60, 76)), len(frag))
+            s = (frag if rng.random() < 0.5
+                 else frag[::-1].translate(comp))[:L]
+            s = list(conv(s))
+            for _ in range(rng.choice((0, 0, 1, 2))):
+                s[rng.randrange(len(s))] = rng.choice("ACGT")
+            s = "".join(s)
+            f.write(f"@r{n}_chr{c + 1}_{start}\n{s}\n+\n{qual(s)}\n")
+    if not n_pairs:
+        return
+    with open(os.path.join(d, "pe1.fq"), "w") as f1, \
+            open(os.path.join(d, "pe2.fq"), "w") as f2:
+        for n in range(n_pairs):
+            c, start, frag = fragment()
+            cv = conv(frag)
+            r1 = (cv + RRBS_ADAPTER)[:60]
+            r2 = (cv[::-1].translate(comp) + RRBS_ADAPTER)[:60]
+            f1.write(f"@p{n}_{start}/1\n{r1}\n+\n{qual(r1)}\n")
+            f2.write(f"@p{n}_{start}/2\n{r2}\n+\n{qual(r2)}\n")
 
 
 def log(msg: str) -> None:
@@ -180,7 +272,8 @@ def check_index_cache(o, index, tag: str) -> None:
         raise AssertionError(f"{tag}: the memory-mapped index cache differs")
 
 
-def phase_data(root: str, gen, tag: str, **kw):
+def phase_data(root: str, gen, tag: str, flags=ALIGN_FLAGS,
+               phase: str = "2", **kw):
     """Generate one dataset, build its genome and index, and check that the
     index cache (``BSMAP_TPU_INDEX_CACHE``, which every CLI run below
     loads) memory-maps back equal."""
@@ -190,11 +283,11 @@ def phase_data(root: str, gen, tag: str, **kw):
     t0 = time.time()
     gpath, rpath = gen(d, **kw)
     t1 = time.time()
-    o = parse_args(["-a", rpath, "-d", gpath, "-o", "x.sam"] + ALIGN_FLAGS)
+    o = parse_args(["-a", rpath, "-d", gpath, "-o", "x.sam"] + flags)
     genome = load_genome(gpath, o.param)
     index = get_index(o, genome)
     check_index_cache(o, index, tag)
-    log(f"[2] {tag}: data {t1 - t0:.1f} s, genome+index "
+    log(f"[{phase}] {tag}: data {t1 - t0:.1f} s, genome+index "
         f"{time.time() - t1:.1f} s ({genome.sum_length} bp, "
         f"{len(index.locs)} index entries; cache memory-maps)")
     return gpath, rpath, o, genome, index
@@ -300,11 +393,12 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda") -> dict:
 
 
 def phase_align(tag: str, gpath: str, rpath: str, out: str,
-                n_reads: int, min_mapped: float, dev: str = "cuda") -> dict:
+                n_reads: int, min_mapped: float, dev: str = "cuda",
+                flags=ALIGN_FLAGS) -> dict:
     """One full CLI run on the card; checks the read count and the mapped
     share, prints reads/s and the engine counters."""
     st = run_cli(["-a", rpath, "-d", gpath, "-o", out, "--device", dev]
-                 + ALIGN_FLAGS)
+                 + flags)
     eng = st["engine"]
     if st["reads"] != n_reads:
         raise AssertionError(f"{tag}: aligned {st['reads']} of {n_reads}")
@@ -312,7 +406,8 @@ def phase_align(tag: str, gpath: str, rpath: str, out: str,
         lines = sum(1 for ln in f if not ln.startswith(b"@"))
     if not min_mapped * n_reads <= lines <= n_reads:
         raise AssertionError(f"{tag}: {lines} SAM records for {n_reads} "
-                             "fully converted reads")
+                             f"fully converted reads (at least "
+                             f"{min_mapped:.0%} expected)")
     rate = st["reads"] / st["align_s"]
     log(f"[{tag}] {st['reads']} reads in {st['align_s']:.3f} s = "
         f"{rate:.1f} reads/s; {lines} mapped; n_dispatched "
@@ -340,15 +435,16 @@ def assert_same_file(tag: str, got: str, want: str) -> int:
 
 
 def phase_parity(tag: str, gpath: str, rpath: str, d: str,
-                 dev: str = "cuda") -> None:
+                 dev: str = "cuda", flags=ALIGN_FLAGS,
+                 phase: str = "6") -> None:
     outs = []
     for eng in (["--device", dev], ["--engine", "host"]):
         outs.append(os.path.join(d, f"parity_{eng[1]}.sam"))
         run_cli(["-a", rpath, "-d", gpath, "-o", outs[-1], "-E",
-                 str(N_PARITY)] + ALIGN_FLAGS + eng)
+                 str(N_PARITY)] + flags + eng)
     size = assert_same_file(tag, *outs)
-    log(f"[6] {tag}: first {N_PARITY} reads byte-identical to the host "
-        f"engine ({size} bytes)")
+    log(f"[{phase}] {tag}: first {N_PARITY} reads byte-identical to the "
+        f"host engine ({size} bytes)")
 
 
 def phase_pe_data(root: str):
@@ -567,6 +663,121 @@ def phase_pe_paths(root: str, dev: str = "cuda") -> dict:
     return total
 
 
+def phase_rrbs_kernels(o, genome, index, rpath: str,
+                       dev: str = "cuda") -> dict:
+    """Phase 13: K2, K3 and K4 with cfg.rrbs against their twins on the
+    first window of the RRBS reads (native trimming, full rank, the one big
+    capacity tier), lean and full rows; returns per-kernel
+    {max_abs_err[, ms, plain_ms]} (times on the lean rows, the main path's
+    SAM shapes)."""
+    import torch
+    from bsmap_tpu_torch import native
+    from bsmap_tpu_torch.blockio import BlockReadStream
+    from bsmap_tpu_torch.engine import kernels as K
+    from bsmap_tpu_torch.engine.device_engine import DeviceEngine
+
+    eng = DeviceEngine(genome, index, o.param, device=dev)
+    stream = BlockReadStream(rpath, o.param, readset=0, lib=native.get_lib())
+    blk = stream.next_block(eng.B)
+    stream.close()
+    nw, _live, rows_np, _b = eng.block_rows(blk)
+    MS = eng._maxseg
+    rows_np = rows_np.copy()
+    rows_np[:, -1] = MS - 1
+    rows = torch.from_numpy(rows_np).to(dev)
+    cfg_lean = eng._cfg("f", lean=True, nw=nw)
+    if not (cfg_lean.rrbs and eng.CANDS == eng.CANDS_BIG):
+        raise AssertionError("RRBS engine without the rrbs cfg or the one "
+                             "big capacity tier")
+    tabs = eng.tables
+    cands = eng.CANDS
+    errs = {k: 0 for k in RRBS_PATH}
+
+    def schedule(cfg, plain=False):
+        fn = K.exact_schedule_plain if plain else K.exact_schedule
+        return fn(cfg, rows, tabs["kmer_tab"], tabs["prof_a"],
+                  tag_off=tabs["tag_off"])
+
+    for case, cfg in (("lean, big tier", cfg_lean),
+                      ("full, big tier", cfg_lean._replace(lean=False))):
+        slots = schedule(cfg)
+        check(errs, "exact_schedule", case, slots, schedule(cfg, True))
+        vc = K.verify_candidates(cfg, cands, rows, slots, tabs)
+        check(errs, "verify_candidates", case, vc,
+              K.verify_candidates_plain(cfg, cands, rows, slots, tabs))
+        out = K.reduce_reads(cfg, cands, rows, vc, slots)
+        check(errs, "reduce_reads", case, [out],
+              [K.reduce_reads_plain(cfg, cands, rows, vc, slots)])
+        info = vc.info
+        n_first = int(((info & K.INFO_FIRST) != 0).sum())
+        n_frag = int(((info & K.INFO_FRAG) != 0).sum())
+        found = int((out[:, 1] & 1).sum()) if cfg.lean else \
+            int(out[:, 2 * MS].sum())
+        log(f"[13] {case}: {rows.shape[0]} reads, {int(vc.starts[-1])} "
+            f"candidates, {n_first} first of their key, {n_frag} inside a "
+            f"valid fragment, {found} found — kernels == twins")
+    res = {k: {"max_abs_err": v} for k, v in errs.items()}
+    if dev == "cuda":
+        s_l = schedule(cfg_lean)
+        vc_l = K.verify_candidates(cfg_lean, cands, rows, s_l, tabs)
+        timed = {
+            "exact_schedule": (lambda: schedule(cfg_lean),
+                               lambda: schedule(cfg_lean, True)),
+            "verify_candidates": (
+                lambda: K.verify_candidates(cfg_lean, cands, rows, s_l, tabs),
+                lambda: K.verify_candidates_plain(cfg_lean, cands, rows, s_l,
+                                                  tabs)),
+            "reduce_reads": (
+                lambda: K.reduce_reads(cfg_lean, cands, rows, vc_l, s_l),
+                lambda: K.reduce_reads_plain(cfg_lean, cands, rows, vc_l,
+                                             s_l)),
+        }
+        for name, (kern, plain) in timed.items():
+            res[name].update(timed_pair(f"[13] {name}", kern, plain,
+                                        f"{rows.shape[0]} RRBS reads, lean, "
+                                        "big tier"))
+        del s_l, vc_l
+    del eng, tabs, rows
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_rrbs_set(root: str, dev: str = "cuda") -> dict:
+    """Phase 15, second part: 10,000 mixed-strand reads with mismatches on a
+    two-chromosome digest, SAM in a -m 100 -x 150 window and BSP, each on
+    ``dev`` against the host engine byte for byte; returns the launch
+    counts summed over the GPU runs, each of which must launch K2-K4 and
+    never K1."""
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "rrbs_set")
+    os.makedirs(d)
+    t0 = time.time()
+    make_rrbs_set(d, n_reads=N_PARITY, chr_len=300_000)
+    log(f"[15] data: {N_PARITY} mixed-strand RRBS reads, 2 x 0.3 Mb "
+        f"digest, in {time.time() - t0:.1f} s")
+    total = {k: 0 for k in K.launch_counts()}
+    for flags, suffix in RRBS_SET_RUNS:
+        base = ["-a", os.path.join(d, "se.fq"), "-d",
+                os.path.join(d, "rrbs.fa")] + flags
+        outs = [os.path.join(d, f"{e}.{suffix}") for e in ("gpu", "host")]
+        K.reset_launch_counts()
+        st = run_cli(base + ["-o", outs[0], "--device", dev])
+        counts = K.launch_counts()
+        if [k for k in RRBS_PATH if counts[k] == 0] \
+                or counts["fixed_schedule"]:
+            raise AssertionError(f"RRBS set {flags}: launches {counts}")
+        for k, v in counts.items():
+            total[k] += v
+        run_cli(base + ["-o", outs[1], "--engine", "host"])
+        size = assert_same_file(f"rrbs set {suffix}", *outs)
+        log(f"[15] {' '.join(flags)} ({suffix}): {N_PARITY} reads in "
+            f"{st['align_s']:.3f} s on {dev}, n_replayed "
+            f"{st['engine'].n_replayed}; launches {counts}; byte-identical "
+            f"to the host engine ({size} bytes)")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -574,7 +785,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from bsmap_tpu_torch.engine import kernels as K
-    from tools.genreads import generate, generate_chr21
+    from tools.genreads import generate, generate_chr21, generate_rrbs
 
     card = card_line()
     import numpy
@@ -628,22 +839,41 @@ def main() -> int:
                                  f"main path: {missing}")
         phase_pe_parity(gp, p1, p2, os.path.join(root, "pe_parity"))
         path_counts = phase_pe_paths(root)
+
+        gr, rr, orr, genome, index = phase_data(
+            root, generate_rrbs, "rrbs", flags=RRBS_FLAGS, phase="12")
+        rres = phase_rrbs_kernels(orr, genome, index, rr)
+        del genome, index
+        K.reset_launch_counts()
+        rrbs = phase_align("14", gr, rr, os.path.join(root, "rrbs.sam"),
+                           N_RRBS, 0.9, flags=RRBS_FLAGS)
+        rrbs_counts = K.launch_counts()
+        log(f"[14] launches, RRBS run: {rrbs_counts}")
+        missing = [k for k in RRBS_PATH if rrbs_counts[k] == 0]
+        if missing or rrbs_counts["fixed_schedule"]:
+            raise AssertionError(f"RRBS main path: kernels never launched "
+                                 f"{missing}, K1 launched "
+                                 f"{rrbs_counts['fixed_schedule']} times")
+        phase_parity("rrbs", gr, rr, os.path.join(root, "rrbs"),
+                     flags=RRBS_FLAGS, phase="15")
+        set_counts = phase_rrbs_set(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     log(f"[summary] headline {head['reads_per_s']:.1f} reads/s, "
         f"repeat-heavy {rep['reads_per_s']:.1f} reads/s, pair-end "
-        f"{pe['pairs_per_s']:.1f} pairs/s")
+        f"{pe['pairs_per_s']:.1f} pairs/s, RRBS "
+        f"{rrbs['reads_per_s']:.1f} reads/s")
     rows = []
     for k, (src, rep_) in KERNEL_SOURCES.items():
-        se_r, pe_r = kres.get(k, {}), pres.get(k, {})
+        se_r, pe_r, rr_r = kres.get(k, {}), pres.get(k, {}), rres.get(k, {})
         times = se_r if "ms" in se_r else pe_r     # the main path's shapes
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep_,
                      "launches": se_counts[k] + pe_counts[k]
-                     + path_counts[k],
-                     "max_abs_err": max(se_r.get("max_abs_err", 0),
-                                        pe_r.get("max_abs_err", 0)),
+                     + path_counts[k] + rrbs_counts[k] + set_counts[k],
+                     "max_abs_err": max(r.get("max_abs_err", 0)
+                                        for r in (se_r, pe_r, rr_r)),
                      "ms": times["ms"], "plain_ms": times["plain_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)

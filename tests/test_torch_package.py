@@ -2,7 +2,7 @@
 modules are byte-identical copies of ``bsmap_tpu``'s (``index.py`` with one
 declared difference, ``_mmap_npz``), wrappers run their twins (and count
 nothing) on CPU tensors, and on a CUDA machine each kernel equals its twin
-bit for bit."""
+bit for bit (WGBS SE and PE, and SE RRBS)."""
 
 import ast
 import re
@@ -236,3 +236,79 @@ def test_cuda_kernels_equal_twins(tmp_path):
     assert K.launch_counts() == {"fixed_schedule": 1, "exact_schedule": 6,
                                  "verify_candidates": 6, "reduce_reads": 6,
                                  "rc_words": 1, "pair_join": 1}
+
+
+def _tiny_rrbs(d):
+    """An RRBS DeviceEngine on the CPU over ``chip_smoke.make_rrbs_set``
+    data and a function giving the reads' full-rank dispatch rows at -v v
+    (with the -m/-x window ``window``) and their Cfg."""
+    from bsmap_tpu_torch import native
+    from bsmap_tpu_torch.blockio import BlockReadStream
+    from bsmap_tpu_torch.engine import device_engine as T
+    from bsmap_tpu_torch.index import build_index
+    from bsmap_tpu_torch.params import Param
+    from bsmap_tpu_torch.reference import load_genome
+    from chip_smoke import make_rrbs_set
+    d.mkdir()
+    make_rrbs_set(d, n_reads=400)
+
+    def param(v, window=None):
+        p = Param()
+        p.set_digestion_site("C-CGG")
+        p.max_snp_num = v
+        p.randseed = 1
+        if window:
+            p.min_insert, p.max_insert = window
+        p.init_mapping()
+        return p
+
+    p = param(2)
+    genome = load_genome(str(d / "rrbs.fa"), p)
+    index = build_index(genome, p)
+
+    def rows_cfg(v, lean, window=None):
+        eng = T.DeviceEngine(genome, index, param(v, window), device="cpu")
+        s = BlockReadStream(str(d / "se.fq"), eng.param, readset=0,
+                            lib=native.get_lib())
+        blk = s.next_block(1000)
+        s.close()
+        nw, _live, rows, _b = eng.block_rows(blk)
+        rows[:, -1] = eng._maxseg - 1
+        return eng, rows, eng._cfg("f", lean=lean, nw=nw)
+
+    return rows_cfg
+
+
+@pytest.mark.gpu
+def test_cuda_rrbs_kernels_equal_twins(tmp_path):
+    """On a CUDA device: K2, K3 and K4 with cfg.rrbs (tag-partitioned
+    tables) against their twins on the same device tensors, lean and full
+    rows, the default and a -m 100 -x 150 fragment window; exact equality,
+    one counted launch per wrapper call and no K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    rows_cfg = _tiny_rrbs(tmp_path / "rrbs")
+    K.reset_launch_counts()
+    for v, lean, window in ((2, True, None), (4, False, None),
+                            (2, False, (100, 150))):
+        eng, rows, cfg = rows_cfg(v, lean, window)
+        assert cfg.rrbs and eng.CANDS == eng.CANDS_BIG
+        tabs = {k: t.cuda() for k, t in eng.tables.items()}
+        r = torch.from_numpy(rows).cuda()
+        s = K.exact_schedule(cfg, r, tabs["kmer_tab"], tabs["prof_a"],
+                             tag_off=tabs["tag_off"])
+        w = K.exact_schedule_plain(cfg, r, tabs["kmer_tab"], tabs["prof_a"],
+                                   tag_off=tabs["tag_off"])
+        assert all(torch.equal(a, b) for a, b in zip(s, w))
+        vc = K.verify_candidates(cfg, eng.CANDS, r, s, tabs)
+        vw = K.verify_candidates_plain(cfg, eng.CANDS, r, s, tabs)
+        assert all(torch.equal(a, b) for a, b in zip(vc, vw))
+        assert int(((vc.info & K.INFO_FRAG) != 0).sum()) > 0
+        assert torch.equal(K.reduce_reads(cfg, eng.CANDS, r, vc, s),
+                           K.reduce_reads_plain(cfg, eng.CANDS, r, vc, s))
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {"fixed_schedule": 0, "exact_schedule": 3,
+                                 "verify_candidates": 3, "reduce_reads": 3,
+                                 "rc_words": 0, "pair_join": 0}
