@@ -1,18 +1,19 @@
 """Command-line driver with the reference's option surface (main.cpp:182-289),
 running the single-end and pair-end WGBS paths and single-end RRBS on
-PyTorch.
+PyTorch, on the forward strands (-n 0) or all four (-n 1).
 
 Supports both ``-x val`` and ``-x=val`` forms.  Output format is chosen by
 the -o suffix: .sam = SAM, anything else = BSP (main.cpp:293-296).  The
 alignment engine is ``--engine device`` (the default: PyTorch, on the
 device named by ``--device``, CUDA kernels on a GPU) or ``--engine host``
 (the exact sequential oracle).  A device request never turns into the host
-engine.  Pair-end RRBS runs on ``--engine host`` only; BAM output, ``-n 1``
-and multi-process runs are not ported yet and exit with an error.
+engine.  Pair-end RRBS runs on ``--engine host`` only; BAM output and
+multi-process runs are not ported yet and exit with an error.
 
     python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam --device cuda
     python -m bsmap_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -o out.sam
     python -m bsmap_tpu_torch.cli -a rrbs.fq -d ref.fa -D C-CGG -o out.sam
+    python -m bsmap_tpu_torch.cli -a pbat.fq -d ref.fa -n 1 -o out.sam
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ USAGE = """Usage: bsmap_tpu_torch [options]
        -L  <int>   map first N nucleotides
        -r  [0,1]   repeat-hit reporting: 0 none, 1 random one
        -D  <str>   RRBS digestion site, e.g. C-CGG
+       -n  [0,1]   0: map to the 2 forward strands, 1: to all 4 strands
        -R          print reference sequence (XR tag)
        -u          report unmapped reads
        --engine {device,host}  alignment engine (default device)
@@ -59,8 +61,8 @@ USAGE = """Usage: bsmap_tpu_torch [options]
                                cuda; cpu runs the kernels' plain twins)
        --index-cache <dir>     persist/reuse the seed index
        -h          help
-   Not ported yet (see ROADMAP.md): -n 1, .bam output, -p > 1,
-   --nprocs; pair-end -D runs on --engine host only.
+   Not ported yet (see ROADMAP.md): .bam output, -p > 1, --nprocs;
+   pair-end -D runs on --engine host only.
 """
 
 
@@ -183,8 +185,7 @@ def parse_args(argv: list[str]) -> Options:
             elif c == "S":
                 p.randseed = int(val())
             elif c == "n":
-                if int(val()) != 0:
-                    _unported("-n 1 (all four strands)")
+                p.chains = 1 if int(val()) != 0 else 0
             elif c == "h":
                 print(USAGE)
                 sys.exit(0)

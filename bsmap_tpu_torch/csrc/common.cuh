@@ -28,6 +28,7 @@
 #define BSM_INFO_WMM_SHIFT 3
 #define BSM_INFO_RANK_SHIFT 11
 #define BSM_INFO_FRAG (1 << 16)   // RRBS: eligible, inside a valid fragment
+#define BSM_INFO_CHAIN_SHIFT 17   // the candidate's chain: 0 forward, 1 rc
 
 static __device__ __forceinline__ int bsm_floordiv(int a, int b) {
   int q = a / b;

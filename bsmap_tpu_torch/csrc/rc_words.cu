@@ -8,8 +8,9 @@
 // of the words, funnel-shift left by 16*nw - len bases (zero words past the
 // end), and force the N lanes inside the read (valid mask 00) to rc_n.
 // The output has the dispatch-row layout [cqw | crw | len | budget | rand32
-// | maxrank] with the four scalars copied, so K2-K4 run on the rc chain
-// unchanged.
+// | maxrank] with the four scalars copied, so K1-K4 take it as a chain's
+// rows: in place of the forward rows for the rc chain alone (PE mate 2),
+// beside them for both chains (-n 1).
 //
 // Bound on the card: 2*(2nw+4) int32 per read of traffic and a few dozen
 // bit operations per word; nothing to reuse between reads.  Design: one

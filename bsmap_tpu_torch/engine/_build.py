@@ -33,18 +33,18 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 # C signatures of the entry points (each returns cudaGetLastError())
 _SIGNATURES = {
-    "bsmap_fixed_schedule": [_P, _I, _I, _P, _I, _I, _I,
+    "bsmap_fixed_schedule": [_P, _P, _I, _I, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P],
-    "bsmap_exact_schedule": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+    "bsmap_exact_schedule": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _P, _L,
-                             _P, _P, _P, _P, _P, _P, _P, _P],
-    "bsmap_verify_candidates": [_P, _I, _I, _I, _I, _I,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "bsmap_verify_candidates": [_P, _P, _I, _I, _I, _I, _I, _I,
                                 _P, _P, _P, _P, _P,
                                 _P, _I, _P, _I, _P, _P, _P, _L, _P, _L,
                                 _I, _P, _P, _P, _L, _I, _I, _I, _I,
                                 _P, _P, _P, _P, _P, _P, _P],
-    "bsmap_reduce_reads": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "bsmap_reduce_reads": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "bsmap_rc_words": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "bsmap_pair_join": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
 }

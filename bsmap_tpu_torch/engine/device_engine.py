@@ -57,8 +57,6 @@ DEV_BATCH = int(_os.environ.get("BSMAP_TPU_DEV_BATCH", 65536))
 CANDS_PER_READ = int(_os.environ.get("BSMAP_TPU_CANDS_PER_READ", 2))
 CANDS_BIG_PER_READ = int(_os.environ.get("BSMAP_TPU_CANDS_BIG_PER_READ", 16))
 
-UNPORTED = "unported in bsmap_tpu_torch, see ROADMAP.md"
-
 
 class EngineUnsupported(RuntimeError):
     """The configuration needs a part of the device program that is not
@@ -90,12 +88,12 @@ def make_cfg(param, W: int, n_chr: int, chains_mode: str, maxseg: int,
 
 class Cfg(NamedTuple):
     """Static configuration of one device program: the fields of
-    ``bsmap_tpu``'s Cfg that the single-chain programs read."""
+    ``bsmap_tpu``'s Cfg that the unsharded programs read."""
 
     S: int
     I: int
     maxseg: int            # seed segments per read: min(MAXSNPS, -v) + 1
-    chains_mode: str       # 'f' fwd-only, 'r' rc-only ('b' not ported yet)
+    chains_mode: str       # 'f' fwd-only, 'r' rc-only, 'b' both (-n 1)
     P: int                 # seed positions in the schedule table
     max_num_hits: int
     report_repeat_hits: int
@@ -119,6 +117,16 @@ class Cfg(NamedTuple):
     fixed: bool = False    # fixed-schedule stage 1 (pigeonhole covering at
                            # offset 0, cheapest segment first)
     nw: int = FIXELEMENT   # packed words per read: 7 for reads <= 112 nt
+
+    @property
+    def nch(self) -> int:
+        """Read chains in one dispatch."""
+        return 2 if self.chains_mode == "b" else 1
+
+    @property
+    def NB(self) -> int:
+        """Slots per read: maxseg ranks x nch chains x I phases."""
+        return self.maxseg * self.nch * self.I
 
 
 # lean row bit layout (word 1; word 0 = watson loc), shared with the native
@@ -378,11 +386,6 @@ class DeviceEngine:
 
     def _cfg(self, chains_mode: str, lean: bool = False,
              nw: int = FIXELEMENT) -> Cfg:
-        if chains_mode not in ("f", "r"):
-            raise EngineUnsupported(f"the '{chains_mode}' read chains "
-                                    f"(-n 1) are {UNPORTED}")
-        if chains_mode == "r" and self.param.RRBS_flag:
-            raise EngineUnsupported(f"the RRBS rc chain is {UNPORTED}")
         return make_cfg(self.param, self.W, self.genome.n_chr, chains_mode,
                         self._maxseg, lean=lean, nw=nw)
 

@@ -26,15 +26,21 @@ JAX int32/uint32 arithmetic is emulated in int64 with an explicit
 ``& 0xFFFFFFFF`` wherever it wraps, logical shifts and a SWAR popcount.
 Every wrapper counts its launches in ``<wrapper>.launches``.
 
-The rc chain (``chains_mode == 'r'``, PE mate 2) is presented to K2-K4 as
-dispatch rows of the same layout whose words are the rc chain's (K5's
-output), so K2 and K3 run unchanged on it; K4 takes the chain as a
-parameter.  Under ``cfg.rrbs`` (single-end, forward chain) K2 looks up
-each slot's tag class in the tag-partitioned index, K3 fetches
-chromosome-local entries and marks the candidates inside a digestion
-fragment of valid length, and K4 runs every segment.  The unsharded
-programs of the 'f' and 'r' chains and SE RRBS on 'f' are ported; callers
-reject the rest ('b', the RRBS rc chain, sharding).
+A program runs one chain or both (``cfg.chains_mode``: 'f' forward, 'r'
+reverse complement, 'b' both, the -n 1 all-four-strands mode).  The rc
+chain's words are K5's output: dispatch rows of the same layout.  Under 'r'
+they stand in for the forward rows; under 'b' the kernels take them beside
+the forward rows (``rows_rc``), and K1/K2 lay the slots of both chains out
+in JAX's discovery order (rank, chain, phase), NB = maxseg * nch * I per
+read.  K3 reads each candidate's chain from its slot and writes it into
+the info word (``INFO_CHAIN``), which K4 reads back for the counts, the
+selection and the hit list.  Under ``cfg.rrbs`` (single-end) K2 looks up
+each slot's tag class in the tag-partitioned index (the rc chain's probes
+shifted by len % S, its classes counted from the read's other end), K3
+fetches chromosome-local entries and marks the candidates inside a
+digestion fragment of valid length, and K4 runs every segment and binds
+the fragment filter to forward-chain hits.  The unsharded programs are
+ported; the sharded ones are not (ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ DEDUP_MULS = ((0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35),
 INFO_ELIGIBLE, INFO_UNRESOLVED, INFO_FIRST = 1, 2, 4
 INFO_WMM_SHIFT, INFO_RANK_SHIFT = 3, 11
 INFO_FRAG = 1 << 16       # RRBS: eligible and inside a valid fragment
+INFO_CHAIN_SHIFT = 17     # the candidate's chain: 0 forward, 1 rc
 # kernel limits (csrc/common.cuh); MAX_K keeps the pair join's combo index
 # in the 8 low bits of its sort key (pair_device.py:136-141)
 MAX_MS, MAX_S, MAX_I, MAX_NW, MAX_P, MAX_K = 16, 16, 16, 10, 160, 16
@@ -69,15 +76,16 @@ BIGJ = 0x3FFFFFFF
 
 
 class Slots(NamedTuple):
-    """Stage-1 slot tensors, (m, NB) int32 in (rank, phase) discovery order,
-    plus the per-read schedule facts."""
+    """Stage-1 slot tensors, (m, NB) int32 in (rank, chain, phase) discovery
+    order, plus the per-read schedule facts."""
 
     h: torch.Tensor
     off0: torch.Tensor
     off3: torch.Tensor
     wcnt: torch.Tensor
     cnt: torch.Tensor
-    s_off: torch.Tensor       # (m,) chosen start offset (0 under fixed)
+    s_off: torch.Tensor       # (m,) forward chain's start offset, c_off the
+    c_off: torch.Tensor       # rc chain's (0 for an absent chain, fixed, RRBS)
     ftot_rank: torch.Tensor   # (m, maxseg) per-rank cumulative totals
 
 
@@ -166,14 +174,15 @@ def _seeds(qw: torch.Tensor, pos: np.ndarray, S: int) -> torch.Tensor:
 
 
 def _rank_totals(cfg, cnt, seedseg, maxrank):
-    """Per-rank cumulative clamped totals and the maxrank-masked counts
-    (device_engine.py:425-437 and :649-664); int32 sums wrap."""
+    """Per-rank cumulative clamped totals over both chains' slots and the
+    maxrank-masked counts (device_engine.py:425-437 and :649-664); int32
+    sums wrap."""
     m = cnt.shape[0]
-    MS, I = cfg.maxseg, cfg.I
-    slot_rank = torch.arange(MS * I, device=cnt.device) // I
+    MS, NB = cfg.maxseg, cfg.NB
+    slot_rank = torch.arange(NB, device=cnt.device) // (NB // MS)
     cnt_full = torch.where(slot_rank[None, :] < seedseg[:, None], cnt, 0)
     cnt_cl = torch.clamp(cnt_full & M32, max=FTOT_CLAMP)
-    per_rank = _wrap32(cnt_cl.reshape(m, MS, I).sum(dim=2))
+    per_rank = _wrap32(cnt_cl.reshape(m, MS, NB // MS).sum(dim=2))
     ftot = torch.clamp(_wrap32(torch.cumsum(per_rank, dim=1)),
                        max=FTOT_CLAMP)
     cnt = torch.where(slot_rank[None, :] <= maxrank[:, None], cnt_full, 0)
@@ -182,6 +191,23 @@ def _rank_totals(cfg, cnt, seedseg, maxrank):
 
 def _i32(*ts):
     return [t.to(torch.int32) for t in ts]
+
+
+def _chain_rows(cfg, rows, rows_rc) -> list:
+    """(dispatch rows, is the rc chain) of each chain of the program: the
+    given rows alone for 'f' and 'r' (K5's rows under 'r'), the forward
+    rows and K5's ``rows_rc`` for 'b'."""
+    if (cfg.chains_mode == "b") != (rows_rc is not None):
+        raise ValueError("rows_rc comes with chains_mode 'b' and only then")
+    if cfg.chains_mode == "b":
+        return [(rows, False), (rows_rc, True)]
+    return [(rows, cfg.chains_mode == "r")]
+
+
+def _interleave(per_chain, m: int) -> torch.Tensor:
+    """(m, maxseg, I) slot tensors of each chain -> (m, NB) in (rank,
+    chain, phase) order."""
+    return torch.stack(per_chain, dim=2).reshape(m, -1)
 
 
 def _fixed_probe_offsets(cfg) -> np.ndarray:
@@ -197,33 +223,36 @@ def _fixed_probe_offsets(cfg) -> np.ndarray:
 # K1: fixed-schedule stage 1
 # ---------------------------------------------------------------------------
 
-def fixed_schedule_plain(cfg, rows, kmer_tab) -> Slots:
+def fixed_schedule_plain(cfg, rows, kmer_tab, rows_rc=None) -> Slots:
     """Plain twin of K1 (``_fixed_schedule_impl`` + the fixed branch of
-    ``_schedule_impl``, device_engine.py:350-439), forward chain."""
-    nw, qw, _rw, lens, buds, _rand, maxrank = _unpack(rows)
+    ``_schedule_impl``, device_engine.py:350-439): each chain probes the
+    same static offsets in its own words and orders its own segments by a
+    stable sort of their costs."""
+    _nw, _qw, _rw, lens, buds, _rand, maxrank = _unpack(rows)
     m = rows.shape[0]
     dev = rows.device
     S, MS, I = cfg.S, cfg.maxseg, cfg.I
-    NB = MS * I
     k_nat = _fixed_probe_offsets(cfg)
-    sv = _seeds(qw, k_nat, S)
-    kr = kmer_tab[sv].to(torch.int64)                        # (m, NB, 4)
-    kt = torch.as_tensor(k_nat, device=dev)
-    fresh = kt[None, :] <= (lens - S)[:, None]
+    kt = torch.as_tensor(k_nat, device=dev).reshape(1, MS, 1, I)
+    kr = torch.stack([kmer_tab[_seeds(_unpack(r)[1], k_nat, S)].to(
+        torch.int64).reshape(m, MS, I, 4) for r, _ in
+        _chain_rows(cfg, rows, rows_rc)], dim=2)            # (m, MS, nch, I, 4)
+    nch = kr.shape[2]
+    fresh = kt <= (lens - S)[:, None, None, None]
     cnt_nat = torch.where(fresh, kr[..., 1], 0)
-    seg_cost = _wrap32(cnt_nat.reshape(m, MS, I).sum(dim=2))
-    order = torch.argsort(seg_cost, dim=1, stable=True)      # (m, MS)
-    idx = order[:, :, None].expand(m, MS, I)
+    seg_cost = _wrap32(cnt_nat.sum(dim=3))                   # (m, MS, nch)
+    order = torch.argsort(seg_cost, dim=1, stable=True)
+    idx = order[..., None].expand(m, MS, nch, I)
 
     def permute(nat):
-        return nat.reshape(m, MS, I).gather(1, idx).reshape(m, NB)
+        return nat.expand(m, MS, nch, I).gather(1, idx).reshape(m, -1)
 
-    h = permute((-kt)[None, :].expand(m, NB))
     cnt, ftot = _rank_totals(cfg, permute(cnt_nat), _seedseg(cfg, lens, buds),
                              maxrank)
     zero = torch.zeros(m, dtype=torch.int32, device=dev)
-    return Slots(*_i32(h, permute(kr[..., 0]), permute(kr[..., 3]),
-                       permute(kr[..., 2]), cnt), zero, ftot.to(torch.int32))
+    return Slots(*_i32(permute(-kt), permute(kr[..., 0]), permute(kr[..., 3]),
+                       permute(kr[..., 2]), cnt), zero, zero,
+                 ftot.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -231,23 +260,47 @@ def fixed_schedule_plain(cfg, rows, kmer_tab) -> Slots:
 # ---------------------------------------------------------------------------
 
 def exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe: bool = False,
-                         tag_off=None) -> Slots:
-    """Plain twin of K2: ``chain_schedule`` + ``slot_desc`` + the per-rank
-    totals of ``_schedule_impl`` (device_engine.py:445-672), forward chain.
-    Cost sums wrap as uint32 like the reference's bit32_t; both argmins
-    take the first minimum; segments order by a stable sort of the signed
-    cost.  Under ``cfg.rrbs`` the slots index ``tag_off``."""
-    nw, qw, _rw, lens, buds, _rand, maxrank = _unpack(rows)
+                         tag_off=None, rows_rc=None) -> Slots:
+    """Plain twin of K2: one ``chain_schedule`` + ``slot_desc`` per chain,
+    interleaved in (rank, chain, phase) order, and the per-rank totals of
+    ``_schedule_impl`` (device_engine.py:445-672).  ``s_off`` is the
+    forward chain's chosen start offset and ``c_off`` the rc chain's, 0 for
+    an absent chain.  Under ``cfg.rrbs`` the slots index ``tag_off``."""
+    _nw, _qw, _rw, lens, buds, _rand, maxrank = _unpack(rows)
     m = rows.shape[0]
-    dev = rows.device
+    S, P = cfg.S, cfg.P
+    seedseg = _seedseg(cfg, lens, buds)
+    pa = prof_a.to(torch.int64)
+    descs, offs = [], []
+    for r, is_rc in _chain_rows(cfg, rows, rows_rc):
+        sarr = _seeds(_unpack(r)[1], np.arange(P), S)          # (m, P)
+        rows_p = kmer_tab[sarr].to(torch.int64)                # (m, P, 4)
+        if cfg.rrbs:
+            descs.append(_rrbs_desc(cfg, sarr, rows_p[..., 1], lens, seedseg,
+                                    pa, tag_off, is_rc))
+            offs.append(torch.zeros_like(lens))
+            continue
+        start, order, s_off = _exact_order(cfg, rows_p[..., 1], lens,
+                                           seedseg)
+        descs.append(_exact_desc(cfg, start, order, rows_p, lens, pa))
+        offs.append(s_off)
+    h, off0, off3, wcnt, cnt = (_interleave([d[k] for d in descs], m)
+                                for k in range(5))
+    cnt, ftot = _rank_totals(cfg, cnt, seedseg, maxrank)
+    zero = torch.zeros_like(lens)
+    s_off = zero if cfg.chains_mode == "r" else offs[0]
+    c_off = zero if cfg.chains_mode == "f" else offs[-1]
+    return Slots(*_i32(h, off0, off3, wcnt, cnt, s_off, c_off, ftot))
+
+
+def _exact_order(cfg, cntp, lens, seedseg):
+    """``chain_schedule`` (device_engine.py:479-550) of one chain: the
+    first-minimum start offset, the zig-zag refinement and the stable
+    signed-cost segment order.  Cost sums wrap as uint32 like the
+    reference's bit32_t.  Returns (start (m, MS), order (m, MS), s_off)."""
+    m = cntp.shape[0]
+    dev = cntp.device
     S, I, P, MS = cfg.S, cfg.I, cfg.P, cfg.maxseg
-    NB = MS * I
-    sarr = _seeds(qw, np.arange(P), S)                      # (m, P)
-    rows_p = kmer_tab[sarr].to(torch.int64)                 # (m, P, 4)
-    cntp = rows_p[..., 1]
-    if cfg.rrbs:
-        return _rrbs_schedule_plain(cfg, sarr, cntp, lens, buds, maxrank,
-                                    prof_a, tag_off)
     cost = torch.where(cntp > 0, cntp + 2, 0) & M32
     WLEN = MS * S + I
     L = min(P, WLEN)
@@ -257,7 +310,6 @@ def exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe: bool = False,
     Ws = (cs[:, I:] - cs[:, :-I]) & M32
     T = Ws[:, : MS * S].reshape(m, MS, S)
 
-    seedseg = _seedseg(cfg, lens, buds)
     max_off = torch.remainder(lens - I + 1, S)
     n_i = torch.arange(MS, device=dev)
     off_i = torch.arange(S, device=dev)
@@ -286,72 +338,81 @@ def exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe: bool = False,
         start = torch.where(onehot, best[:, None], start)
     cost_n = T.gather(2, start[:, :, None])[..., 0]          # (m, MS)
     key = torch.where(seg_mask, cost_n ^ 0x80000000, M32)
-    order = torch.argsort(key, dim=1, stable=True)
+    return start, torch.argsort(key, dim=1, stable=True), s_off
 
-    slot_rank = torch.arange(NB, device=dev) // I
-    phase = (torch.arange(NB, device=dev) % I)[None, :]
-    mode = order[:, slot_rank]                               # (m, NB)
-    a = prof_a.to(torch.int64).reshape(-1)[mode * I + phase]
-    st = start.gather(1, mode)
+
+def _exact_desc(cfg, start, order, rows_p, lens, pa):
+    """``slot_desc`` (device_engine.py:574-632) of one WGBS chain: the
+    (m, maxseg, I) slot rows (h, off0, off3, wcnt, fresh count) in (rank,
+    phase) order, kmer_tab rows at the chosen positions."""
+    m = start.shape[0]
+    S, I, P, MS = cfg.S, cfg.I, cfg.P, cfg.maxseg
+    phase = torch.arange(I, device=start.device)[None, None, :]
+    mode = order[:, :, None]
+    a = pa.reshape(-1)[mode * I + phase]                     # (m, MS, I)
+    st = start.gather(1, order)[:, :, None]
     k = a + st - phase
-    k_c = k.clamp(0, P - 1)
-    h = -a + phase - st
-    fresh = (k >= 0) & (k <= (lens - S)[:, None])
-    rs = rows_p.gather(1, k_c[:, :, None].expand(m, NB, 4))
-    cnt, ftot = _rank_totals(cfg, torch.where(fresh, rs[..., 1], 0),
-                             seedseg, maxrank)
-    return Slots(*_i32(h, rs[..., 0], rs[..., 3], rs[..., 2], cnt, s_off,
-                       ftot))
+    k_c = k.clamp(0, P - 1).reshape(m, MS * I)
+    fresh = (k >= 0) & (k <= (lens - S)[:, None, None])
+    rs = rows_p.gather(1, k_c[:, :, None].expand(m, MS * I, 4)).reshape(
+        m, MS, I, 4)
+    return (-a + phase - st, rs[..., 0], rs[..., 3], rs[..., 2],
+            torch.where(fresh, rs[..., 1], 0))
 
 
-def _rrbs_schedule_plain(cfg, sarr, cntp, lens, buds, maxrank, prof_a,
-                         tag_off) -> Slots:
+def _rrbs_desc(cfg, sarr, cntp, lens, seedseg, pa, tag_off, is_rc: bool):
     """The RRBS branches of ``_schedule_impl`` (device_engine.py:464-478,
-    :596-609), forward chain: one probed position per segment at start
-    offset 0, segments ordered by a stable sort of the RAW bucket count,
-    and each slot's (segment, strand) class looked up in the
-    tag-partitioned offsets: class 2*segment, count 0 unless the probe is
-    fresh and the class exists."""
+    :552-562, :596-609) for one chain: one probed position per segment at
+    start offset 0 (shifted by len % S on the rc chain, align.cpp:175-251
+    ``cseed_offset``), segments ordered by a stable sort of the RAW bucket
+    count, and each slot's (segment, strand) class looked up in the
+    tag-partitioned offsets: 2*segment forward, 2*(len//S - 1 - segment) + 1
+    on the rc chain; the count is 0 unless the probe is fresh and the class
+    exists."""
     m = sarr.shape[0]
     dev = sarr.device
     S, I, P, MS = cfg.S, cfg.I, cfg.P, cfg.maxseg
-    NB = MS * I
-    pa = prof_a.to(torch.int64)
-    pos = pa[:MS, 0].clamp(0, P - 1)
-    cost_n = cntp[:, pos] & M32                              # (m, MS)
-    seedseg = _seedseg(cfg, lens, buds)
+    koff = torch.remainder(lens, S) if is_rc else torch.zeros_like(lens)
+    pos = (pa[:MS, 0][None, :] + koff[:, None]).clamp(0, P - 1)
+    cost_n = cntp.gather(1, pos) & M32                       # (m, MS)
     seg_mask = torch.arange(MS, device=dev)[None, :] < seedseg[:, None]
     key = torch.where(seg_mask, cost_n ^ 0x80000000, M32)
-    order = torch.argsort(key, dim=1, stable=True)
-    phase = (torch.arange(NB, device=dev) % I)[None, :]
-    mode = order[:, torch.arange(NB, device=dev) // I]       # (m, NB)
-    a = pa.reshape(-1)[mode * I + phase]
-    k = a - phase
-    k_c = k.clamp(0, P - 1)
-    fresh = (k >= 0) & (k <= (lens - S)[:, None])
+    mode = torch.argsort(key, dim=1, stable=True)[:, :, None]
+    phase = torch.arange(I, device=dev)[None, None, :]
+    koff = koff[:, None, None]
+    a = pa.reshape(-1)[mode * I + phase]                     # (m, MS, I)
+    k = a - phase + koff
+    k_c = k.clamp(0, P - 1).reshape(m, MS * I)
+    fresh = (k >= 0) & (k <= (lens - S)[:, None, None])
+    want = (_floordiv(lens, S)[:, None, None] - 1 - mode) if is_rc else mode
     to = tag_off.to(torch.int64)
     J2 = (to.numel() - 1) // 3 ** S
-    idx = (sarr.gather(1, k_c) * J2 + mode * 2).clamp(0, to.numel() - 2)
+    sv = sarr.gather(1, k_c).reshape(m, MS, I)
+    idx = (sv * J2 + want * 2 + int(is_rc)).clamp(0, to.numel() - 2)
     off = to[idx]
-    ok = fresh & (mode * 2 + 1 < J2)
-    cnt, ftot = _rank_totals(cfg, torch.where(ok, to[idx + 1] - off, 0),
-                             seedseg, maxrank)
+    ok = fresh & (want >= 0) & (want * 2 + 1 < J2)
     zero = torch.zeros_like(off)
-    return Slots(*_i32(-a + phase, off, zero, zero, cnt, zero[:, 0], ftot))
+    return (-a + phase - koff, off, zero, zero,
+            torch.where(ok, to[idx + 1] - off, 0))
 
 
 # ---------------------------------------------------------------------------
 # K3: candidate layout + verify + dedup
 # ---------------------------------------------------------------------------
 
-def _eval_cands(cfg, sidx, fid, live, starts, slots, qw, rw, lens, buds,
-                tables):
+def _eval_cands(cfg, sidx, fid, live, starts, slots, chain_words, lens,
+                buds, tables):
     """Per-candidate entry fetch, bisulfite CountMismatch and coordinates
     (device_engine.py:700-812) for candidate indices ``sidx`` owned by slot
-    ``fid``.  Returns int64 (rid, c, crick, wloc, wmm, rank, eligible)."""
-    NB, I, NW, W = cfg.maxseg * cfg.I, cfg.I, cfg.nw, cfg.W
+    ``fid``; ``chain_words`` holds each chain's (qw, rw).  Returns int64 (rid,
+    c, crick, wloc, wmm, rank, chain, eligible)."""
+    NB, I, NW, W = cfg.NB, cfg.I, cfg.nw, cfg.W
     rid = fid // NB
-    rank = (fid - rid * NB) // I
+    b = fid - rid * NB
+    rank = b // (cfg.nch * I)
+    # slots run (rank, chain, phase) within a read (device_engine.py:710-715)
+    chain = ((b // I) % 2 if cfg.nch == 2
+             else torch.full_like(b, int(cfg.chains_mode == "r")))
     e = sidx - starts[fid]
     g_off0 = slots.off0.reshape(-1).to(torch.int64)[fid]
     g_h = slots.h.reshape(-1).to(torch.int64)[fid]
@@ -382,8 +443,13 @@ def _eval_cands(cfg, sidx, fid, live, starts, slots, qw, rw, lens, buds,
     sref = torch.where(z2 == 0, words[:, :NW],
                        ((words[:, :NW] << z2) | (words[:, 1:] >> (32 - z2)))
                        & M32)
-    q = qw[rid]
-    r = rw[rid]
+    qw, rw = chain_words[0]
+    q, r = qw[rid], rw[rid]
+    if cfg.nch == 2:
+        # the rc chain's rows for its candidates (device_engine.py:786-790)
+        rc = (chain == 1)[:, None]
+        q = torch.where(rc, chain_words[1][0][rid], q)
+        r = torch.where(rc, chain_words[1][1][rid], r)
     xc = (((~sref) << 1) | sref | 0x55555555) & M32
     x = ((q & xc) ^ sref) & r
     lanes = (x | (x >> 1)) & 0x55555555
@@ -398,7 +464,7 @@ def _eval_cands(cfg, sidx, fid, live, starts, slots, qw, rw, lens, buds,
     in_bounds = ((wloc >= 0) & (loc_local >= 0)
                  & (_wrap32(wloc + llen) <= tables["sizes"].to(torch.int64)[c]))
     eligible = live & in_bounds & (wmm <= buds[rid])
-    return rid, c, crick, wloc, wmm, rank, eligible
+    return rid, c, crick, wloc, wmm, rank, chain, eligible
 
 
 def _frag_ok(cfg, c, wloc, llen, tables):
@@ -442,14 +508,19 @@ def dedup_table_size(cands: int) -> int:
 
 
 def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
-                            tables) -> Cands:
+                            tables, rows_rc=None) -> Cands:
     """Plain twin of K3 (``_verify_impl``, device_engine.py:692-849, lean
     and full alike): saturating scan of the B*NB slot counts, candidate ->
-    slot map, verify of every live candidate, then the 3-table cascaded
-    scatter-min dedup on (rid, chr, wloc).  Under ``cfg.rrbs`` the fragment
-    filter's verdict on each eligible candidate is the INFO_FRAG bit: a
-    filtered hit still claims its dedup key, as in the reference."""
-    nw, qw, rw, lens, buds, _rand, _mr = _unpack(rows)
+    slot map, verify of every live candidate against its chain's words,
+    then the 3-table cascaded scatter-min dedup on (rid, chr, wloc), which
+    has no chain: a forward and an rc hit at one locus share a key, and
+    discovery order decides which claims it.  Each candidate's chain is
+    the INFO_CHAIN bit.  Under ``cfg.rrbs`` the fragment filter's verdict
+    on each eligible candidate is the INFO_FRAG bit: a filtered hit still
+    claims its dedup key, as in the reference."""
+    _nw, _qw, _rw, lens, buds, _rand, _mr = _unpack(rows)
+    chain_words = [_unpack(r)[1:3] for r, _ in
+                   _chain_rows(cfg, rows, rows_rc)]
     dev = rows.device
     cnt = slots.cnt.reshape(-1).to(torch.int64)
     incl = torch.cumsum(torch.clamp(cnt, max=SATLIM), dim=0).clamp(max=SATLIM)
@@ -468,8 +539,9 @@ def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
         fid = torch.cat([fid, torch.tensor([last], device=dev)])
         live = torch.cat([live, torch.zeros(1, dtype=torch.bool,
                                             device=dev)])
-    rid, c, crick, wloc, wmm, rank, elig = _eval_cands(
-        cfg, sidx, fid, live, starts, slots, qw, rw, lens, buds, tables)
+    rid, c, crick, wloc, wmm, rank, chain, elig = _eval_cands(
+        cfg, sidx, fid, live, starts, slots, chain_words, lens, buds,
+        tables)
     frag = (elig & _frag_ok(cfg, c, wloc, lens[rid], tables) if cfg.rrbs
             else torch.zeros_like(elig))
 
@@ -492,7 +564,8 @@ def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
             | unres.to(torch.int64) * INFO_UNRESOLVED
             | first.to(torch.int64) * INFO_FIRST
             | frag.to(torch.int64) * INFO_FRAG
-            | (wmm << INFO_WMM_SHIFT) | (rank << INFO_RANK_SHIFT))
+            | (wmm << INFO_WMM_SHIFT) | (rank << INFO_RANK_SHIFT)
+            | (chain << INFO_CHAIN_SHIFT))
 
     def full(v):
         out = torch.zeros(cands, dtype=torch.int32, device=dev)
@@ -507,27 +580,22 @@ def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
 # K4: per-read reduce
 # ---------------------------------------------------------------------------
 
-def _chain(cfg) -> int:
-    """The chain of a single-chain program: 0 forward, 1 reverse
-    complement (device_engine.py:713-715)."""
-    return 1 if cfg.chains_mode == "r" else 0
-
-
 def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
                        slots: Slots) -> torch.Tensor:
     """Plain twin of K4: the per-read half of ``_verify_impl`` (unsharded,
-    one chain, device_engine.py:899-1067 lean rows, :1069-1112 full rows
-    with ``cfg.hits_k`` compacted hits), SE, ``cfg.pe`` or ``cfg.rrbs``."""
-    nw, _qw, _rw, lens, buds, rand32, maxrank = _unpack(rows)
+    device_engine.py:899-1067 lean rows, :1069-1112 full rows with
+    ``cfg.hits_k`` compacted hits), SE, ``cfg.pe`` or ``cfg.rrbs``, each
+    candidate on the chain K3 wrote into its info word."""
+    _nw, _qw, _rw, lens, buds, rand32, maxrank = _unpack(rows)
     m = rows.shape[0]
     dev = rows.device
-    MS, NB = cfg.maxseg, cfg.maxseg * cfg.I
-    chain = _chain(cfg)
+    MS, NB = cfg.maxseg, cfg.NB
     starts = vc.starts.to(torch.int64)
     total = int(starts[-1])
     ncand = min(total, cands)
     info = vc.info.to(torch.int64)[:ncand]
     rid = vc.rid.to(torch.int64)[:ncand]
+    chain = (info >> INFO_CHAIN_SHIFT) & 1
     acc_pre = (info & INFO_FIRST) != 0
     if cfg.rrbs:
         # the fragment filter binds forward-chain hits only (:897)
@@ -637,13 +705,11 @@ def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
         nacc.index_add_(0, rid, accepted.to(torch.int64))
         replay = replay | (nacc > K)
         hit_cols = [hits_loc.reshape(m, K), hits_w1.reshape(m, K)]
-    soff = slots.s_off.to(torch.int64)
-    zero = torch.zeros_like(totals)
     b = lambda t: t.to(torch.int64)   # noqa: E731
     extras = torch.stack(
         [b(found), ii, ssum, sel_chain, sel_chrp, sel_wloc, b(h00_found),
          chrp_all[h00_s], wloc_all[h00_s], b(replay), totals,
-         zero if chain else soff, soff if chain else zero, b(ok_all),
+         b(slots.s_off), b(slots.c_off), b(ok_all),
          b(big_any), b(resolved), ftot], dim=1)
     return torch.cat([counts.reshape(m, 2 * MS), extras] + hit_cols,
                      dim=1).to(torch.int32)
@@ -854,11 +920,14 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+_MODES = {"f": 0, "r": 1, "b": 2}     # chains_mode as the kernels take it
+
+
 def _check_cuda(cfg, rows, *tensors) -> None:
-    if cfg.chains_mode not in ("f", "r"):
-        raise ValueError("kernels cover the single-chain programs only")
-    if cfg.rrbs and (cfg.chains_mode != "f" or cfg.pe):
-        raise ValueError("RRBS kernels cover the SE forward chain only")
+    if cfg.chains_mode not in _MODES:
+        raise ValueError(f"unknown chains_mode {cfg.chains_mode!r}")
+    if cfg.rrbs and cfg.pe:
+        raise ValueError("RRBS kernels cover single-end reads only")
     if not (cfg.maxseg <= MAX_MS and cfg.S <= MAX_S and cfg.I <= MAX_I
             and cfg.nw <= MAX_NW and cfg.P <= MAX_P
             and cfg.hits_k <= MAX_K):
@@ -887,68 +956,85 @@ def _opt_ptr(on: bool, t) -> ctypes.c_void_p:
     return _ptr(t) if on else ctypes.c_void_p(None)
 
 
-def fixed_schedule(cfg, rows, kmer_tab) -> Slots:
+def _rc_rows(cfg, rows, rows_rc) -> list:
+    """``rows_rc`` checked against ``cfg`` (as the twins check it), as the
+    list of extra tensors for ``_check_cuda``."""
+    _chain_rows(cfg, rows, rows_rc)
+    if rows_rc is not None and rows_rc.shape != rows.shape:
+        raise ValueError("rows_rc must have the shape of rows")
+    return [] if rows_rc is None else [rows_rc]
+
+
+def fixed_schedule(cfg, rows, kmer_tab, rows_rc=None) -> Slots:
     """K1 (csrc/fixed_schedule.cu) on CUDA tensors, the twin on CPU."""
     if not rows.is_cuda:
-        return fixed_schedule_plain(cfg, rows, kmer_tab)
+        return fixed_schedule_plain(cfg, rows, kmer_tab, rows_rc)
     from . import _build
-    _check_cuda(cfg, rows, kmer_tab)
-    m, NB, MS = rows.shape[0], cfg.maxseg * cfg.I, cfg.maxseg
+    _check_cuda(cfg, rows, kmer_tab, *_rc_rows(cfg, rows, rows_rc))
+    m, NB, MS = rows.shape[0], cfg.NB, cfg.maxseg
     dev = rows.device
     outs = [_empty(dev, m, NB) for _ in range(5)]
     ftot = _empty(dev, m, MS)
     err = _build.lib().bsmap_fixed_schedule(
-        _ptr(rows), m, cfg.nw, _ptr(kmer_tab), cfg.S, cfg.I, MS,
+        _ptr(rows), _opt_ptr(rows_rc is not None, rows_rc), m, cfg.nw,
+        _ptr(kmer_tab), cfg.S, cfg.I, MS, cfg.nch,
         *[_ptr(o) for o in outs], _ptr(ftot), _stream(rows))
     _launched("fixed_schedule", err)
     fixed_schedule.launches += 1
-    return Slots(*outs, torch.zeros(m, dtype=torch.int32, device=dev), ftot)
+    zero = torch.zeros(m, dtype=torch.int32, device=dev)
+    return Slots(*outs, zero, zero, ftot)
 
 
 def exact_schedule(cfg, rows, kmer_tab, prof_a, probe: bool = False,
-                   tag_off=None) -> Slots:
+                   tag_off=None, rows_rc=None) -> Slots:
     """K2 (csrc/exact_schedule.cu) on CUDA tensors, the twin on CPU.  With
     ``probe`` only ``ftot_rank`` is written (the other tensors are left
-    uninitialised).  ``cfg.rrbs`` needs the ``tag_off`` table."""
+    uninitialised).  ``cfg.rrbs`` needs the ``tag_off`` table, chains
+    mode 'b' K5's ``rows_rc``."""
     if not rows.is_cuda:
         return exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe,
-                                    tag_off)
+                                    tag_off, rows_rc)
     from . import _build
     _check_cuda(cfg, rows, kmer_tab, prof_a,
-                *([tag_off] if cfg.rrbs else []))
-    m, NB, MS = rows.shape[0], cfg.maxseg * cfg.I, cfg.maxseg
+                *([tag_off] if cfg.rrbs else []),
+                *_rc_rows(cfg, rows, rows_rc))
+    m, NB, MS = rows.shape[0], cfg.NB, cfg.maxseg
     dev = rows.device
     outs = [_empty(dev, m, NB) for _ in range(5)]
-    s_off = _empty(dev, m)
+    offs = [_empty(dev, m) for _ in range(2)]
     ftot = _empty(dev, m, MS)
     err = _build.lib().bsmap_exact_schedule(
-        _ptr(rows), m, cfg.nw, _ptr(kmer_tab), _ptr(prof_a), cfg.S, cfg.I,
-        MS, cfg.P, int(probe), int(cfg.rrbs), _opt_ptr(cfg.rrbs, tag_off),
-        tag_off.numel() if cfg.rrbs else 0, *[_ptr(o) for o in outs],
-        _ptr(s_off), _ptr(ftot), _stream(rows))
+        _ptr(rows), _opt_ptr(rows_rc is not None, rows_rc), m, cfg.nw,
+        _ptr(kmer_tab), _ptr(prof_a), cfg.S, cfg.I, MS, cfg.P,
+        _MODES[cfg.chains_mode], int(probe), int(cfg.rrbs),
+        _opt_ptr(cfg.rrbs, tag_off), tag_off.numel() if cfg.rrbs else 0,
+        *[_ptr(o) for o in outs + offs], _ptr(ftot), _stream(rows))
     _launched("exact_schedule", err)
     exact_schedule.launches += 1
-    return Slots(*outs, s_off, ftot)
+    return Slots(*outs, *offs, ftot)
 
 
 def verify_candidates(cfg, cands: int, rows, slots: Slots,
-                      tables) -> Cands:
+                      tables, rows_rc=None) -> Cands:
     """K3 (csrc/verify_candidates.cu) on CUDA tensors, the twin on CPU."""
     if not rows.is_cuda:
-        return verify_candidates_plain(cfg, cands, rows, slots, tables)
+        return verify_candidates_plain(cfg, cands, rows, slots, tables,
+                                       rows_rc)
     from . import _build
     tk = ("catcat", "anchors", "sizes", "rcoff", "wlocs", "clocs")
     rk = ("tags", "sites", "site_off") if cfg.rrbs else ()
     _check_cuda(cfg, rows, slots.h, slots.off0, slots.off3, slots.wcnt,
-                slots.cnt, *[tables[k] for k in tk + rk])
-    m, NB = rows.shape[0], cfg.maxseg * cfg.I
+                slots.cnt, *[tables[k] for k in tk + rk],
+                *_rc_rows(cfg, rows, rows_rc))
+    m, NB = rows.shape[0], cfg.NB
     dev = rows.device
     T = dedup_table_size(cands)
     starts = _empty(dev, m * NB + 1)
     scratch = _empty(dev, 1 + 3 * T)
     out = [_empty(dev, cands) for _ in range(4)]
     err = _build.lib().bsmap_verify_candidates(
-        _ptr(rows), m, cfg.nw, cfg.maxseg, cfg.I, cands,
+        _ptr(rows), _opt_ptr(rows_rc is not None, rows_rc), m, cfg.nw,
+        cfg.maxseg, cfg.I, _MODES[cfg.chains_mode], cands,
         _ptr(slots.h), _ptr(slots.off0), _ptr(slots.off3), _ptr(slots.wcnt),
         _ptr(slots.cnt), _ptr(tables["catcat"]), cfg.W,
         _ptr(tables["anchors"]), cfg.n_chr, _ptr(tables["sizes"]),
@@ -972,16 +1058,17 @@ def reduce_reads(cfg, cands: int, rows, vc: Cands,
         return reduce_reads_plain(cfg, cands, rows, vc, slots)
     from . import _build
     _check_cuda(cfg, rows, vc.starts, vc.chrp, vc.wloc, vc.info,
-                slots.ftot_rank, slots.s_off)
+                slots.ftot_rank, slots.s_off, slots.c_off)
     m, MS = rows.shape[0], cfg.maxseg
     width = 3 if cfg.lean else 2 * MS + N_EXTRAS + 2 * cfg.hits_k
     out = _empty(rows.device, m, width)
     err = _build.lib().bsmap_reduce_reads(
-        _ptr(rows), m, cfg.nw, MS, cfg.I, cfg.S, cands, _ptr(vc.starts),
-        _ptr(vc.chrp), _ptr(vc.wloc), _ptr(vc.info), _ptr(slots.ftot_rank),
-        _ptr(slots.s_off), cfg.max_num_hits, cfg.report_repeat_hits,
-        int(cfg.lean), int(cfg.fixed), _chain(cfg), int(cfg.pe),
-        int(cfg.rrbs), cfg.hits_k, _ptr(out), _stream(rows))
+        _ptr(rows), m, cfg.nw, MS, cfg.I, cfg.S, cfg.nch, cands,
+        _ptr(vc.starts), _ptr(vc.chrp), _ptr(vc.wloc), _ptr(vc.info),
+        _ptr(slots.ftot_rank), _ptr(slots.s_off), _ptr(slots.c_off),
+        cfg.max_num_hits, cfg.report_repeat_hits, int(cfg.lean),
+        int(cfg.fixed), int(cfg.pe), int(cfg.rrbs), cfg.hits_k, _ptr(out),
+        _stream(rows))
     _launched("reduce_reads", err)
     reduce_reads.launches += 1
     return out
@@ -1041,32 +1128,45 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+def chain_inputs(cfg, rows):
+    """(rows, rows_rc) as K1-K4 take them for ``cfg``'s chains: K5's rc
+    chain rows replace the forward rows under 'r' and join them under 'b'
+    (``rows_rc`` is None otherwise)."""
+    if cfg.chains_mode == "f":
+        return rows, None
+    rc = rc_words(cfg, rows)
+    return (rc, None) if cfg.chains_mode == "r" else (rows, rc)
+
+
 def align_program(cfg, cands: int, tables, rows) -> torch.Tensor:
     """The port of ``_align_fused_kernel`` (device_engine.py:1172) on
-    (m, 2nw+4) int32 dispatch rows: K5 for the rc chain, K1 or K2 (K2 alone
+    (m, 2nw+4) int32 dispatch rows: K5 for the rc chain (its rows replace
+    the forward ones under 'r' and join them under 'b'), K1 or K2 (K2 alone
     under ``cfg.probe``, returning the (m, maxseg) per-rank totals; K2 on
-    the tag-partitioned tables under ``cfg.rrbs``), then K3 and K4.
-    ``cands`` is the JAX program's capacity (its B rows, padding included),
-    so the ok/overflow bits and the dedup table size match its rows."""
-    if cfg.chains_mode == "r":
-        rows = rc_words(cfg, rows)
+    the tag-partitioned tables under ``cfg.rrbs``), then K3 and K4, both
+    chains of 'b' in each launch.  ``cands`` is the JAX program's capacity
+    (its B rows, padding included), so the ok/overflow bits and the dedup
+    table size match its rows."""
+    rows, rows_rc = chain_inputs(cfg, rows)
     if cfg.fixed and not cfg.probe:
-        slots = fixed_schedule(cfg, rows, tables["kmer_tab"])
+        slots = fixed_schedule(cfg, rows, tables["kmer_tab"], rows_rc)
     else:
         slots = exact_schedule(cfg, rows, tables["kmer_tab"],
                                tables["prof_a"], probe=cfg.probe,
-                               tag_off=tables.get("tag_off"))
+                               tag_off=tables.get("tag_off"),
+                               rows_rc=rows_rc)
     if cfg.probe:
         return slots.ftot_rank
-    vc = verify_candidates(cfg, cands, rows, slots, tables)
+    vc = verify_candidates(cfg, cands, rows, slots, tables, rows_rc)
     return reduce_reads(cfg, cands, rows, vc, slots)
 
 
 def pair_program(cfg_a, cfg_b, cands: int, tables, rows_a,
                  rows_b) -> torch.Tensor:
     """The port of ``_pair_fused_kernel`` (pair_device.py:258): both mates'
-    programs (mate 2 on the rc chain; ``cfg.pe`` with ``hits_k`` hits, full
-    rows), then K6 on their rows; returns the (n, 11) J_* rows.  All
+    programs (mate 2 on the rc chain, both mates on both chains under -n 1;
+    ``cfg.pe`` with ``hits_k`` hits, full rows), then K6 on their rows;
+    returns the (n, 11) J_* rows.  All
     launches go to the current stream with no host sync between them."""
     full = [align_program(cfg, cands, tables, rows)
             for cfg, rows in ((cfg_a, rows_a), (cfg_b, rows_b))]

@@ -137,9 +137,13 @@ class PairDeviceEngine:
         self.MS = self.se._maxseg
         self.n_replayed = 0
 
+    def _chains(self) -> tuple[str, str]:
+        """Each mate's chains: both under -n 1, else forward for mate 1
+        and rc for mate 2 (pair_device.py:319, :832-833)."""
+        return ("b", "b") if self.param.chains else ("f", "r")
+
     def _cfg(self, readset: int, nw: int = FIXELEMENT):
-        mode = "b" if self.param.chains else ("f" if readset == 1 else "r")
-        return self.se._cfg(mode, nw=nw)._replace(
+        return self.se._cfg(self._chains()[readset - 1], nw=nw)._replace(
             pe=True, hits_k=self.K, min_ins=self.param.min_insert,
             max_ins=self.param.max_insert)
 
@@ -425,15 +429,17 @@ class PairDeviceEngine:
         live_row = np.full(n0, -1, dtype=np.int64)
         live_row[live_pos] = np.arange(n)
 
+        mode_a, mode_b = self._chains()
+
         def sync_to(cursor: int, t: int) -> int:
             se._sync_state_span(read_a, cursor, t,
                                 rows_a[:, 2 * MS + X_SOFF],
                                 rows_a[:, 2 * MS + X_COFF], la,
-                                replay_flag, "f", state=st_a)
+                                replay_flag, mode_a, state=st_a)
             se._sync_state_span(read_b, cursor, t,
                                 rows_b[:, 2 * MS + X_SOFF],
                                 rows_b[:, 2 * MS + X_COFF], lb,
-                                replay_flag, "r", state=st_b)
+                                replay_flag, mode_b, state=st_b)
             return t
 
         cursor = 0
@@ -595,11 +601,13 @@ class PairDeviceEngine:
         read_a = lambda t: blk_a.read_obj(int(live_pos[t]))  # noqa: E731
         read_b = lambda t: blk_b.read_obj(int(live_pos[t]))  # noqa: E731
 
+        mode_a, mode_b = self._chains()
+
         def sync_to(cursor: int, t: int) -> int:
             se._sync_state_span(read_a, cursor, t, None, None, la,
-                                replay_flag, "f", state=st_a)
+                                replay_flag, mode_a, state=st_a)
             se._sync_state_span(read_b, cursor, t, None, None, lb,
-                                replay_flag, "r", state=st_b)
+                                replay_flag, mode_b, state=st_b)
             return t
 
         status = np.full(n_all, 2, dtype=np.int32)

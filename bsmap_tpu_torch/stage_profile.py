@@ -3,6 +3,7 @@
 
     python3 -m bsmap_tpu_torch.stage_profile [--reads N]
                                              [--repeat | --pe | --rrbs]
+                                             [--chains]
 
 Generates the headline data (2 x 5 Mb genome, fully converted 100 nt reads,
 tools/genreads.generate), with --repeat the chr21-class data (46.7 Mb, 8%
@@ -11,7 +12,9 @@ tools/genreads.generate_pe; N is then the pair count), or with --rrbs
 BASELINE config 3 (10 Mb, 200,000 MspI-fragment 76 nt reads,
 tools/genreads.generate_rrbs).  It aligns at -v 2 -S 17 (SE), -S 17 (PE)
 or -D C-CGG -A AGATCGGAAGAGC -q 2 -S 17 (RRBS) and times each stage on its
-own:
+own.  With --chains it aligns with -n 1 (all four strands) on the
+non-directional copies of chip_smoke.py's phases 16-19: every second read
+reverse-complemented (SE, RRBS), every second pair's mates swapped (PE).
 
   parse    native parse + filter (trimming under --rrbs) + encode of every
            block (one thread)
@@ -107,7 +110,8 @@ def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
     return flags, eng, eng, t_parse, align_all, fmt_all
 
 
-def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda"):
+def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
+               extra=()):
     """The PE engine's stages over the pe_76nt block pairs."""
     import torch
     from . import cli, native
@@ -117,7 +121,7 @@ def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda"):
     from .output.pair_sam import PairFormatter
     from .utils import RandR
 
-    flags = ["-a", r1, "-b", r2, "-d", gpath, "-S", "17"]
+    flags = ["-a", r1, "-b", r2, "-d", gpath, "-S", "17"] + list(extra)
     o = cli.parse_args(flags + ["-o", os.path.join(root, "x.sam")])
     p = o.param
     genome = cli.load_genome(gpath, p)
@@ -164,7 +168,10 @@ def main() -> int:
     kind.add_argument("--repeat", action="store_true")
     kind.add_argument("--pe", action="store_true")
     kind.add_argument("--rrbs", action="store_true")
+    ap.add_argument("--chains", action="store_true",
+                    help="-n 1 on non-directional data")
     args = ap.parse_args()
+    from chip_smoke import nondirectional, swap_mates
     from tools.genreads import (generate, generate_chr21, generate_pe,
                                 generate_rrbs)
     from . import cli
@@ -174,19 +181,25 @@ def main() -> int:
     _build.lib()
     root = tempfile.mkdtemp(prefix="bsmap_prof_")
     try:
+        n1 = ["-n", "1"] if args.chains else []
         if args.pe:
             gpath, r1, r2 = generate_pe(root, n_pairs=n)
+            if args.chains:
+                r1, r2 = swap_mates(r1, r2, os.path.join(root, "sw_1.fq"),
+                                    os.path.join(root, "sw_2.fq"))
             flags, eng, se, t_parse, align_all, fmt_all = _pe_stages(
-                root, gpath, r1, r2)
-        elif args.rrbs:
-            gpath, rpath = generate_rrbs(root, n_reads=n)
-            flags, eng, se, t_parse, align_all, fmt_all = _se_stages(
-                root, gpath, rpath, align_flags=RRBS_FLAGS)
+                root, gpath, r1, r2, extra=n1)
         else:
-            gen = generate_chr21 if args.repeat else generate
-            gpath, rpath = gen(root, n_reads=n)
+            if args.rrbs:
+                gpath, rpath = generate_rrbs(root, n_reads=n)
+            else:
+                gen = generate_chr21 if args.repeat else generate
+                gpath, rpath = gen(root, n_reads=n)
+            if args.chains:
+                rpath = nondirectional(rpath, os.path.join(root, "nd.fq"))
             flags, eng, se, t_parse, align_all, fmt_all = _se_stages(
-                root, gpath, rpath)
+                root, gpath, rpath,
+                align_flags=(RRBS_FLAGS if args.rrbs else SE_FLAGS) + n1)
         timer_keys = ("t_h2d", "t_call", "t_collect", "t_enqueue")
 
         align_all()                                  # warm-up pass
@@ -229,7 +242,8 @@ def main() -> int:
     unit = "pairs" if args.pe else "reads"
     res = {
         "data": ("pe_76nt" if args.pe else "rrbs_mspi_trim" if args.rrbs
-                 else "chr21_class" if args.repeat else "headline"), unit: n,
+                 else "chr21_class" if args.repeat else "headline")
+        + (", -n 1 non-directional" if args.chains else ""), unit: n,
         "parse_s": t_parse, "align_s": t_align, "format_s": t_fmt,
         "align_timers_s": timers, "engine_counts": counts,
         "profiled_align_s": t_prof, "kernel_ms_total": k_total,

@@ -45,15 +45,42 @@ Phases (each raises on failure; any failure exits non-zero):
      phase 12 (SAM, trimming), and 10,000 mixed-strand reads with
      mismatches on a two-chromosome digest (``make_rrbs_set``, the CPU
      tests' generator) as SAM with -m 100 -x 150 and as BSP.
+ 16. -n 1 (all four strands), non-directional headline data: the reads of
+     phase 2 with every second read reverse-complemented.  K5, K1 (fixed
+     lean, round 1), K2 (exact lean at both tiers, exact full, probe), K3
+     and K4 on both chains ('b') against their twins on the first
+     65,536-read window; equal bit for bit, CUDA-event medians of 7 runs;
+ 17. the -n 1 main path: ``cli.run -n 1 -v 2 -S 17`` on all 1,000,000 of
+     them on cuda; at least 90% aligned, both chains among the picks; the
+     first 10,000 reads byte-identical to the host engine;
+ 18. PE -n 1 on the 200,000 pairs of phase 7 with every second pair's
+     mates swapped: K5, both mates' K2/K3/K4 on 'b' with cfg.pe and 16 hits
+     and K6 against their twins; ``cli.run`` with at least 90% properly
+     paired; phase 11's error set with -n 1 through the block path and the
+     per-pair path, each byte-identical to the host engine;
+ 19. RRBS -n 1 on phase 12's reads with every second read
+     reverse-complemented (the index with rc entries): K5, K2, K3 and K4 on
+     'b' against their twins; ``cli.run`` (K1 never launches, at least 45%
+     aligned: a reversed fragment-start read begins at no site, so it maps
+     only where it spans its fragment); phase 15's mixed-strand set with
+     every second read
+     reverse-complemented, -n 1, byte-identical to the host engine (SAM
+     -m 100 -x 150, and BSP).
 
-The kernels' launch counters are zeroed right before phase 4 and read right
-after phase 5 (the single-end path: K1-K4 must have run), zeroed right
-before each GPU run of phases 9 and 11 and read right after it (the
-pair-end paths: K2-K6 must have run in each), and zeroed right before
-phase 14 and read right after it (the RRBS path: K2-K4 must have run, K1
-never).  The last lines are the per-kernel JSON, the card's name and power
-limit, and the result line.  Exits non-zero without printing a result when
-torch sees no CUDA device.
+The kernels' launch counters are zeroed right before each run of a main
+path and read right after it: phase 4 to 5 (the single-end path: K1-K4
+must have run), each GPU run of phases 9 and 11 (the pair-end paths: K2-K6),
+phase 14 and each GPU run of phase 15 (the RRBS path: K2-K4, never K1),
+phase 17 (-n 1: K1-K5), each GPU run of phase 18 (K2-K6) and phase 19 and
+each GPU run of its set (K2-K5, never K1).  Every kernel's JSON row has its
+launches summed over those runs, its error against the twin, its time and
+the twin's at the single-end headline window (the pair-end one for K5 and
+K6), and its bound there: the bytes it must move over the card's memory
+rate, or its int32 operations over the card's non-tensor peak, whichever
+is larger.  No single PyTorch call computes any of these functions, so
+``library_ms`` is null.  The last lines are the per-kernel JSON, the card's
+name and power limit, and the result line.  Exits non-zero without
+printing a result when torch sees no CUDA device.
 """
 
 from __future__ import annotations
@@ -83,6 +110,7 @@ PE_PATH_RUNS = (
     ("per-pair path", ["-S", "3", "-v", "3"], ("bsp", "-2"), 4, 1),
 )
 ALIGN_FLAGS = ["-v", "2", "-S", "17"]
+N1 = ["-n", "1"]
 PE_FLAGS = ["-S", "17"]
 N_RRBS = 200_000
 RRBS_FLAGS = ["-D", "C-CGG", "-A", "AGATCGGAAGAGC", "-q", "2", "-S", "17"]
@@ -112,6 +140,9 @@ PE_PATH = ("exact_schedule", "verify_candidates", "reduce_reads", "rc_words",
            "pair_join")
 RRBS_PATH = ("exact_schedule", "verify_candidates", "reduce_reads")
 RRBS_ADAPTER = "AGATCGGAAGAGC"
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
+OPS_PER_S = 67e12                # its non-tensor (float32) peak, for int32 ops
+_COMP = bytes.maketrans(b"ACGTN", b"TGCAN")
 
 
 def make_rrbs_set(d, n_reads: int, n_chr: int = 2, chr_len: int = 30000,
@@ -178,6 +209,84 @@ def make_rrbs_set(d, n_reads: int, n_chr: int = 2, chr_len: int = 30000,
             r2 = (cv[::-1].translate(comp) + RRBS_ADAPTER)[:60]
             f1.write(f"@p{n}_{start}/1\n{r1}\n+\n{qual(r1)}\n")
             f2.write(f"@p{n}_{start}/2\n{r2}\n+\n{qual(r2)}\n")
+
+
+def nondirectional(src: str, dst: str) -> str:
+    """Copy a FASTQ file with every second read reverse-complemented (its
+    quality reversed): half the reads then come from the rc strands, as in
+    a non-directional library.  Returns ``dst``."""
+    with open(src, "rb") as f:
+        lines = f.read().split(b"\n")
+    for k in range(4, len(lines) - 3, 8):
+        lines[k + 1] = lines[k + 1][::-1].translate(_COMP)
+        lines[k + 3] = lines[k + 3][::-1]
+    with open(dst, "wb") as f:
+        f.write(b"\n".join(lines))
+    return dst
+
+
+def swap_mates(r1: str, r2: str, d1: str, d2: str) -> tuple[str, str]:
+    """Copy a FASTQ pair with the mates of every second pair swapped (the
+    names stay): those pairs map with mate 1 on the rc chains."""
+    with open(r1, "rb") as f:
+        a = f.read().split(b"\n")
+    with open(r2, "rb") as f:
+        b = f.read().split(b"\n")
+    for k in range(4, min(len(a), len(b)) - 3, 8):
+        for j in (1, 3):
+            a[k + j], b[k + j] = b[k + j], a[k + j]
+    for path, lines in ((d1, a), (d2, b)):
+        with open(path, "wb") as f:
+            f.write(b"\n".join(lines))
+    return d1, d2
+
+
+def rc_chain_share(sam: str) -> tuple[int, int]:
+    """(records, records whose pick is on the rc chain: ZS:Z:?-)."""
+    n = rc = 0
+    with open(sam, "rb") as f:
+        for ln in f:
+            i = ln.find(b"\tZS:Z:")
+            if i >= 0:
+                n += 1
+                rc += ln[i + 7: i + 8] == b"-"
+    return n, rc
+
+
+def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0) -> dict:
+    """The least time the card could take for one call of kernel ``name``
+    on this window (m reads or pairs; ncand live candidates of a capacity
+    of cands): the bytes it must move (each input read once, each output
+    written once, a random 16-byte or smaller gather as one 32-byte sector)
+    over the memory rate, or an estimate of its int32 lane operations over
+    the non-tensor peak, whichever is larger."""
+    row = 4 * (2 * cfg.nw + 4)
+    nch, NB, MS, S = cfg.nch, cfg.NB, cfg.maxseg, cfg.S
+    seed_ops = 6 * S + 20                       # one base-3 seed value
+    full_w = 4 * (2 * MS + 17 + 2 * cfg.hits_k)
+    out_w = 12 if cfg.lean else full_w
+    if name == "fixed_schedule":
+        nbytes = m * (nch * row + 32 * NB + 20 * NB + 4 * MS)
+        ops = 2 * m * NB * seed_ops
+    elif name == "exact_schedule":
+        nbytes = m * (nch * row + 32 * nch * cfg.P + 20 * NB + 8 + 4 * MS)
+        ops = m * nch * (cfg.P * seed_ops + 4 * MS * S * MS + NB * seed_ops)
+    elif name == "verify_candidates":
+        nbytes = (m * (nch * row + 20 * NB) + 4 * (m * NB + 1)
+                  + 64 * ncand + 16 * cands)
+        ops = 10 * m * NB + ncand * (12 * cfg.nw + 130)
+    elif name == "reduce_reads":
+        nbytes = m * (row + 16 + out_w) + 12 * ncand
+        ops = 45 * ncand + 10 * m * MS
+    elif name == "rc_words":
+        nbytes = 2 * m * row
+        ops = 80 * m * cfg.nw
+    else:                                       # pair_join
+        nbytes = m * (2 * full_w + 32 + 44)
+        ops = 40 * m * cfg.hits_k ** 2
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
 def log(msg: str) -> None:
@@ -293,10 +402,13 @@ def phase_data(root: str, gen, tag: str, flags=ALIGN_FLAGS,
     return gpath, rpath, o, genome, index
 
 
-def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda") -> dict:
-    """Each kernel against its twin on the first window; returns per-kernel
-    {max_abs_err, ms, plain_ms}.  (``dev`` = "cpu" rehearses the plumbing
-    with the twins on both sides and no timing.)"""
+def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda",
+                  mode: str = "f", phase: str = "3") -> dict:
+    """Each kernel against its twin on the first window, on the forward
+    chain or (``mode`` 'b', -n 1) on both chains with K5's rc rows; returns
+    per-kernel {max_abs_err, ms, plain_ms, bound_ms, bound_by}.  (``dev`` =
+    "cpu" rehearses the plumbing with the twins on both sides and no
+    timing.)"""
     import torch
     from bsmap_tpu_torch import native
     from bsmap_tpu_torch.blockio import BlockReadStream
@@ -313,80 +425,103 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda") -> dict:
     rows_np = rows_np.copy()
     rows_np[:, -1] = MS - 1
     rowsF = torch.from_numpy(rows_np).to(dev)              # round 2: full rank
-    cfg_lean = eng._cfg("f", lean=True, nw=nw)
+    cfg_lean = eng._cfg(mode, lean=True, nw=nw)
+    both = mode == "b"
+    rc0 = K.rc_words(cfg_lean, rows0) if both else None
+    rcF = K.rc_words(cfg_lean, rowsF) if both else None
     cases = [
         ("fixed lean, small tier", cfg_lean._replace(fixed=True), eng.CANDS,
-         rows0),
-        ("exact lean, small tier", cfg_lean, eng.CANDS, rows0),
-        ("exact lean, big tier", cfg_lean, eng.CANDS_BIG, rowsF),
+         rows0, rc0),
+        ("exact lean, small tier", cfg_lean, eng.CANDS, rows0, rc0),
+        ("exact lean, big tier", cfg_lean, eng.CANDS_BIG, rowsF, rcF),
         ("exact full, big tier", cfg_lean._replace(lean=False),
-         eng.CANDS_BIG, rowsF),
-        ("probe", cfg_lean._replace(probe=True, lean=False), 1, rowsF),
+         eng.CANDS_BIG, rowsF, rcF),
+        ("probe", cfg_lean._replace(probe=True, lean=False), 1, rowsF, rcF),
     ]
-    errs = {k: 0 for k in SE_PATH}
+    names = SE_PATH + (("rc_words",) if both else ())
+    errs = {k: 0 for k in names}
     tabs = eng.tables
-    for case, cfg, cands, rows in cases:
+    if both:
+        for rows, rc in ((rows0, rc0), (rowsF, rcF)):
+            check(errs, "rc_words", "rc rows", [rc],
+                  [K.rc_words_plain(cfg_lean, rows)])
+    for case, cfg, cands, rows, rc in cases:
         if cfg.probe:
             got = K.exact_schedule(cfg, rows, tabs["kmer_tab"],
-                                   tabs["prof_a"], probe=True)
+                                   tabs["prof_a"], probe=True, rows_rc=rc)
             want = K.exact_schedule_plain(cfg, rows, tabs["kmer_tab"],
-                                          tabs["prof_a"], probe=True)
+                                          tabs["prof_a"], probe=True,
+                                          rows_rc=rc)
             check(errs, "exact_schedule", case, [got.ftot_rank],
                   [want.ftot_rank])
             continue
         if cfg.fixed:
-            slots = K.fixed_schedule(cfg, rows, tabs["kmer_tab"])
-            want = K.fixed_schedule_plain(cfg, rows, tabs["kmer_tab"])
+            slots = K.fixed_schedule(cfg, rows, tabs["kmer_tab"], rc)
+            want = K.fixed_schedule_plain(cfg, rows, tabs["kmer_tab"], rc)
             check(errs, "fixed_schedule", case, slots, want)
         else:
             slots = K.exact_schedule(cfg, rows, tabs["kmer_tab"],
-                                     tabs["prof_a"])
+                                     tabs["prof_a"], rows_rc=rc)
             want = K.exact_schedule_plain(cfg, rows, tabs["kmer_tab"],
-                                          tabs["prof_a"])
+                                          tabs["prof_a"], rows_rc=rc)
             check(errs, "exact_schedule", case, slots, want)
-        vc = K.verify_candidates(cfg, cands, rows, slots, tabs)
+        vc = K.verify_candidates(cfg, cands, rows, slots, tabs, rc)
         check(errs, "verify_candidates", case, vc,
-              K.verify_candidates_plain(cfg, cands, rows, slots, tabs))
+              K.verify_candidates_plain(cfg, cands, rows, slots, tabs, rc))
         out = K.reduce_reads(cfg, cands, rows, vc, slots)
         check(errs, "reduce_reads", case, [out],
               [K.reduce_reads_plain(cfg, cands, rows, vc, slots)])
         n_total = int(vc.starts[-1])
-        lean = out[:, 1] if cfg.lean else None
-        found = int((lean & 1).sum()) if lean is not None else \
-            int(out[:, 2 * MS].sum())
-        log(f"[3] {case}: {rows.shape[0]} reads, {n_total} candidates, "
-            f"{found} found — kernels == twins")
+        if cfg.lean:
+            found = int((out[:, 1] & 1).sum())
+            rc_picks = int(((out[:, 1] & 3) == 3).sum())
+        else:
+            found = int(out[:, 2 * MS].sum())
+            rc_picks = int(((out[:, 2 * MS] != 0)
+                            & (out[:, 2 * MS + K.X_CHAIN] == 1)).sum())
+        log(f"[{phase}] '{mode}' {case}: {rows.shape[0]} reads, {n_total} "
+            f"candidates, {found} found ({rc_picks} on the rc chain) — "
+            "kernels == twins")
 
     # times at the main path's shapes: round 1 (fixed, small tier) for
-    # K1/K3/K4, the full-rank exact schedule for K2
+    # K1/K3/K4 (and K5), the full-rank exact schedule for K2
     cfg_f = cfg_lean._replace(fixed=True)
-    s_f = K.fixed_schedule(cfg_f, rows0, tabs["kmer_tab"])
-    vc_f = K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f, tabs)
+    s_f = K.fixed_schedule(cfg_f, rows0, tabs["kmer_tab"], rc0)
+    vc_f = K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f, tabs, rc0)
+    ncand = min(int(vc_f.starts[-1]), eng.CANDS)
     timed = {
         "fixed_schedule": (
-            lambda: K.fixed_schedule(cfg_f, rows0, tabs["kmer_tab"]),
-            lambda: K.fixed_schedule_plain(cfg_f, rows0, tabs["kmer_tab"])),
+            lambda: K.fixed_schedule(cfg_f, rows0, tabs["kmer_tab"], rc0),
+            lambda: K.fixed_schedule_plain(cfg_f, rows0, tabs["kmer_tab"],
+                                           rc0)),
         "exact_schedule": (
             lambda: K.exact_schedule(cfg_lean, rowsF, tabs["kmer_tab"],
-                                     tabs["prof_a"]),
+                                     tabs["prof_a"], rows_rc=rcF),
             lambda: K.exact_schedule_plain(cfg_lean, rowsF, tabs["kmer_tab"],
-                                           tabs["prof_a"])),
+                                           tabs["prof_a"], rows_rc=rcF)),
         "verify_candidates": (
-            lambda: K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f, tabs),
+            lambda: K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f, tabs,
+                                        rc0),
             lambda: K.verify_candidates_plain(cfg_f, eng.CANDS, rows0, s_f,
-                                              tabs)),
+                                              tabs, rc0)),
         "reduce_reads": (
             lambda: K.reduce_reads(cfg_f, eng.CANDS, rows0, vc_f, s_f),
             lambda: K.reduce_reads_plain(cfg_f, eng.CANDS, rows0, vc_f,
                                          s_f)),
     }
+    if both:
+        timed["rc_words"] = (lambda: K.rc_words(cfg_f, rows0),
+                             lambda: K.rc_words_plain(cfg_f, rows0))
     res = {}
+    m = rows0.shape[0]
     for name, (kern, plain) in timed.items():
-        res[name] = {"max_abs_err": errs[name]}
+        res[name] = {"max_abs_err": errs[name],
+                     **bound(name, cfg_f, m, ncand, eng.CANDS)}
         if dev == "cuda":
-            res[name].update(timed_pair(f"[3] {name}", kern, plain,
-                                        f"{rows0.shape[0]} reads"))
-    del eng, tabs, s_f, vc_f, rows0, rowsF
+            res[name].update(timed_pair(f"[{phase}] '{mode}' {name}", kern,
+                                        plain, f"{m} reads; bound "
+                                        f"{res[name]['bound_ms']:.4f} ms"))
+    del eng, tabs, s_f, vc_f, rows0, rowsF, rc0, rcF
     if dev == "cuda":
         torch.cuda.empty_cache()
     return res
@@ -467,12 +602,13 @@ def phase_pe_data(root: str):
 
 
 def phase_pe_kernels(o, genome, index, r1: str, r2: str,
-                     dev: str = "cuda") -> dict:
+                     dev: str = "cuda", phase: str = "8") -> dict:
     """The pair-end kernels against their twins on the first window:
-    rc_words, both mates' K2/K3/K4 (cfg.pe, 16 hits) at rank 0 on the
-    small tier and at full rank on both tiers, and pair_join.  Returns
-    per-kernel {max_abs_err[, ms, plain_ms]} (times at the phase-1 shapes:
-    rank 0, small tier; K2-K4 on mate 2, the rc chain)."""
+    rc_words, both mates' K2/K3/K4 (cfg.pe, 16 hits; mate 2 on the rc
+    chain, or both mates on both chains under -n 1) at rank 0 on the small
+    tier and at full rank on both tiers, and pair_join.  Returns per-kernel
+    {max_abs_err, bound_ms, bound_by[, ms, plain_ms]} (times at the phase-1
+    shapes: rank 0, small tier; K2-K5 on mate 2)."""
     import torch
     from bsmap_tpu_torch import native
     from bsmap_tpu_torch.blockio import BlockReadStream
@@ -503,70 +639,82 @@ def phase_pe_kernels(o, genome, index, r1: str, r2: str,
                               (MS - 1, se.CANDS, "full rank, small tier"),
                               (MS - 1, se.CANDS_BIG, "full rank, big tier")):
         da, db = to_dev(ra_np, rank), to_dev(rb_np, rank)
-        rc = K.rc_words(cfg_b, db)
-        check(errs, "rc_words", case, [rc], [K.rc_words_plain(cfg_b, db)])
         full, n_cand = [], []
-        for cfg, rows in ((cfg_a, da), (cfg_b, rc)):
-            slots = K.exact_schedule(cfg, rows, tabs["kmer_tab"],
-                                     tabs["prof_a"])
+        for cfg, rows in ((cfg_a, da), (cfg_b, db)):
+            fwd, rc = K.chain_inputs(cfg, rows)
+            if cfg.chains_mode != "f":
+                check(errs, "rc_words", case, [rc if rc is not None else fwd],
+                      [K.rc_words_plain(cfg, rows)])
+            slots = K.exact_schedule(cfg, fwd, tabs["kmer_tab"],
+                                     tabs["prof_a"], rows_rc=rc)
             check(errs, "exact_schedule", case, slots,
-                  K.exact_schedule_plain(cfg, rows, tabs["kmer_tab"],
-                                         tabs["prof_a"]))
-            vc = K.verify_candidates(cfg, cands, rows, slots, tabs)
+                  K.exact_schedule_plain(cfg, fwd, tabs["kmer_tab"],
+                                         tabs["prof_a"], rows_rc=rc))
+            vc = K.verify_candidates(cfg, cands, fwd, slots, tabs, rc)
             check(errs, "verify_candidates", case, vc,
-                  K.verify_candidates_plain(cfg, cands, rows, slots, tabs))
-            out = K.reduce_reads(cfg, cands, rows, vc, slots)
+                  K.verify_candidates_plain(cfg, cands, fwd, slots, tabs, rc))
+            out = K.reduce_reads(cfg, cands, fwd, vc, slots)
             check(errs, "reduce_reads", case, [out],
-                  [K.reduce_reads_plain(cfg, cands, rows, vc, slots)])
+                  [K.reduce_reads_plain(cfg, cands, fwd, vc, slots)])
             full.append(out)
             n_cand.append(int(vc.starts[-1]))
         j = K.pair_join(cfg_a, full[0], full[1], da, db)
         check(errs, "pair_join", case, [j],
               [K.pair_join_plain(cfg_a, full[0], full[1], da, db)])
         paired = int(((j[:, 6] & 31) > 0).sum())
-        log(f"[8] {case}: {da.shape[0]} pairs, {n_cand[0]}/{n_cand[1]} "
-            f"candidates (mate 1/2), {paired} paired — kernels == twins")
-        window.setdefault("rows", (da, db, rc, full, cands))
-    res = {k: {"max_abs_err": v} for k, v in errs.items()}
+        rc_pairs = int((((j[:, 6] & 31) > 0) & ((j[:, 6] >> 16) & 1 == 1))
+                       .sum())
+        log(f"[{phase}] '{cfg_a.chains_mode}'/'{cfg_b.chains_mode}' {case}: "
+            f"{da.shape[0]} pairs, {n_cand[0]}/{n_cand[1]} candidates "
+            f"(mate 1/2), {paired} paired ({rc_pairs} with mate 1 on the rc "
+            "chain) — kernels == twins")
+        window.setdefault("rows", (da, db, full, cands))
+    da, db, full, cands = window["rows"]
+    fwd, rc = K.chain_inputs(cfg_b, db)
+    s_b = K.exact_schedule(cfg_b, fwd, tabs["kmer_tab"], tabs["prof_a"],
+                           rows_rc=rc)
+    vc_b = K.verify_candidates(cfg_b, cands, fwd, s_b, tabs, rc)
+    m, ncand = da.shape[0], min(int(vc_b.starts[-1]), cands)
+    res = {k: {"max_abs_err": v,
+               **bound(k, cfg_b, m, ncand, cands)} for k, v in errs.items()}
     if dev == "cuda":
-        da, db, rc, full, cands = window["rows"]
-        s_b = K.exact_schedule(cfg_b, rc, tabs["kmer_tab"], tabs["prof_a"])
-        vc_b = K.verify_candidates(cfg_b, cands, rc, s_b, tabs)
-        what = f"{da.shape[0]} pairs, mate 2, rank 0, small tier"
+        what = f"{m} pairs, mate 2, rank 0, small tier"
         timed = {
             "rc_words": (lambda: K.rc_words(cfg_b, db),
                          lambda: K.rc_words_plain(cfg_b, db)),
             "exact_schedule": (
-                lambda: K.exact_schedule(cfg_b, rc, tabs["kmer_tab"],
-                                         tabs["prof_a"]),
-                lambda: K.exact_schedule_plain(cfg_b, rc, tabs["kmer_tab"],
-                                               tabs["prof_a"])),
+                lambda: K.exact_schedule(cfg_b, fwd, tabs["kmer_tab"],
+                                         tabs["prof_a"], rows_rc=rc),
+                lambda: K.exact_schedule_plain(cfg_b, fwd, tabs["kmer_tab"],
+                                               tabs["prof_a"], rows_rc=rc)),
             "verify_candidates": (
-                lambda: K.verify_candidates(cfg_b, cands, rc, s_b, tabs),
-                lambda: K.verify_candidates_plain(cfg_b, cands, rc, s_b,
-                                                  tabs)),
+                lambda: K.verify_candidates(cfg_b, cands, fwd, s_b, tabs, rc),
+                lambda: K.verify_candidates_plain(cfg_b, cands, fwd, s_b,
+                                                  tabs, rc)),
             "reduce_reads": (
-                lambda: K.reduce_reads(cfg_b, cands, rc, vc_b, s_b),
-                lambda: K.reduce_reads_plain(cfg_b, cands, rc, vc_b, s_b)),
+                lambda: K.reduce_reads(cfg_b, cands, fwd, vc_b, s_b),
+                lambda: K.reduce_reads_plain(cfg_b, cands, fwd, vc_b, s_b)),
             "pair_join": (
                 lambda: K.pair_join(cfg_a, full[0], full[1], da, db),
                 lambda: K.pair_join_plain(cfg_a, full[0], full[1], da, db)),
         }
         for name, (kern, plain) in timed.items():
-            res[name].update(timed_pair(f"[8] {name}", kern, plain, what))
-        del s_b, vc_b
-    del eng, tabs, window
+            res[name].update(timed_pair(
+                f"[{phase}] {name}", kern, plain,
+                f"{what}; bound {res[name]['bound_ms']:.4f} ms"))
+    del eng, tabs, window, s_b, vc_b, fwd, rc
     if dev == "cuda":
         torch.cuda.empty_cache()
     return res
 
 
 def phase_pe_align(gpath: str, r1: str, r2: str, out: str, n_pairs: int,
-                   dev: str = "cuda") -> dict:
+                   dev: str = "cuda", flags=PE_FLAGS,
+                   phase: str = "9") -> dict:
     """The pair-end CLI run on the card; checks the pair count and the
     properly-paired share, prints pairs/s and the engine counters."""
     st = run_cli(["-a", r1, "-b", r2, "-d", gpath, "-o", out, "--device",
-                  dev] + PE_FLAGS)
+                  dev] + flags)
     eng = st["engine"]
     if st["pairs"] != n_pairs:
         raise AssertionError(f"pe: aligned {st['pairs']} of {n_pairs} pairs")
@@ -580,7 +728,7 @@ def phase_pe_align(gpath: str, r1: str, r2: str, out: str, n_pairs: int,
         raise AssertionError(f"pe: {proper} of {n_pairs} fully converted, "
                              "error-free pairs properly paired")
     rate = st["pairs"] / st["align_s"]
-    log(f"[9] {st['pairs']} pairs in {st['align_s']:.3f} s = {rate:.1f} "
+    log(f"[{phase}] {st['pairs']} pairs in {st['align_s']:.3f} s = {rate:.1f} "
         f"pairs/s; {proper} properly paired; n_dispatched "
         f"{eng.se.n_dispatched}, n_replayed {eng.n_replayed}")
     return {"pairs_per_s": rate, "align_s": st["align_s"],
@@ -601,15 +749,11 @@ def phase_pe_parity(gpath: str, r1: str, r2: str, d: str,
         f"({size} bytes)")
 
 
-def phase_pe_paths(root: str, dev: str = "cuda") -> dict:
-    """Phase 11: simulated pairs with errors through the block path and the
-    per-pair path on ``dev``, each against the host engine byte for byte;
-    returns the kernels' launch counts summed over the two GPU runs, each
-    of which must have launched every pair-end kernel."""
-    from bsmap_tpu_torch.engine import kernels as K
-    d = os.path.join(root, "pe_err")
+def make_pe_err_set(d: str, g: str, r1: str, r2: str) -> None:
+    """Phase 11's data: 10,000 simulated pairs of 76 nt with 2% errors on a
+    2 x 1 Mb genome, every 8th pair cut to 51 nt (stale-schedule reads: host
+    replays)."""
     os.makedirs(d)
-    g, r1, r2 = (os.path.join(d, x) for x in ("ref.fa", "r1.fq", "r2.fq"))
     t0 = time.time()
     subprocess.run([sys.executable, os.path.join(REPO, "tools", "simulate.py"),
                     "--pe", "--n-reads", str(N_PARITY), "--read-len", "76",
@@ -625,8 +769,23 @@ def phase_pe_paths(root: str, dev: str = "cuda") -> dict:
             f.write("\n".join(lines) + "\n")
     log(f"[11] data: {N_PARITY} pairs of 76 nt (every 8th cut to 51 nt) "
         f"with 2% errors, 2 x 1 Mb genome, in {time.time() - t0:.1f} s")
+
+
+def phase_pe_paths(root: str, dev: str = "cuda", extra=(),
+                   phase: str = "11") -> dict:
+    """Phase 11 (and with ``extra`` = -n 1, phase 18's part): simulated
+    pairs with errors through the block path and the per-pair path on
+    ``dev``, each against the host engine byte for byte; returns the
+    kernels' launch counts summed over the two GPU runs, each of which must
+    have launched every pair-end kernel.  The data is made once."""
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "pe_err")
+    g, r1, r2 = (os.path.join(d, x) for x in ("ref.fa", "r1.fq", "r2.fq"))
+    if not os.path.exists(r2):
+        make_pe_err_set(d, g, r1, r2)
     total = {k: 0 for k in K.launch_counts()}
     for tag, flags, (suffix, *unpaired), min_disp, min_rep in PE_PATH_RUNS:
+        flags = flags + list(extra)
         outs = {}
         for eng in (["--device", dev], ["--engine", "host"]):
             files = [os.path.join(d, f"{eng[1]}.{suffix}")]
@@ -656,20 +815,21 @@ def phase_pe_paths(root: str, dev: str = "cuda") -> dict:
             t_gpu = st["align_s"]
         sizes = [assert_same_file(f"pe {tag}", a, b) for a, b in
                  zip(outs["--device"], outs["--engine"])]
-        log(f"[11] {tag} ({' '.join(flags)}, {suffix}): {N_PARITY} pairs "
+        log(f"[{phase}] {tag} ({' '.join(flags)}, {suffix}): {N_PARITY} pairs "
             f"in {t_gpu:.3f} s on {dev}; n_dispatched {n_disp}, n_replayed "
             f"{n_rep}; launches {counts}; byte-identical to the host engine "
             f"({' + '.join(map(str, sizes))} bytes)")
     return total
 
 
-def phase_rrbs_kernels(o, genome, index, rpath: str,
-                       dev: str = "cuda") -> dict:
-    """Phase 13: K2, K3 and K4 with cfg.rrbs against their twins on the
-    first window of the RRBS reads (native trimming, full rank, the one big
-    capacity tier), lean and full rows; returns per-kernel
-    {max_abs_err[, ms, plain_ms]} (times on the lean rows, the main path's
-    SAM shapes)."""
+def phase_rrbs_kernels(o, genome, index, rpath: str, dev: str = "cuda",
+                       mode: str = "f", phase: str = "13") -> dict:
+    """Phase 13 (and with ``mode`` 'b', phase 19's part): K2, K3 and K4
+    with cfg.rrbs (on both chains under 'b', with K5's rc rows) against
+    their twins on the first window of the RRBS reads (native trimming,
+    full rank, the one big capacity tier), lean and full rows; returns
+    per-kernel {max_abs_err, bound_ms, bound_by[, ms, plain_ms]} (times on
+    the lean rows, the main path's SAM shapes)."""
     import torch
     from bsmap_tpu_torch import native
     from bsmap_tpu_torch.blockio import BlockReadStream
@@ -685,97 +845,125 @@ def phase_rrbs_kernels(o, genome, index, rpath: str,
     rows_np = rows_np.copy()
     rows_np[:, -1] = MS - 1
     rows = torch.from_numpy(rows_np).to(dev)
-    cfg_lean = eng._cfg("f", lean=True, nw=nw)
+    cfg_lean = eng._cfg(mode, lean=True, nw=nw)
     if not (cfg_lean.rrbs and eng.CANDS == eng.CANDS_BIG):
         raise AssertionError("RRBS engine without the rrbs cfg or the one "
                              "big capacity tier")
     tabs = eng.tables
     cands = eng.CANDS
-    errs = {k: 0 for k in RRBS_PATH}
+    fwd, rc = K.chain_inputs(cfg_lean, rows)
+    names = RRBS_PATH + (("rc_words",) if rc is not None else ())
+    errs = {k: 0 for k in names}
+    if rc is not None:
+        check(errs, "rc_words", "rc rows", [rc],
+              [K.rc_words_plain(cfg_lean, rows)])
 
     def schedule(cfg, plain=False):
         fn = K.exact_schedule_plain if plain else K.exact_schedule
-        return fn(cfg, rows, tabs["kmer_tab"], tabs["prof_a"],
-                  tag_off=tabs["tag_off"])
+        return fn(cfg, fwd, tabs["kmer_tab"], tabs["prof_a"],
+                  tag_off=tabs["tag_off"], rows_rc=rc)
 
     for case, cfg in (("lean, big tier", cfg_lean),
                       ("full, big tier", cfg_lean._replace(lean=False))):
         slots = schedule(cfg)
         check(errs, "exact_schedule", case, slots, schedule(cfg, True))
-        vc = K.verify_candidates(cfg, cands, rows, slots, tabs)
+        vc = K.verify_candidates(cfg, cands, fwd, slots, tabs, rc)
         check(errs, "verify_candidates", case, vc,
-              K.verify_candidates_plain(cfg, cands, rows, slots, tabs))
-        out = K.reduce_reads(cfg, cands, rows, vc, slots)
+              K.verify_candidates_plain(cfg, cands, fwd, slots, tabs, rc))
+        out = K.reduce_reads(cfg, cands, fwd, vc, slots)
         check(errs, "reduce_reads", case, [out],
-              [K.reduce_reads_plain(cfg, cands, rows, vc, slots)])
+              [K.reduce_reads_plain(cfg, cands, fwd, vc, slots)])
         info = vc.info
         n_first = int(((info & K.INFO_FIRST) != 0).sum())
         n_frag = int(((info & K.INFO_FRAG) != 0).sum())
+        n_rc = int((((info >> K.INFO_CHAIN_SHIFT) & 1)
+                    & ((info & K.INFO_FIRST) != 0)).sum())
         found = int((out[:, 1] & 1).sum()) if cfg.lean else \
             int(out[:, 2 * MS].sum())
-        log(f"[13] {case}: {rows.shape[0]} reads, {int(vc.starts[-1])} "
-            f"candidates, {n_first} first of their key, {n_frag} inside a "
-            f"valid fragment, {found} found — kernels == twins")
-    res = {k: {"max_abs_err": v} for k, v in errs.items()}
+        log(f"[{phase}] '{mode}' {case}: {rows.shape[0]} reads, "
+            f"{int(vc.starts[-1])} candidates, {n_first} first of their key "
+            f"({n_rc} on the rc chain), {n_frag} inside a valid fragment, "
+            f"{found} found — kernels == twins")
+    s_l = schedule(cfg_lean)
+    vc_l = K.verify_candidates(cfg_lean, cands, fwd, s_l, tabs, rc)
+    m, ncand = rows.shape[0], min(int(vc_l.starts[-1]), cands)
+    res = {k: {"max_abs_err": v, **bound(k, cfg_lean, m, ncand, cands)}
+           for k, v in errs.items()}
     if dev == "cuda":
-        s_l = schedule(cfg_lean)
-        vc_l = K.verify_candidates(cfg_lean, cands, rows, s_l, tabs)
         timed = {
             "exact_schedule": (lambda: schedule(cfg_lean),
                                lambda: schedule(cfg_lean, True)),
             "verify_candidates": (
-                lambda: K.verify_candidates(cfg_lean, cands, rows, s_l, tabs),
-                lambda: K.verify_candidates_plain(cfg_lean, cands, rows, s_l,
-                                                  tabs)),
+                lambda: K.verify_candidates(cfg_lean, cands, fwd, s_l, tabs,
+                                            rc),
+                lambda: K.verify_candidates_plain(cfg_lean, cands, fwd, s_l,
+                                                  tabs, rc)),
             "reduce_reads": (
-                lambda: K.reduce_reads(cfg_lean, cands, rows, vc_l, s_l),
-                lambda: K.reduce_reads_plain(cfg_lean, cands, rows, vc_l,
+                lambda: K.reduce_reads(cfg_lean, cands, fwd, vc_l, s_l),
+                lambda: K.reduce_reads_plain(cfg_lean, cands, fwd, vc_l,
                                              s_l)),
         }
         for name, (kern, plain) in timed.items():
-            res[name].update(timed_pair(f"[13] {name}", kern, plain,
-                                        f"{rows.shape[0]} RRBS reads, lean, "
-                                        "big tier"))
-        del s_l, vc_l
-    del eng, tabs, rows
+            res[name].update(timed_pair(
+                f"[{phase}] '{mode}' {name}", kern, plain,
+                f"{m} RRBS reads, lean, big tier; bound "
+                f"{res[name]['bound_ms']:.4f} ms"))
+    del eng, tabs, rows, fwd, rc, s_l, vc_l
     if dev == "cuda":
         torch.cuda.empty_cache()
     return res
 
 
-def phase_rrbs_set(root: str, dev: str = "cuda") -> dict:
-    """Phase 15, second part: 10,000 mixed-strand reads with mismatches on a
-    two-chromosome digest, SAM in a -m 100 -x 150 window and BSP, each on
-    ``dev`` against the host engine byte for byte; returns the launch
-    counts summed over the GPU runs, each of which must launch K2-K4 and
-    never K1."""
+def phase_rrbs_set(root: str, dev: str = "cuda", extra=(),
+                   phase: str = "15") -> dict:
+    """Phase 15 (and with ``extra`` = -n 1, phase 19's part), second part:
+    10,000 mixed-strand reads with mismatches on a two-chromosome digest
+    (with -n 1 every second read reverse-complemented), SAM in a -m 100
+    -x 150 window and BSP, each on ``dev`` against the host engine byte for
+    byte; returns the launch counts summed over the GPU runs, each of which
+    must launch K2-K4 (and K5 under -n 1) and never K1."""
     from bsmap_tpu_torch.engine import kernels as K
     d = os.path.join(root, "rrbs_set")
-    os.makedirs(d)
-    t0 = time.time()
-    make_rrbs_set(d, n_reads=N_PARITY, chr_len=300_000)
-    log(f"[15] data: {N_PARITY} mixed-strand RRBS reads, 2 x 0.3 Mb "
-        f"digest, in {time.time() - t0:.1f} s")
+    reads = os.path.join(d, "se.fq")
+    if not os.path.exists(reads):
+        os.makedirs(d)
+        t0 = time.time()
+        make_rrbs_set(d, n_reads=N_PARITY, chr_len=300_000)
+        log(f"[15] data: {N_PARITY} mixed-strand RRBS reads, 2 x 0.3 Mb "
+            f"digest, in {time.time() - t0:.1f} s")
+    if extra:
+        reads = nondirectional(reads, os.path.join(d, "nd.fq"))
+    path = RRBS_PATH + (("rc_words",) if extra else ())
     total = {k: 0 for k in K.launch_counts()}
     for flags, suffix in RRBS_SET_RUNS:
-        base = ["-a", os.path.join(d, "se.fq"), "-d",
-                os.path.join(d, "rrbs.fa")] + flags
+        base = ["-a", reads, "-d", os.path.join(d, "rrbs.fa")] + flags \
+            + list(extra)
         outs = [os.path.join(d, f"{e}.{suffix}") for e in ("gpu", "host")]
         K.reset_launch_counts()
         st = run_cli(base + ["-o", outs[0], "--device", dev])
         counts = K.launch_counts()
-        if [k for k in RRBS_PATH if counts[k] == 0] \
-                or counts["fixed_schedule"]:
+        if [k for k in path if counts[k] == 0] or counts["fixed_schedule"]:
             raise AssertionError(f"RRBS set {flags}: launches {counts}")
         for k, v in counts.items():
             total[k] += v
         run_cli(base + ["-o", outs[1], "--engine", "host"])
         size = assert_same_file(f"rrbs set {suffix}", *outs)
-        log(f"[15] {' '.join(flags)} ({suffix}): {N_PARITY} reads in "
+        log(f"[{phase}] {' '.join(base[4:])} ({suffix}): {N_PARITY} reads in "
             f"{st['align_s']:.3f} s on {dev}, n_replayed "
             f"{st['engine'].n_replayed}; launches {counts}; byte-identical "
             f"to the host engine ({size} bytes)")
     return total
+
+
+def need_launches(what: str, counts: dict, need, never=()) -> None:
+    """A main path's launch counts: every kernel of ``need`` launched, none
+    of ``never``."""
+    missing = [k for k in need if counts[k] == 0]
+    extra = [k for k in never if counts[k]]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels never launched {missing}, "
+                             f"launched though off the path {extra}")
+    log(f"    launches, {what}: {counts}")
 
 
 def main() -> int:
@@ -784,7 +972,9 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from bsmap_tpu_torch.cli import get_index, parse_args
     from bsmap_tpu_torch.engine import kernels as K
+    from bsmap_tpu_torch.reference import load_genome
     from tools.genreads import generate, generate_chr21, generate_rrbs
 
     card = card_line()
@@ -796,6 +986,16 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="bsmap_smoke_")
     # every index below is built once and memory-mapped by each later run
     os.environ["BSMAP_TPU_INDEX_CACHE"] = os.path.join(root, "cache")
+    main_runs = []                  # launch counts of every main-path run
+
+    def counted(fn, *args, **kw):
+        """Run one main path with the counts zeroed just before it; keep
+        and return its counts with its result."""
+        K.reset_launch_counts()
+        out = fn(*args, **kw)
+        main_runs.append(K.launch_counts())
+        return out, main_runs[-1]
+
     try:
         g1, r1, o1, genome, index = phase_data(
             root, generate, "headline", n_reads=N_HEADLINE)
@@ -808,16 +1008,12 @@ def main() -> int:
         K.reset_launch_counts()
         head = phase_align("4", g1, r1, os.path.join(root, "head.sam"),
                            N_HEADLINE, 0.9)
-        counts4 = K.launch_counts()
+        log(f"[4] launches, headline run: {K.launch_counts()}")
         rep = phase_align("5", g2, r2, os.path.join(root, "rep.sam"),
                           N_REPEAT, 0.5)
-        se_counts = K.launch_counts()
-        log(f"[4] launches, headline run: {counts4}")
-        log(f"[5] launches, headline + repeat-heavy runs: {se_counts}")
-        missing = [k for k in SE_PATH if se_counts[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the single-end "
-                                 f"main path: {missing}")
+        main_runs.append(K.launch_counts())
+        need_launches("[5] headline + repeat-heavy runs", main_runs[-1],
+                      SE_PATH)
         from bsmap_tpu_torch import native
         if native.get_lib() is None:
             raise AssertionError("native block path not taken")
@@ -828,53 +1024,103 @@ def main() -> int:
         gp, p1, p2, op, genome, index = phase_pe_data(root)
         pres = phase_pe_kernels(op, genome, index, p1, p2)
         del genome, index
-        K.reset_launch_counts()
-        pe = phase_pe_align(gp, p1, p2, os.path.join(root, "pe.sam"),
-                            N_PAIRS)
-        pe_counts = K.launch_counts()
-        log(f"[9] launches, pair-end run: {pe_counts}")
-        missing = [k for k in PE_PATH if pe_counts[k] == 0]
-        if missing:
-            raise AssertionError(f"kernels never launched on the pair-end "
-                                 f"main path: {missing}")
+        pe, c9 = counted(phase_pe_align, gp, p1, p2,
+                         os.path.join(root, "pe.sam"), N_PAIRS)
+        need_launches("[9] pair-end run", c9, PE_PATH)
         phase_pe_parity(gp, p1, p2, os.path.join(root, "pe_parity"))
-        path_counts = phase_pe_paths(root)
+        main_runs.append(phase_pe_paths(root))
 
         gr, rr, orr, genome, index = phase_data(
             root, generate_rrbs, "rrbs", flags=RRBS_FLAGS, phase="12")
         rres = phase_rrbs_kernels(orr, genome, index, rr)
         del genome, index
-        K.reset_launch_counts()
-        rrbs = phase_align("14", gr, rr, os.path.join(root, "rrbs.sam"),
-                           N_RRBS, 0.9, flags=RRBS_FLAGS)
-        rrbs_counts = K.launch_counts()
-        log(f"[14] launches, RRBS run: {rrbs_counts}")
-        missing = [k for k in RRBS_PATH if rrbs_counts[k] == 0]
-        if missing or rrbs_counts["fixed_schedule"]:
-            raise AssertionError(f"RRBS main path: kernels never launched "
-                                 f"{missing}, K1 launched "
-                                 f"{rrbs_counts['fixed_schedule']} times")
+        rrbs, c14 = counted(phase_align, "14", gr, rr,
+                            os.path.join(root, "rrbs.sam"), N_RRBS, 0.9,
+                            flags=RRBS_FLAGS)
+        need_launches("[14] RRBS run", c14, RRBS_PATH, ("fixed_schedule",))
         phase_parity("rrbs", gr, rr, os.path.join(root, "rrbs"),
                      flags=RRBS_FLAGS, phase="15")
-        set_counts = phase_rrbs_set(root)
+        main_runs.append(phase_rrbs_set(root))
+
+        # -n 1: the four strands, on non-directional copies of the data
+        def nd_copy(gpath, rpath):
+            def gen(d):
+                os.makedirs(d, exist_ok=True)
+                return gpath, nondirectional(rpath,
+                                             os.path.join(d, "reads_nd.fq"))
+            return gen
+
+        _, nd1, o16, genome, index = phase_data(
+            root, nd_copy(g1, r1), "headline_n1", flags=ALIGN_FLAGS + N1,
+            phase="16")
+        kres16 = phase_kernels(o16, genome, index, nd1, mode="b",
+                               phase="16")
+        del genome, index
+        head1, c17 = counted(phase_align, "17", g1, nd1,
+                             os.path.join(root, "head_n1.sam"), N_HEADLINE,
+                             0.9, flags=ALIGN_FLAGS + N1)
+        need_launches("[17] -n 1 run", c17, SE_PATH + ("rc_words",))
+        n_rec, n_rc = rc_chain_share(os.path.join(root, "head_n1.sam"))
+        if not 0.3 * n_rec < n_rc < 0.7 * n_rec:
+            raise AssertionError(f"[17] {n_rc} of {n_rec} picks on the rc "
+                                 "chain: expected about half")
+        log(f"[17] {n_rc} of {n_rec} picks on the rc chain (ZS:Z:?-)")
+        phase_parity("headline -n 1", g1, nd1,
+                     os.path.join(root, "headline_n1"),
+                     flags=ALIGN_FLAGS + N1, phase="17")
+
+        sp1, sp2 = swap_mates(p1, p2, os.path.join(root, "pe", "sw_1.fq"),
+                              os.path.join(root, "pe", "sw_2.fq"))
+        o18 = parse_args(["-a", sp1, "-b", sp2, "-d", gp, "-o", "x.sam"]
+                         + PE_FLAGS + N1)
+        genome = load_genome(gp, o18.param)
+        pres18 = phase_pe_kernels(o18, genome, get_index(o18, genome), sp1,
+                                  sp2, phase="18")
+        del genome
+        pe1, c18 = counted(phase_pe_align, gp, sp1, sp2,
+                           os.path.join(root, "pe_n1.sam"), N_PAIRS,
+                           flags=PE_FLAGS + N1, phase="18")
+        need_launches("[18] pair-end -n 1 run", c18, PE_PATH)
+        main_runs.append(phase_pe_paths(root, extra=N1, phase="18"))
+
+        _, rr1, o19, genome, index = phase_data(
+            root, nd_copy(gr, rr), "rrbs_n1", flags=RRBS_FLAGS + N1,
+            phase="19")
+        rres19 = phase_rrbs_kernels(o19, genome, index, rr1, mode="b",
+                                    phase="19")
+        del genome, index
+        # a reverse-complemented fragment-start read begins at no site: the
+        # rc chain seeds from the read's end (cseed_offset), so such a read
+        # maps only where it spans its fragment; the forward half maps
+        rrbs1, c19 = counted(phase_align, "19", gr, rr1,
+                             os.path.join(root, "rrbs_n1.sam"), N_RRBS, 0.45,
+                             flags=RRBS_FLAGS + N1)
+        need_launches("[19] RRBS -n 1 run", c19, RRBS_PATH + ("rc_words",),
+                      ("fixed_schedule",))
+        main_runs.append(phase_rrbs_set(root, extra=N1, phase="19"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     log(f"[summary] headline {head['reads_per_s']:.1f} reads/s, "
         f"repeat-heavy {rep['reads_per_s']:.1f} reads/s, pair-end "
         f"{pe['pairs_per_s']:.1f} pairs/s, RRBS "
-        f"{rrbs['reads_per_s']:.1f} reads/s")
+        f"{rrbs['reads_per_s']:.1f} reads/s; -n 1: headline "
+        f"{head1['reads_per_s']:.1f} reads/s, pair-end "
+        f"{pe1['pairs_per_s']:.1f} pairs/s, RRBS "
+        f"{rrbs1['reads_per_s']:.1f} reads/s")
+    results = (kres, pres, rres, kres16, pres18, rres19)
     rows = []
     for k, (src, rep_) in KERNEL_SOURCES.items():
-        se_r, pe_r, rr_r = kres.get(k, {}), pres.get(k, {}), rres.get(k, {})
-        times = se_r if "ms" in se_r else pe_r     # the main path's shapes
+        # the main path's shapes: the SE headline window, else the PE one
+        t = kres[k] if "ms" in kres.get(k, {}) else pres[k]
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep_,
-                     "launches": se_counts[k] + pe_counts[k]
-                     + path_counts[k] + rrbs_counts[k] + set_counts[k],
-                     "max_abs_err": max(r.get("max_abs_err", 0)
-                                        for r in (se_r, pe_r, rr_r)),
-                     "ms": times["ms"], "plain_ms": times["plain_ms"]})
+                     "launches": sum(c[k] for c in main_runs),
+                     "max_abs_err": max(r[k]["max_abs_err"]
+                                        for r in results if k in r),
+                     "ms": t["ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "library_ms": None})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

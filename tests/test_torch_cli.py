@@ -169,15 +169,16 @@ def test_torch_cli_pe_per_pair_many_hits(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["-b", "r2.fq", "-n", "1"], ["-D", "C-CGG", "-n", "1"], ["-n", "1"],
+    ["--proc-id", "0"], ["--coordinator", "h:1"],
+    ["-b", "r2.fq", "-o", "out.bam"],
     ["-p", "2"], ["--nprocs", "2"], ["--engine", "sharded"],
     ["-o", "out.bam"],
 ])
 def test_torch_cli_refuses_unported(flags):
-    """-n 1 (single-end, pair-end and RRBS: single-end RRBS runs now, its
-    rc-chain branches come with -n 1), multi-process, the sharded engines
-    and BAM output exit non-zero with a pointer to ROADMAP.md (no silent
-    engine or format substitution)."""
+    """Multi-process runs (-p > 1, --nprocs, --proc-id, --coordinator), the
+    sharded engines and BAM output, single-end or pair-end, exit non-zero
+    with a pointer to ROADMAP.md (no silent engine or format
+    substitution)."""
     from bsmap_tpu_torch import cli
     argv = ["-a", "r.fq", "-d", "ref.fa", "-o", "out.sam"] + flags
     with pytest.raises(SystemExit) as e:

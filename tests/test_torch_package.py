@@ -312,3 +312,83 @@ def test_cuda_rrbs_kernels_equal_twins(tmp_path):
     assert K.launch_counts() == {"fixed_schedule": 0, "exact_schedule": 3,
                                  "verify_candidates": 3, "reduce_reads": 3,
                                  "rc_words": 0, "pair_join": 0}
+
+
+@pytest.mark.gpu
+def test_cuda_both_chains_kernels_equal_twins(tmp_path):
+    """On a CUDA device, -n 1 (chains_mode 'b'): K5, K1, K2 (and its probe
+    pass), K3 and K4 on both chains against their twins, lean and full rows
+    at both capacity tiers; both mates of the pair-end program and K6; and
+    SE RRBS on both chains.  Exact equality."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    eng, rows = _tiny(tmp_path)
+    eng.param.chains = 1
+    tabs = {k: v.cuda() for k, v in eng.tables.items()}
+    r = torch.from_numpy(rows).cuda()
+    base = eng._cfg("b", lean=True, nw=7)
+    rc = K.rc_words(base, r)
+    assert torch.equal(rc, K.rc_words_plain(base, r))
+    K.reset_launch_counts()
+    for cfg, cands in [(base._replace(fixed=True), eng.CANDS),
+                       (base, eng.CANDS), (base._replace(lean=False),
+                                           eng.CANDS_BIG), (base, 2)]:
+        if cfg.fixed:
+            s = K.fixed_schedule(cfg, r, tabs["kmer_tab"], rc)
+            w = K.fixed_schedule_plain(cfg, r, tabs["kmer_tab"], rc)
+        else:
+            s = K.exact_schedule(cfg, r, tabs["kmer_tab"], tabs["prof_a"],
+                                 rows_rc=rc)
+            w = K.exact_schedule_plain(cfg, r, tabs["kmer_tab"],
+                                       tabs["prof_a"], rows_rc=rc)
+        assert all(torch.equal(a, b) for a, b in zip(s, w))
+        vc = K.verify_candidates(cfg, cands, r, s, tabs, rc)
+        vw = K.verify_candidates_plain(cfg, cands, r, s, tabs, rc)
+        assert all(torch.equal(a, b) for a, b in zip(vc, vw))
+        assert torch.equal(K.reduce_reads(cfg, cands, r, vc, s),
+                           K.reduce_reads_plain(cfg, cands, r, vc, s))
+    p = K.exact_schedule(base._replace(probe=True), r, tabs["kmer_tab"],
+                         tabs["prof_a"], probe=True, rows_rc=rc)
+    assert torch.equal(p.ftot_rank, K.exact_schedule_plain(
+        base, r, tabs["kmer_tab"], tabs["prof_a"], rows_rc=rc).ftot_rank)
+    pe, nw, ra, rb = _tiny_pe(tmp_path / "pe")
+    pe.param.chains = 1
+    ca, cb = pe._cfg(1, nw), pe._cfg(2, nw)
+    assert ca.chains_mode == cb.chains_mode == "b"
+    ptabs = {k: v.cuda() for k, v in pe.se.tables.items()}
+    da, db = torch.from_numpy(ra).cuda(), torch.from_numpy(rb).cuda()
+    full = []
+    for cfg, rows_ in ((ca, da), (cb, db)):
+        rrc = K.rc_words(cfg, rows_)
+        s = K.exact_schedule(cfg, rows_, ptabs["kmer_tab"], ptabs["prof_a"],
+                             rows_rc=rrc)
+        vc = K.verify_candidates(cfg, pe.se.CANDS, rows_, s, ptabs, rrc)
+        assert all(torch.equal(a, b) for a, b in zip(
+            vc, K.verify_candidates_plain(cfg, pe.se.CANDS, rows_, s, ptabs,
+                                          rrc)))
+        full.append(K.reduce_reads(cfg, pe.se.CANDS, rows_, vc, s))
+        assert torch.equal(full[-1], K.reduce_reads_plain(
+            cfg, pe.se.CANDS, rows_, vc, s))
+    assert torch.equal(K.pair_join(ca, full[0], full[1], da, db),
+                       K.pair_join_plain(ca, full[0], full[1], da, db))
+    rows_cfg = _tiny_rrbs(tmp_path / "rrbs")
+    reng, rrows, rcfg = rows_cfg(2, False)
+    rtabs = {k: t.cuda() for k, t in reng.tables.items()}
+    rcfg = rcfg._replace(chains_mode="b")
+    rr = torch.from_numpy(rrows).cuda()
+    rrc = K.rc_words(rcfg, rr)
+    s = K.exact_schedule(rcfg, rr, rtabs["kmer_tab"], rtabs["prof_a"],
+                         tag_off=rtabs["tag_off"], rows_rc=rrc)
+    assert all(torch.equal(a, b) for a, b in zip(s, K.exact_schedule_plain(
+        rcfg, rr, rtabs["kmer_tab"], rtabs["prof_a"],
+        tag_off=rtabs["tag_off"], rows_rc=rrc)))
+    vc = K.verify_candidates(rcfg, reng.CANDS, rr, s, rtabs, rrc)
+    assert all(torch.equal(a, b) for a, b in zip(vc, K.verify_candidates_plain(
+        rcfg, reng.CANDS, rr, s, rtabs, rrc)))
+    assert torch.equal(K.reduce_reads(rcfg, reng.CANDS, rr, vc, s),
+                       K.reduce_reads_plain(rcfg, reng.CANDS, rr, vc, s))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["fixed_schedule"] == 1 and counts["rc_words"] == 3
