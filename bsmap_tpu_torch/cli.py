@@ -5,15 +5,21 @@ PyTorch, on the forward strands (-n 0) or all four (-n 1).
 Supports both ``-x val`` and ``-x=val`` forms.  Output format is chosen by
 the -o suffix: .sam = SAM, anything else = BSP (main.cpp:293-296).  The
 alignment engine is ``--engine device`` (the default: PyTorch, on the
-device named by ``--device``, CUDA kernels on a GPU) or ``--engine host``
-(the exact sequential oracle).  A device request never turns into the host
-engine.  Pair-end RRBS runs on ``--engine host`` only; BAM output and
-multi-process runs are not ported yet and exit with an error.
+device named by ``--device``, CUDA kernels on a GPU), ``--engine sharded``
+(stripes of reads over every visible card), ``--engine index-sharded``
+(the seed index split by genome region over every visible card; not for
+RRBS) or ``--engine host`` (the exact sequential oracle).  Under
+``--device cpu`` the mesh engines run one shard on the CPU.  A device
+request never turns into the host engine.  Pair-end RRBS runs on
+``--engine host`` only; BAM output and multi-process runs are not ported
+yet and exit with an error.
 
     python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam --device cuda
     python -m bsmap_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -o out.sam
     python -m bsmap_tpu_torch.cli -a rrbs.fq -d ref.fa -D C-CGG -o out.sam
     python -m bsmap_tpu_torch.cli -a pbat.fq -d ref.fa -n 1 -o out.sam
+    python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam \\
+        --engine index-sharded
 """
 
 from __future__ import annotations
@@ -56,14 +62,22 @@ USAGE = """Usage: bsmap_tpu_torch [options]
        -n  [0,1]   0: map to the 2 forward strands, 1: to all 4 strands
        -R          print reference sequence (XR tag)
        -u          report unmapped reads
-       --engine {device,host}  alignment engine (default device)
-       --device {cuda,cpu}     torch device of the device engine (default
-                               cuda; cpu runs the kernels' plain twins)
+       --engine {device,sharded,index-sharded,host}
+                               alignment engine (default device; sharded:
+                               read stripes over every visible card;
+                               index-sharded: the seed index split by
+                               genome region over every visible card)
+       --device {cuda,cpu}     torch device of the device engines (default
+                               cuda; cpu runs the kernels' plain twins,
+                               one shard for the mesh engines)
        --index-cache <dir>     persist/reuse the seed index
        -h          help
    Not ported yet (see ROADMAP.md): .bam output, -p > 1, --nprocs;
-   pair-end -D runs on --engine host only.
+   pair-end -D runs on --engine host only, and -D not on index-sharded.
 """
+
+
+ENGINES = ("device", "sharded", "index-sharded", "host")
 
 
 def _unported(what: str):
@@ -108,7 +122,7 @@ def parse_args(argv: list[str]) -> Options:
         a = argv[i]
         if a == "--engine" or a.startswith("--engine="):
             o.engine = long_val("--engine")
-            if o.engine not in ("device", "host"):
+            if o.engine not in ENGINES:
                 _unported(f"--engine {o.engine}")
         elif a == "--device" or a.startswith("--device="):
             o.device = long_val("--device")
@@ -216,21 +230,31 @@ def get_index(o: Options, genome, log=print):
     return build_index(genome, p)
 
 
-def make_engine(o: Options, genome, index):
-    """``--engine host`` is the exact host engine; anything else is the
-    PyTorch engine on ``o.device`` (which raises when that device is
-    missing)."""
+def make_engine(o: Options, genome, index, mesh=None):
+    """``--engine host`` is the exact host engine; ``sharded`` and
+    ``index-sharded`` the mesh engines over ``mesh`` (default
+    ``make_mesh(device=o.device)``: every visible card, or one CPU entry);
+    ``device`` the PyTorch engine on ``o.device``.  Each raises when its
+    device is missing."""
     if o.engine == "host":
         from .engine.host_engine import HostEngine
         return HostEngine(genome, index, o.param)
+    if o.engine in ("sharded", "index-sharded"):
+        from .parallel import IndexShardedEngine, ShardedDeviceEngine
+        from .parallel import make_mesh
+        cls = (ShardedDeviceEngine if o.engine == "sharded"
+               else IndexShardedEngine)
+        return cls(genome, index, o.param, mesh=(
+            mesh if mesh is not None else make_mesh(device=o.device)))
     from .engine.device_engine import DeviceEngine
     return DeviceEngine(genome, index, o.param, device=o.device)
 
 
-def run(argv: list[str], stats: dict | None = None) -> int:
+def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
     """Run the CLI on ``argv``; returns the exit code.  A ``stats`` dict
     receives the alignment phase's ``reads`` (SE) or ``pairs`` (PE),
-    ``align_s`` and ``engine``."""
+    ``align_s`` and ``engine``.  ``mesh`` overrides the device list of
+    ``--engine sharded``/``index-sharded`` (it may repeat a device)."""
     if not argv:
         print(USAGE)
         return 1
@@ -255,9 +279,9 @@ def run(argv: list[str], stats: dict | None = None) -> int:
     print(f"Create seed table. {timer.total():.1f} secs passed")
     if o.query_a and o.query_b:
         from .engine.pair_pipeline import run_pair_end
-        run_pair_end(o, genome, index, stats=stats)
+        run_pair_end(o, genome, index, stats=stats, mesh=mesh)
     else:
-        run_single_end(o, genome, index, stats=stats)
+        run_single_end(o, genome, index, stats=stats, mesh=mesh)
     print(f"Total time consumed:  {timer.total():.1f} secs")
     return 0
 
@@ -272,13 +296,13 @@ def _randr_seed() -> int:
     return os.getpid() * int(time.time()) & 0xFFFFFFFF
 
 
-def run_single_end(o: Options, genome, index,
-                   stats: dict | None = None) -> int:
+def run_single_end(o: Options, genome, index, stats: dict | None = None,
+                   mesh=None) -> int:
     """Align every read of ``o.query_a`` into ``o.out_file``; returns the
     read count and, into ``stats``, the alignment phase's wall time (engine
     set-up excluded) and the engine."""
     p = o.param
-    engine = make_engine(o, genome, index)
+    engine = make_engine(o, genome, index, mesh)
     fmt = SamFormatter(genome, p, RandR(_randr_seed()))
     timer = StepTimer()
     t0 = time.perf_counter()

@@ -16,6 +16,7 @@
 #define BSM_MAX_I 16                                   // index interval
 #define BSM_MAX_NW 10                                  // packed words/read
 #define BSM_MAX_P 160                                  // schedule positions
+#define BSM_MAX_SHARDS 16                              // index region shards
 #define BSM_MAX_WLEN (BSM_MAX_MS * BSM_MAX_S + BSM_MAX_I)
 #define BSM_SATLIM (1 << 30)
 #define BSM_FTOT_CLAMP (1 << 27)
@@ -29,6 +30,8 @@
 #define BSM_INFO_RANK_SHIFT 11
 #define BSM_INFO_FRAG (1 << 16)   // RRBS: eligible, inside a valid fragment
 #define BSM_INFO_CHAIN_SHIFT 17   // the candidate's chain: 0 forward, 1 rc
+#define BSM_INFO_CORNER (1 << 18) // index-sharded: eligible, dedup key in
+                                  // another region shard
 
 static __device__ __forceinline__ int bsm_floordiv(int a, int b) {
   int q = a / b;

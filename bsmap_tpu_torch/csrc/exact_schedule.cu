@@ -8,7 +8,11 @@
 // per-rank totals over both chains (:649-664).  With `probe` set it writes
 // only the per-rank totals, the stage-1-only pre-pass of probe mode
 // (:1186-1191).  With `rrbs` set each chain runs the RRBS branches instead
-// (bsm_rrbs_order below).
+// (bsm_rrbs_order below).  Under index sharding (`gcnt` given) the table
+// is one region shard's, with the shard's local counts in .y (the slot
+// counts, :630-632), and the schedule costs come from the global bucket
+// totals `gcnt` (column 1 of the JAX shard table, :448-463), so every
+// shard computes the same schedule.
 //
 // Per read and chain (ReorderSeed / AdjustSeedStartArray / seedindex,
 // align.cpp:454-577): bucket cost cnt+2 at each of P seed positions, the
@@ -45,6 +49,7 @@ static __device__ __forceinline__ void bsm_order_segments(const uint32_t* key,
 // fills the per-segment start offsets and the segment order.
 static __device__ int bsm_exact_chain(const int* row, int nw,
                                       const int4* __restrict__ kmer_tab,
+                                      const int* __restrict__ gcnt,
                                       int S, int I, int MS, int P, int len,
                                       int seedseg, int* start, int* order) {
   const int WLEN = MS * S + I;
@@ -57,7 +62,8 @@ static __device__ int bsm_exact_chain(const int* row, int nw,
   for (int t = 1; t <= WLEN; ++t) {
     uint32_t c = 0;
     if (t - 1 < L) {
-      int cn = __ldg(&kmer_tab[bsm_seed_at(row, nw, S, t - 1)].y);
+      const int sv = bsm_seed_at(row, nw, S, t - 1);
+      int cn = gcnt ? __ldg(&gcnt[sv]) : __ldg(&kmer_tab[sv].y);
       c = cn > 0 ? (uint32_t)(cn + 2) : 0u;
     }
     cs[t] = cs[t - 1] + c;
@@ -133,8 +139,9 @@ __global__ void bsm_exact_schedule_kernel(
     int nw, const int4* __restrict__ kmer_tab, const int* __restrict__ prof_a,
     int S, int I, int MS, int P, int mode, int probe, int rrbs,
     const int* __restrict__ tag_off, long long ntag,
-    int* __restrict__ h_out, int* __restrict__ off0_out,
-    int* __restrict__ off3_out, int* __restrict__ wcnt_out,
+    const int* __restrict__ gcnt, int* __restrict__ h_out,
+    int* __restrict__ off0_out, int* __restrict__ off3_out,
+    int* __restrict__ wcnt_out,
     int* __restrict__ cnt_out, int* __restrict__ soff_out,
     int* __restrict__ coff_out, int* __restrict__ ftot_out) {
   int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -161,8 +168,8 @@ __global__ void bsm_exact_schedule_kernel(
       for (int n = 0; n < MS; ++n) start[c][n] = 0;
       s_off[c] = 0;
     } else {
-      s_off[c] = bsm_exact_chain(crow[c], nw, kmer_tab, S, I, MS, P, len,
-                                 seedseg, start[c], order[c]);
+      s_off[c] = bsm_exact_chain(crow[c], nw, kmer_tab, gcnt, S, I, MS, P,
+                                 len, seedseg, start[c], order[c]);
     }
   }
   long long J2 = 0;
@@ -226,8 +233,9 @@ extern "C" int bsmap_exact_schedule(const int* rows, const int* rows_rc,
                                     const int* prof_a, int S, int I, int MS,
                                     int P, int mode, int probe, int rrbs,
                                     const int* tag_off, long long ntag,
-                                    int* h, int* off0, int* off3, int* wcnt,
-                                    int* cnt, int* soff, int* coff, int* ftot,
+                                    const int* gcnt, int* h, int* off0,
+                                    int* off3, int* wcnt, int* cnt,
+                                    int* soff, int* coff, int* ftot,
                                     cudaStream_t stream) {
   if (mode == 2 && rows_rc == nullptr) return (int)cudaErrorInvalidValue;
   if (m > 0) {
@@ -235,8 +243,8 @@ extern "C" int bsmap_exact_schedule(const int* rows, const int* rows_rc,
     bsm_exact_schedule_kernel<<<(m + threads - 1) / threads, threads, 0,
                                 stream>>>(
         rows, rows_rc, m, nw, reinterpret_cast<const int4*>(kmer_tab), prof_a,
-        S, I, MS, P, mode, probe, rrbs, tag_off, ntag, h, off0, off3, wcnt,
-        cnt, soff, coff, ftot);
+        S, I, MS, P, mode, probe, rrbs, tag_off, ntag, gcnt, h, off0, off3,
+        wcnt, cnt, soff, coff, ftot);
   }
   return (int)cudaGetLastError();
 }

@@ -28,6 +28,10 @@
 //     as the INFO_FRAG bit, which K4 ANDs into acceptance: the dedup below
 //     still counts a filtered hit, as the reference inserts into its
 //     hitset before the filter.
+//     Under index sharding (`bounds` given; the tables are region
+//     `shard`'s) an eligible candidate whose dedup key anchors[c] + wloc
+//     (uint32) lies in another shard's region gets the INFO_CORNER bit
+//     (device_engine.py:852-864): its read replays on the host engine.
 //  3. the dedup cascade on (read, chr, watson loc), which has no chain: a
 //     forward and an rc hit at one locus share a key and the lower
 //     discovery index claims it.  Three rounds of atomicMin of the
@@ -135,7 +139,8 @@ __global__ void bsm_verify_kernel(
     const uint32_t* __restrict__ clocs, long long ncl, int rrbs,
     const int* __restrict__ tags, const uint32_t* __restrict__ sites,
     const int* __restrict__ site_off, int nsites, int tail, int min_ins,
-    int max_ins, int* __restrict__ crid, int* __restrict__ cchrp,
+    int max_ins, int shard, const uint32_t* __restrict__ bounds,
+    int nbounds, int* __restrict__ crid, int* __restrict__ cchrp,
     int* __restrict__ cwloc, int* __restrict__ cinfo) {
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= cands) return;
@@ -226,11 +231,22 @@ __global__ void bsm_verify_kernel(
   const bool frag = rrbs && elig &&
                     bsm_frag_ok(sites, nsites, site_off, anchors[c], c, wloc,
                                 llen, tail, min_ins, max_ins);
+  bool corner = false;
+  if (bounds != nullptr && elig) {
+    const uint32_t gkey = anchors[c] + (uint32_t)max(wloc, 0);
+    int lo = 0, hi = nbounds;
+    while (lo < hi) {
+      int mid = (lo + hi) >> 1;
+      if (bounds[mid] <= gkey) lo = mid + 1; else hi = mid;
+    }
+    corner = lo - 1 != shard;
+  }
   crid[s] = rid;
   cchrp[s] = 2 * c + (crick ? 1 : 0);
   cwloc[s] = wloc;
   cinfo[s] = (elig ? (BSM_INFO_ELIGIBLE | BSM_INFO_UNRESOLVED) : 0) |
-             (frag ? BSM_INFO_FRAG : 0) | (wmm << BSM_INFO_WMM_SHIFT) |
+             (frag ? BSM_INFO_FRAG : 0) | (corner ? BSM_INFO_CORNER : 0) |
+             (wmm << BSM_INFO_WMM_SHIFT) |
              (rank << BSM_INFO_RANK_SHIFT) |
              (chain << BSM_INFO_CHAIN_SHIFT);
 }
@@ -299,7 +315,8 @@ extern "C" int bsmap_verify_candidates(
     const int* rcoff, const int* wlocs, long long nwl, const int* clocs,
     long long ncl, int rrbs, const int* tags, const int* sites,
     const int* site_off, long long nsites, int tail, int min_ins,
-    int max_ins, int T, int* starts, int* scratch, int* crid, int* cchrp,
+    int max_ins, int shard, const int* bounds, int nbounds, int T,
+    int* starts, int* scratch, int* crid, int* cchrp,
     int* cwloc, int* cinfo, cudaStream_t stream) {
   if (mode == 2 && rows_rc == nullptr) return (int)cudaErrorInvalidValue;
   const int NB = MS * (mode == 2 ? 2 : 1) * I, N = m * NB;
@@ -324,7 +341,8 @@ extern "C" int bsmap_verify_candidates(
       reinterpret_cast<const uint32_t*>(wlocs), nwl,
       reinterpret_cast<const uint32_t*>(clocs), ncl, rrbs, tags,
       reinterpret_cast<const uint32_t*>(sites), site_off, (int)nsites, tail,
-      min_ins, max_ins, crid, cchrp, cwloc, cinfo);
+      min_ins, max_ins, shard, reinterpret_cast<const uint32_t*>(bounds),
+      nbounds, crid, cchrp, cwloc, cinfo);
   BSM_CHECK();
   for (int r = 0; r < 3; ++r) {
     int* t = tbl + (size_t)r * T;

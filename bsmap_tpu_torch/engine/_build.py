@@ -36,17 +36,21 @@ _SIGNATURES = {
     "bsmap_fixed_schedule": [_P, _P, _I, _I, _P, _I, _I, _I, _I,
                              _P, _P, _P, _P, _P, _P, _P],
     "bsmap_exact_schedule": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _I, _P, _L,
+                             _I, _P, _L, _P,
                              _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "bsmap_verify_candidates": [_P, _P, _I, _I, _I, _I, _I, _I,
                                 _P, _P, _P, _P, _P,
                                 _P, _I, _P, _I, _P, _P, _P, _L, _P, _L,
-                                _I, _P, _P, _P, _L, _I, _I, _I, _I,
+                                _I, _P, _P, _P, _L, _I, _I, _I,
+                                _I, _P, _I, _I,
                                 _P, _P, _P, _P, _P, _P, _P],
     "bsmap_reduce_reads": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "bsmap_rc_words": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "bsmap_pair_join": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "bsmap_merge_shards": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P, _P],
 }
 
 

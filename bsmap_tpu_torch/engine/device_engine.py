@@ -48,7 +48,7 @@ from .host_engine import HostEngine, SEResult
 # full result row layout: counts, then the X_* extras K4 writes
 from .kernels import (N_EXTRAS, X_CHAIN, X_CHRP, X_COFF, X_FOUND, X_FTOT,
                       X_H00C, X_H00F, X_H00W, X_II, X_OK, X_REPLAY,
-                      X_RESOLVED, X_SOFF, X_SSUM, X_WLOC)
+                      X_RESOLVED, X_SOFF, X_SSUM, X_TOTAL, X_WLOC)
 
 # reads per dispatch window / candidate capacity per read of the window's B
 # (the same environment variables as bsmap_tpu, so one test configuration
@@ -117,6 +117,10 @@ class Cfg(NamedTuple):
     fixed: bool = False    # fixed-schedule stage 1 (pigeonhole covering at
                            # offset 0, cheapest segment first)
     nw: int = FIXELEMENT   # packed words per read: 7 for reads <= 112 nt
+    shards: int = 0        # region shards of an index-sharded program (the
+                           # counterpart of shard_axis; 0 = unsharded): K2
+                           # costs come from the global counts `gcnt`, K3
+                           # marks corner candidates, merge_shards reduces
 
     @property
     def nch(self) -> int:
@@ -166,6 +170,33 @@ def _pack_inputs(codes, regs, lens, buds, rand32, maxrank):
     return buf
 
 
+def _i32(a, dtype=np.int32) -> torch.Tensor:
+    """``a`` as ``dtype``, as a contiguous int32 CPU tensor of the same
+    bits."""
+    arr = np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))
+    if not arr.flags.writeable:          # memory-mapped caches
+        arr = arr.copy()
+    return torch.from_numpy(arr.view(np.int32))
+
+
+def genome_tables(genome: PackedGenome, param: Param) -> dict:
+    """The index-free device tables (catcat, anchors, sizes, rcoff, prof_a
+    of ``tables_from_numpy``) as CPU int32 tensors."""
+    if param.profile is None:
+        param.init_mapping()
+    I = param.index_interval
+    prof_a = [[param.profile[n][i].a for i in range(I)]
+              for n in range(MAXSNPS + 1)]
+    return {
+        "catcat": _i32(np.concatenate([genome.refcat, genome.crefcat]),
+                       np.uint32),
+        "anchors": _i32(genome.anchors[:genome.n_chr], np.uint32),
+        "sizes": _i32(genome.sizes),
+        "rcoff": _i32(genome.rc_offsets),
+        "prof_a": _i32(prof_a),
+    }
+
+
 def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
                       param: Param) -> dict[str, torch.Tensor]:
     """The device tables of ``bsmap_tpu``'s DeviceEngine
@@ -193,29 +224,10 @@ def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
       site_off (n_chr+1,) each chromosome's range of ``sites``
       clocs    (1,)       unused
     """
-    if param.profile is None:
-        param.init_mapping()
-
-    def t(a, dtype=np.int32):
-        arr = np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))
-        if not arr.flags.writeable:          # memory-mapped caches
-            arr = arr.copy()
-        return torch.from_numpy(arr.view(np.int32))
-
-    one = np.zeros(1, dtype=np.uint32)
+    base = genome_tables(genome, param)
+    t, one = _i32, np.zeros(1, dtype=np.uint32)
     tk = index.total_kmers
     counts = np.diff(index.offsets)
-    I = param.index_interval
-    prof_a = [[param.profile[n][i].a for i in range(I)]
-              for n in range(MAXSNPS + 1)]
-    base = {
-        "catcat": t(np.concatenate([genome.refcat, genome.crefcat]),
-                    np.uint32),
-        "anchors": t(genome.anchors[:genome.n_chr], np.uint32),
-        "sizes": t(genome.sizes),
-        "rcoff": t(genome.rc_offsets),
-        "prof_a": t(prof_a),
-    }
     if param.RRBS_flag:
         return {**base, **_rrbs_tables(genome, index, param, t, one)}
     wc = index.wcounts.astype(np.int64)
@@ -324,10 +336,11 @@ class DeviceEngine:
             raise EngineUnsupported("genome exceeds 32-bit per-strand "
                                     "coordinates")
         self.W = len(genome.refcat)
-        self.tables = {k: v.to(self.device) for k, v in
-                       tables_from_numpy(genome, index, param).items()}
+        self.tables = self._place_tables()
         self.B = DEV_BATCH             # reads per dispatch window
         self._set_tiers(self.B)
+        self._probe_ok = True          # False where _dispatch cannot return
+                                       # the probe pass's totals
         self.n_filtered = 0
         self.n_replayed = 0
         self.n_dispatched = 0
@@ -383,6 +396,12 @@ class DeviceEngine:
         # segment first; bumped to maxseg-1 when a first round leaves most
         # reads rank-unresolved
         self.rank_start = 0
+
+    def _place_tables(self) -> dict:
+        """The tables of ``tables_from_numpy`` on the engine's device; the
+        mesh engines place theirs on their devices instead."""
+        return {k: v.to(self.device) for k, v in tables_from_numpy(
+            self.genome, self.index, self.param).items()}
 
     def _cfg(self, chains_mode: str, lean: bool = False,
              nw: int = FIXELEMENT) -> Cfg:
@@ -644,15 +663,24 @@ class DeviceEngine:
             fin = ok & res
             if fx:
                 # fixed-schedule round: only schedule-independent results
-                # commit; the rest re-dispatch on the exact program
-                fin = fin & ((orows[:, 1] & BIT_MULTI) == 0)
+                # commit; the rest re-dispatch on the exact program.  Full
+                # rows (the index-sharded engine's) carry the lean row's
+                # multi bit as ssum and totals; bsmap_tpu reads their
+                # column 1 there instead (ROADMAP C)
+                if cfg.lean:
+                    multi = (orows[:, 1] & BIT_MULTI) != 0
+                else:
+                    ex = orows[:, 2 * MS:]
+                    multi = ((ex[:, X_SSUM] != 1)
+                             | (ex[:, X_TOTAL] >= cfg.max_num_hits))
+                fin = fin & ~multi
             out_rows[sel[fin]] = orows[fin]
             done[sel[fin]] = True
             served[sel[ok]] = True
             return int(fin.sum()), int((ok & ~res).sum())
 
         # RRBS runs every segment (align.cpp:450): no probe, full rank
-        probing = self.probe_mode and not cfg.rrbs
+        probing = self.probe_mode and self._probe_ok and not cfg.rrbs
         init_rank = full_rank if cfg.rrbs else min(self.rank_start, full_rank)
         cap_max = min(self.CANDS_BIG, FTOT_CLAMP - 1)
 
@@ -742,7 +770,8 @@ class DeviceEngine:
                 n_esc += e
             if n:
                 rem_mass = int(ftot[~done].sum())
-                if rem_mass > 2 * n_win * self.CANDS and not cfg.rrbs:
+                if (rem_mass > 2 * n_win * self.CANDS and self._probe_ok
+                        and not cfg.rrbs):
                     # most of the demand overflowed the optimistic round:
                     # repeat-heavy genome — switch to probe + exact packing,
                     # for this call's overflowed reads too

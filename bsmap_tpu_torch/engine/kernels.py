@@ -18,6 +18,10 @@ stages are hand-written CUDA kernels for Hopper (``csrc/*.cu``, built by
   K5 ``rc_words``           reverse-complement chain rows (``_rc_words``)
   K6 ``pair_join``          the K x K pair join + unpaired picks
                             (``_device_pair_join``)
+  K7 ``merge_shards``       the index-sharded per-read reduce over every
+                            region shard's candidates in global discovery
+                            order (the ``shard_axis`` collectives of
+                            ``_verify_impl`` and ``_index_sharded_call``)
 
 Each wrapper launches its CUDA kernel for CUDA tensors (or raises) and runs
 its plain-torch twin (``*_plain``) for CPU tensors only.  The twins are the
@@ -39,8 +43,17 @@ each slot's tag class in the tag-partitioned index (the rc chain's probes
 shifted by len % S, its classes counted from the read's other end), K3
 fetches chromosome-local entries and marks the candidates inside a
 digestion fragment of valid length, and K4 runs every segment and binds
-the fragment filter to forward-chain hits.  The unsharded programs are
-ported; the sharded ones are not (ROADMAP A2).
+the fragment filter to forward-chain hits.
+
+``index_sharded_program`` is the region-sharded program (``cfg.shards``
+= D): each shard's table (``bsmap_tpu_torch.parallel.index_sharded``)
+holds its region's entries and per-bucket LOCAL counts in the unsharded
+layout, so K1 runs on it unchanged and K2 reads the schedule costs from
+the replicated GLOBAL counts ``gcnt``; K3 runs per shard and marks
+candidates whose dedup key lies in another shard's region
+(``INFO_CORNER``); K7 walks all shards' candidates of a read in global
+discovery order (per slot: Watson entries of shards 0..D-1, then Crick
+entries of shards D-1..0) and writes the merged full rows.
 """
 
 from __future__ import annotations
@@ -64,9 +77,12 @@ INFO_ELIGIBLE, INFO_UNRESOLVED, INFO_FIRST = 1, 2, 4
 INFO_WMM_SHIFT, INFO_RANK_SHIFT = 3, 11
 INFO_FRAG = 1 << 16       # RRBS: eligible and inside a valid fragment
 INFO_CHAIN_SHIFT = 17     # the candidate's chain: 0 forward, 1 rc
+INFO_CORNER = 1 << 18     # index-sharded: eligible, dedup key in another
+                          # shard's region (device_engine.py:852-864)
 # kernel limits (csrc/common.cuh); MAX_K keeps the pair join's combo index
 # in the 8 low bits of its sort key (pair_device.py:136-141)
 MAX_MS, MAX_S, MAX_I, MAX_NW, MAX_P, MAX_K = 16, 16, 16, 10, 160, 16
+MAX_SHARDS = 16
 N_EXTRAS = 17
 (X_FOUND, X_II, X_SSUM, X_CHAIN, X_CHRP, X_WLOC, X_H00F, X_H00C, X_H00W,
  X_REPLAY, X_TOTAL, X_SOFF, X_COFF, X_OK, X_BIG, X_RESOLVED,
@@ -259,13 +275,23 @@ def fixed_schedule_plain(cfg, rows, kmer_tab, rows_rc=None) -> Slots:
 # K2: exact seed schedule
 # ---------------------------------------------------------------------------
 
+def _gcnt_given(cfg, gcnt) -> None:
+    if bool(cfg.shards) != (gcnt is not None):
+        raise ValueError("the global counts gcnt come with cfg.shards and "
+                         "only then")
+
+
 def exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe: bool = False,
-                         tag_off=None, rows_rc=None) -> Slots:
+                         tag_off=None, rows_rc=None, gcnt=None) -> Slots:
     """Plain twin of K2: one ``chain_schedule`` + ``slot_desc`` per chain,
     interleaved in (rank, chain, phase) order, and the per-rank totals of
     ``_schedule_impl`` (device_engine.py:445-672).  ``s_off`` is the
     forward chain's chosen start offset and ``c_off`` the rc chain's, 0 for
-    an absent chain.  Under ``cfg.rrbs`` the slots index ``tag_off``."""
+    an absent chain.  Under ``cfg.rrbs`` the slots index ``tag_off``.
+    Under ``cfg.shards`` the schedule costs are the global bucket totals
+    ``gcnt`` (column 1 of the JAX shard table, :448-463) and the slots take
+    the shard's local counts from ``kmer_tab`` (column 4, :630-632)."""
+    _gcnt_given(cfg, gcnt)
     _nw, _qw, _rw, lens, buds, _rand, maxrank = _unpack(rows)
     m = rows.shape[0]
     S, P = cfg.S, cfg.P
@@ -280,8 +306,9 @@ def exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe: bool = False,
                                     pa, tag_off, is_rc))
             offs.append(torch.zeros_like(lens))
             continue
-        start, order, s_off = _exact_order(cfg, rows_p[..., 1], lens,
-                                           seedseg)
+        cost = rows_p[..., 1] if gcnt is None else \
+            gcnt[sarr].to(torch.int64)
+        start, order, s_off = _exact_order(cfg, cost, lens, seedseg)
         descs.append(_exact_desc(cfg, start, order, rows_p, lens, pa))
         offs.append(s_off)
     h, off0, off3, wcnt, cnt = (_interleave([d[k] for d in descs], m)
@@ -507,8 +534,17 @@ def dedup_table_size(cands: int) -> int:
     return 1 << (2 * cands - 1).bit_length()
 
 
+def _corner(c, wloc, elig, tables, shard: int):
+    """Eligible candidates whose dedup key ``anchors[c] + max(wloc, 0)``
+    (uint32) lies outside region ``shard`` of the uint32 ``bounds``
+    (device_engine.py:859-864): their read replays on the host engine."""
+    gkey = (_u32(tables["anchors"])[c] + wloc.clamp(min=0)) & M32
+    reg = torch.searchsorted(_u32(tables["bounds"]), gkey, right=True) - 1
+    return elig & (reg != shard)
+
+
 def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
-                            tables, rows_rc=None) -> Cands:
+                            tables, rows_rc=None, shard: int = 0) -> Cands:
     """Plain twin of K3 (``_verify_impl``, device_engine.py:692-849, lean
     and full alike): saturating scan of the B*NB slot counts, candidate ->
     slot map, verify of every live candidate against its chain's words,
@@ -517,7 +553,9 @@ def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
     discovery order decides which claims it.  Each candidate's chain is
     the INFO_CHAIN bit.  Under ``cfg.rrbs`` the fragment filter's verdict
     on each eligible candidate is the INFO_FRAG bit: a filtered hit still
-    claims its dedup key, as in the reference."""
+    claims its dedup key, as in the reference.  Under ``cfg.shards`` the
+    tables are region ``shard``'s and the INFO_CORNER bit marks
+    ``_corner``'s candidates; dedup stays inside the shard."""
     _nw, _qw, _rw, lens, buds, _rand, _mr = _unpack(rows)
     chain_words = [_unpack(r)[1:3] for r, _ in
                    _chain_rows(cfg, rows, rows_rc)]
@@ -544,6 +582,8 @@ def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
         tables)
     frag = (elig & _frag_ok(cfg, c, wloc, lens[rid], tables) if cfg.rrbs
             else torch.zeros_like(elig))
+    corner = (_corner(c, wloc, elig, tables, shard) if cfg.shards
+              else torch.zeros_like(elig))
 
     T = dedup_table_size(cands)
     shift = 32 - (T.bit_length() - 1)
@@ -564,6 +604,7 @@ def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
             | unres.to(torch.int64) * INFO_UNRESOLVED
             | first.to(torch.int64) * INFO_FIRST
             | frag.to(torch.int64) * INFO_FRAG
+            | corner.to(torch.int64) * INFO_CORNER
             | (wmm << INFO_WMM_SHIFT) | (rank << INFO_RANK_SHIFT)
             | (chain << INFO_CHAIN_SHIFT))
 
@@ -580,21 +621,33 @@ def verify_candidates_plain(cfg, cands: int, rows, slots: Slots,
 # K4: per-read reduce
 # ---------------------------------------------------------------------------
 
-def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
-                       slots: Slots) -> torch.Tensor:
-    """Plain twin of K4: the per-read half of ``_verify_impl`` (unsharded,
-    device_engine.py:899-1067 lean rows, :1069-1112 full rows with
-    ``cfg.hits_k`` compacted hits), SE, ``cfg.pe`` or ``cfg.rrbs``, each
-    candidate on the chain K3 wrote into its info word."""
+class _Reduced(NamedTuple):
+    """``_reduce_core``'s per-read results (int64 / bool tensors)."""
+
+    counts: torch.Tensor      # (m, maxseg, 2) accepted hits per level, chain
+    found: torch.Tensor
+    ii: torch.Tensor
+    ssum: torch.Tensor
+    sel_chain: torch.Tensor
+    replay: torch.Tensor      # level overflow, dedup, -r 0 tie, > K hits
+    resolved: torch.Tensor
+    sel: torch.Tensor         # position of the selected hit, -1 for none
+    h00: torch.Tensor         # position of the first level-0 forward hit
+    hit_cols: list            # [hits_loc, hits_w1], each (m, K), full rows
+
+
+def _reduce_core(cfg, rows, rid, info, chrp, wloc, rpos) -> _Reduced:
+    """The per-read half of ``_verify_impl`` (device_engine.py:899-1101)
+    over candidates in discovery order, K4's and K7's common part:
+    ``rid``/``info``/``chrp``/``wloc`` per candidate (int64, ``rid``
+    ascending), ``rpos[r]`` the position of read r's first candidate.
+    SE, ``cfg.pe`` or ``cfg.rrbs``, each candidate on the chain K3 wrote
+    into its info word."""
     _nw, _qw, _rw, lens, buds, rand32, maxrank = _unpack(rows)
     m = rows.shape[0]
     dev = rows.device
-    MS, NB = cfg.maxseg, cfg.NB
-    starts = vc.starts.to(torch.int64)
-    total = int(starts[-1])
-    ncand = min(total, cands)
-    info = vc.info.to(torch.int64)[:ncand]
-    rid = vc.rid.to(torch.int64)[:ncand]
+    MS = cfg.maxseg
+    n = rid.shape[0]
     chain = (info >> INFO_CHAIN_SHIFT) & 1
     acc_pre = (info & INFO_FIRST) != 0
     if cfg.rrbs:
@@ -603,7 +656,6 @@ def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
     dd_fail = (info & INFO_UNRESOLVED) != 0
     wmm = (info >> INFO_WMM_SHIFT) & 0xFF
     rank = (info >> INFO_RANK_SHIFT) & 0x1F
-    sidx = torch.arange(ncand, device=dev)
 
     if cfg.pe or cfg.rrbs:
         # PairAlign runs every segment of both mates (pairs.cpp:163-172);
@@ -648,8 +700,7 @@ def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
     sel_chain = (j >= nfwd).to(torch.int64)
     target = torch.where(sel_chain == 1, j - nfwd, j) + 1
     ind = accepted & (wmm == ii[rid]) & (sel_chain[rid] == chain)
-    rstart = starts[torch.arange(m, device=dev) * NB]
-    rs_c = rstart[rid]
+    rs_c = rpos[rid]
 
     def read_rank(mask):
         """1-based rank of each candidate among its read's ``mask``
@@ -657,39 +708,16 @@ def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
         cs = torch.cumsum(mask.to(torch.int64), dim=0)
         return cs - torch.where(rs_c > 0, cs[(rs_c - 1).clamp(min=0)], 0)
 
-    sel = ind & (read_rank(ind) == target[rid])
-
     def first_of(mask):
-        out = torch.full((m,), cands, dtype=torch.int64, device=dev)
-        out.scatter_reduce_(0, rid, torch.where(mask, sidx, cands), "amin")
-        return out
+        out = torch.full((m,), n, dtype=torch.int64, device=dev)
+        out.scatter_reduce_(0, rid, torch.where(
+            mask, torch.arange(n, device=dev), n), "amin")
+        return torch.where(out == n, -1, out)
 
-    chrp_all = vc.chrp.to(torch.int64)
-    wloc_all = vc.wloc.to(torch.int64)
-    sel_s = first_of(sel).clamp(max=cands - 1)
-    sel_chrp, sel_wloc = chrp_all[sel_s], wloc_all[sel_s]
+    sel = first_of(ind & (read_rank(ind) == target[rid]))
     h00 = first_of(accepted & (wmm == 0) & (chain == 0))
-    h00_found = h00 < cands
-    h00_s = h00.clamp(max=cands - 1)
-
-    rend = torch.cat([rstart[1:], starts[-1:]])
-    totals = rend - rstart
-    ok_all = rend <= cands
-    big_any = totals > cands
-    ftot = slots.ftot_rank[:, -1].to(torch.int64)
-    if cfg.lean:
-        multi = ssum != 1
-        if cfg.fixed:
-            multi = multi | (totals >= cfg.max_num_hits)
-        w1 = (found.to(torch.int64) | (sel_chain << 1)
-              | (replay.to(torch.int64) << 2) | (ok_all.to(torch.int64) << 3)
-              | (big_any.to(torch.int64) << 4) | (multi.to(torch.int64) << 5)
-              | (ii << 6) | (sel_chrp << 10)
-              | (resolved.to(torch.int64) << 26))
-        return torch.stack([sel_wloc, _wrap32(w1), ftot],
-                           dim=1).to(torch.int32)
     hit_cols = []
-    if cfg.hits_k:
+    if cfg.hits_k and not cfg.lean:
         # compacted per-read hit list in discovery order (:1069-1101):
         # wloc + (wmm | chain<<4 | rank<<5 | chrp<<9), empty slots 0 / -1
         K = cfg.hits_k
@@ -698,21 +726,138 @@ def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
         slot = rid[keep] * K + hrank[keep]
         hits_loc = torch.zeros(m * K, dtype=torch.int64, device=dev)
         hits_w1 = torch.full((m * K,), -1, dtype=torch.int64, device=dev)
-        hits_loc[slot] = wloc_all[:ncand][keep]
-        hits_w1[slot] = (wmm | (chain << 4) | (rank << 5)
-                         | (chrp_all[:ncand] << 9))[keep]
+        hits_loc[slot] = wloc[keep]
+        hits_w1[slot] = (wmm | (chain << 4) | (rank << 5) | (chrp << 9))[keep]
         nacc = torch.zeros(m, dtype=torch.int64, device=dev)
         nacc.index_add_(0, rid, accepted.to(torch.int64))
         replay = replay | (nacc > K)
         hit_cols = [hits_loc.reshape(m, K), hits_w1.reshape(m, K)]
+    return _Reduced(counts, found, ii, ssum, sel_chain, replay, resolved, sel,
+                    h00, hit_cols)
+
+
+def _full_rows(cfg, r: _Reduced, picks, totals, s_off, c_off, ok_all,
+               big_any, ftot) -> torch.Tensor:
+    """The full result rows: counts, the 17 X_* extras, the hit columns.
+    ``picks`` = (sel_chrp, sel_wloc, h00_chrp, h00_wloc)."""
+    m = r.found.shape[0]
     b = lambda t: t.to(torch.int64)   # noqa: E731
+    sel_chrp, sel_wloc, h00_chrp, h00_wloc = picks
     extras = torch.stack(
-        [b(found), ii, ssum, sel_chain, sel_chrp, sel_wloc, b(h00_found),
-         chrp_all[h00_s], wloc_all[h00_s], b(replay), totals,
-         b(slots.s_off), b(slots.c_off), b(ok_all),
-         b(big_any), b(resolved), ftot], dim=1)
-    return torch.cat([counts.reshape(m, 2 * MS), extras] + hit_cols,
-                     dim=1).to(torch.int32)
+        [b(r.found), r.ii, r.ssum, r.sel_chain, sel_chrp, sel_wloc,
+         b(r.h00 >= 0), h00_chrp, h00_wloc, b(r.replay), totals, b(s_off),
+         b(c_off), b(ok_all), b(big_any), b(r.resolved), ftot], dim=1)
+    return torch.cat([r.counts.reshape(m, 2 * cfg.maxseg), extras]
+                     + r.hit_cols, dim=1).to(torch.int32)
+
+
+def reduce_reads_plain(cfg, cands: int, rows, vc: Cands,
+                       slots: Slots) -> torch.Tensor:
+    """Plain twin of K4: the per-read half of ``_verify_impl`` (unsharded,
+    device_engine.py:899-1067 lean rows, :1069-1112 full rows with
+    ``cfg.hits_k`` compacted hits) over one program's candidates.  A read
+    with no pick takes the values of candidate CANDS-1, as JAX's clamped
+    gather does."""
+    m = rows.shape[0]
+    dev = rows.device
+    starts = vc.starts.to(torch.int64)
+    ncand = min(int(starts[-1]), cands)
+    chrp_all = vc.chrp.to(torch.int64)
+    wloc_all = vc.wloc.to(torch.int64)
+    rstart = starts[torch.arange(m, device=dev) * cfg.NB]
+    r = _reduce_core(cfg, rows, vc.rid.to(torch.int64)[:ncand],
+                     vc.info.to(torch.int64)[:ncand], chrp_all[:ncand],
+                     wloc_all[:ncand], rstart)
+    sel_s = torch.where(r.sel < 0, cands - 1, r.sel)
+    h00_s = torch.where(r.h00 < 0, cands - 1, r.h00)
+    rend = torch.cat([rstart[1:], starts[-1:]])
+    totals = rend - rstart
+    ok_all = rend <= cands
+    big_any = totals > cands
+    ftot = slots.ftot_rank[:, -1].to(torch.int64)
+    if cfg.lean:
+        multi = r.ssum != 1
+        if cfg.fixed:
+            multi = multi | (totals >= cfg.max_num_hits)
+        w1 = (r.found.to(torch.int64) | (r.sel_chain << 1)
+              | (r.replay.to(torch.int64) << 2)
+              | (ok_all.to(torch.int64) << 3)
+              | (big_any.to(torch.int64) << 4) | (multi.to(torch.int64) << 5)
+              | (r.ii << 6) | (chrp_all[sel_s] << 10)
+              | (r.resolved.to(torch.int64) << 26))
+        return torch.stack([wloc_all[sel_s], _wrap32(w1), ftot],
+                           dim=1).to(torch.int32)
+    return _full_rows(cfg, r, (chrp_all[sel_s], wloc_all[sel_s],
+                               chrp_all[h00_s], wloc_all[h00_s]),
+                      totals, slots.s_off, slots.c_off, ok_all, big_any, ftot)
+
+
+# ---------------------------------------------------------------------------
+# K7: index-sharded merging reduce
+# ---------------------------------------------------------------------------
+
+def merge_shards_plain(cfg, cands: int, rows, vcs: list,
+                       slots: list) -> torch.Tensor:
+    """Plain twin of K7: the full rows of ``_index_sharded_call``
+    (index_sharded.py:115-142), i.e. the ``shard_axis`` branches of
+    ``_verify_impl`` (device_engine.py:689, :911-1038, :1074-1100), from
+    each region shard's K3 output ``vcs[d]`` and stage-1 ``slots[d]``.  All
+    shards' in-capacity candidates are sorted into global discovery order
+    (per slot: Watson entries of shards 0..D-1, then Crick entries of
+    shards D-1..0, index_sharded.py:9-14), where K4's reduction holds as it
+    is: the early exit's minimum, the counts and the dedup bits over all
+    shards (pmin, psum), the pick by global rank (global_rank_of).  A corner
+    candidate on any shard raises replay; a read with no pick gets 0s;
+    totals sum the shards', ok needs every shard's read end within
+    ``cands``, big any shard's total past it; ftot is the largest shard's
+    (pmax); the start offsets are shard 0's."""
+    _check_merge(cfg, vcs, slots)
+    m = rows.shape[0]
+    dev = rows.device
+    NB, D = cfg.NB, len(vcs)
+    r_i = torch.arange(m, device=dev)
+    keys, infos, chrps, wlocs = [], [], [], []
+    totals = torch.zeros(m, dtype=torch.int64, device=dev)
+    ok_all = torch.ones(m, dtype=torch.bool, device=dev)
+    big_any = torch.zeros(m, dtype=torch.bool, device=dev)
+    for d, vc in enumerate(vcs):
+        starts = vc.starts.to(dev, torch.int64)
+        n = min(int(starts[-1]), cands)
+        sidx = torch.arange(n, device=dev)
+        fid = torch.searchsorted(starts[1:], sidx, right=True)
+        chrp = vc.chrp.to(dev, torch.int64)[:n]
+        crick = chrp & 1
+        keys.append(((fid * 2 + crick) * D
+                     + torch.where(crick == 1, D - 1 - d, d)) * cands + sidx)
+        infos.append(vc.info.to(dev, torch.int64)[:n])
+        chrps.append(chrp)
+        wlocs.append(vc.wloc.to(dev, torch.int64)[:n])
+        rstart, rend = starts[r_i * NB], starts[(r_i + 1) * NB]
+        totals = totals + (rend - rstart)
+        ok_all = ok_all & (rend <= cands)
+        big_any = big_any | (rend - rstart > cands)
+    key, order = torch.sort(torch.cat(keys))
+    info = torch.cat(infos)[order]
+    chrp = torch.cat(chrps)[order]
+    wloc = torch.cat(wlocs)[order]
+    rid = key // (2 * D * cands) // NB
+    r = _reduce_core(cfg, rows, rid, info, chrp, wloc,
+                     torch.searchsorted(rid, r_i))
+    corner = torch.zeros(m, dtype=torch.int64, device=dev)
+    corner.scatter_reduce_(0, rid, (info & INFO_CORNER) // INFO_CORNER,
+                           "amax")
+    r = r._replace(replay=r.replay | (corner > 0))
+
+    def pick(pos, vals):
+        return torch.where(pos < 0, 0, vals[pos.clamp(min=0)]) \
+            if len(vals) else torch.zeros_like(pos)
+
+    ftot = torch.stack([s.ftot_rank[:, -1].to(dev, torch.int64)
+                        for s in slots]).amax(dim=0)
+    return _full_rows(cfg, r, (pick(r.sel, chrp), pick(r.sel, wloc),
+                               pick(r.h00, chrp), pick(r.h00, wloc)),
+                      _wrap32(totals), slots[0].s_off.to(dev),
+                      slots[0].c_off.to(dev), ok_all, big_any, ftot)
 
 
 # ---------------------------------------------------------------------------
@@ -941,6 +1086,13 @@ def _check_cuda(cfg, rows, *tensors) -> None:
                              "tensors on one CUDA device")
 
 
+def _run(t: torch.Tensor, fn, *args) -> int:
+    """``fn(*args)`` with ``t``'s CUDA device current: a kernel launches on
+    the calling thread's current device, whatever stream it is handed."""
+    with torch.cuda.device(t.device):
+        return fn(*args)
+
+
 def _launched(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
@@ -975,7 +1127,8 @@ def fixed_schedule(cfg, rows, kmer_tab, rows_rc=None) -> Slots:
     dev = rows.device
     outs = [_empty(dev, m, NB) for _ in range(5)]
     ftot = _empty(dev, m, MS)
-    err = _build.lib().bsmap_fixed_schedule(
+    err = _run(
+        rows, _build.lib().bsmap_fixed_schedule,
         _ptr(rows), _opt_ptr(rows_rc is not None, rows_rc), m, cfg.nw,
         _ptr(kmer_tab), cfg.S, cfg.I, MS, cfg.nch,
         *[_ptr(o) for o in outs], _ptr(ftot), _stream(rows))
@@ -986,28 +1139,32 @@ def fixed_schedule(cfg, rows, kmer_tab, rows_rc=None) -> Slots:
 
 
 def exact_schedule(cfg, rows, kmer_tab, prof_a, probe: bool = False,
-                   tag_off=None, rows_rc=None) -> Slots:
+                   tag_off=None, rows_rc=None, gcnt=None) -> Slots:
     """K2 (csrc/exact_schedule.cu) on CUDA tensors, the twin on CPU.  With
     ``probe`` only ``ftot_rank`` is written (the other tensors are left
     uninitialised).  ``cfg.rrbs`` needs the ``tag_off`` table, chains
-    mode 'b' K5's ``rows_rc``."""
+    mode 'b' K5's ``rows_rc``, ``cfg.shards`` the global counts ``gcnt``."""
     if not rows.is_cuda:
         return exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe,
-                                    tag_off, rows_rc)
+                                    tag_off, rows_rc, gcnt)
     from . import _build
+    _gcnt_given(cfg, gcnt)
     _check_cuda(cfg, rows, kmer_tab, prof_a,
                 *([tag_off] if cfg.rrbs else []),
+                *([gcnt] if cfg.shards else []),
                 *_rc_rows(cfg, rows, rows_rc))
     m, NB, MS = rows.shape[0], cfg.NB, cfg.maxseg
     dev = rows.device
     outs = [_empty(dev, m, NB) for _ in range(5)]
     offs = [_empty(dev, m) for _ in range(2)]
     ftot = _empty(dev, m, MS)
-    err = _build.lib().bsmap_exact_schedule(
+    err = _run(
+        rows, _build.lib().bsmap_exact_schedule,
         _ptr(rows), _opt_ptr(rows_rc is not None, rows_rc), m, cfg.nw,
         _ptr(kmer_tab), _ptr(prof_a), cfg.S, cfg.I, MS, cfg.P,
         _MODES[cfg.chains_mode], int(probe), int(cfg.rrbs),
         _opt_ptr(cfg.rrbs, tag_off), tag_off.numel() if cfg.rrbs else 0,
+        _opt_ptr(gcnt is not None, gcnt),
         *[_ptr(o) for o in outs + offs], _ptr(ftot), _stream(rows))
     _launched("exact_schedule", err)
     exact_schedule.launches += 1
@@ -1015,14 +1172,16 @@ def exact_schedule(cfg, rows, kmer_tab, prof_a, probe: bool = False,
 
 
 def verify_candidates(cfg, cands: int, rows, slots: Slots,
-                      tables, rows_rc=None) -> Cands:
-    """K3 (csrc/verify_candidates.cu) on CUDA tensors, the twin on CPU."""
+                      tables, rows_rc=None, shard: int = 0) -> Cands:
+    """K3 (csrc/verify_candidates.cu) on CUDA tensors, the twin on CPU.
+    ``cfg.shards`` needs region ``shard``'s tables with the ``bounds``."""
     if not rows.is_cuda:
         return verify_candidates_plain(cfg, cands, rows, slots, tables,
-                                       rows_rc)
+                                       rows_rc, shard)
     from . import _build
     tk = ("catcat", "anchors", "sizes", "rcoff", "wlocs", "clocs")
-    rk = ("tags", "sites", "site_off") if cfg.rrbs else ()
+    rk = (("tags", "sites", "site_off") if cfg.rrbs else ()) + \
+        (("bounds",) if cfg.shards else ())
     _check_cuda(cfg, rows, slots.h, slots.off0, slots.off3, slots.wcnt,
                 slots.cnt, *[tables[k] for k in tk + rk],
                 *_rc_rows(cfg, rows, rows_rc))
@@ -1032,7 +1191,8 @@ def verify_candidates(cfg, cands: int, rows, slots: Slots,
     starts = _empty(dev, m * NB + 1)
     scratch = _empty(dev, 1 + 3 * T)
     out = [_empty(dev, cands) for _ in range(4)]
-    err = _build.lib().bsmap_verify_candidates(
+    err = _run(
+        rows, _build.lib().bsmap_verify_candidates,
         _ptr(rows), _opt_ptr(rows_rc is not None, rows_rc), m, cfg.nw,
         cfg.maxseg, cfg.I, _MODES[cfg.chains_mode], cands,
         _ptr(slots.h), _ptr(slots.off0), _ptr(slots.off3), _ptr(slots.wcnt),
@@ -1044,7 +1204,8 @@ def verify_candidates(cfg, cands: int, rows, slots: Slots,
         *[_opt_ptr(cfg.rrbs, tables.get(k)) for k in
           ("tags", "sites", "site_off")],
         tables["sites"].numel() if cfg.rrbs else 0, cfg.tail, cfg.min_ins,
-        cfg.max_ins, T, _ptr(starts), _ptr(scratch),
+        cfg.max_ins, shard, _opt_ptr(bool(cfg.shards), tables.get("bounds")),
+        cfg.shards + 1 if cfg.shards else 0, T, _ptr(starts), _ptr(scratch),
         *[_ptr(o) for o in out], _stream(rows))
     _launched("verify_candidates", err)
     verify_candidates.launches += 1
@@ -1062,7 +1223,8 @@ def reduce_reads(cfg, cands: int, rows, vc: Cands,
     m, MS = rows.shape[0], cfg.maxseg
     width = 3 if cfg.lean else 2 * MS + N_EXTRAS + 2 * cfg.hits_k
     out = _empty(rows.device, m, width)
-    err = _build.lib().bsmap_reduce_reads(
+    err = _run(
+        rows, _build.lib().bsmap_reduce_reads,
         _ptr(rows), m, cfg.nw, MS, cfg.I, cfg.S, cfg.nch, cands,
         _ptr(vc.starts), _ptr(vc.chrp), _ptr(vc.wloc), _ptr(vc.info),
         _ptr(slots.ftot_rank), _ptr(slots.s_off), _ptr(slots.c_off),
@@ -1083,7 +1245,8 @@ def rc_words(cfg, rows) -> torch.Tensor:
     if sorted(cfg.rc) != [0, 1, 2, 3] or not 0 <= cfg.rc_n <= 3:
         raise ValueError(f"not a 2-bit complement permutation: {cfg.rc}")
     out = torch.empty_like(rows)
-    err = _build.lib().bsmap_rc_words(
+    err = _run(
+        rows, _build.lib().bsmap_rc_words,
         _ptr(rows), rows.shape[0], cfg.nw, *cfg.rc, cfg.rc_n, _ptr(out),
         _stream(rows))
     _launched("rc_words", err)
@@ -1104,7 +1267,8 @@ def pair_join(cfg, rows_a, rows_b, in_a, in_b) -> torch.Tensor:
         raise ValueError("pair_join takes both mates' full rows with hits "
                          "and their dispatch rows")
     out = _empty(rows_a.device, n, JN_COLS)
-    err = _build.lib().bsmap_pair_join(
+    err = _run(
+        rows_a, _build.lib().bsmap_pair_join,
         _ptr(rows_a), _ptr(rows_b), n, cfg.maxseg, cfg.hits_k, _ptr(in_a),
         _ptr(in_b), cfg.nw, cfg.min_ins, cfg.max_ins, cfg.max_num_hits,
         _ptr(out), _stream(rows_a))
@@ -1113,8 +1277,48 @@ def pair_join(cfg, rows_a, rows_b, in_a, in_b) -> torch.Tensor:
     return out
 
 
+def _check_merge(cfg, vcs: list, slots: list) -> None:
+    if not cfg.shards or cfg.lean or cfg.rrbs or cfg.probe:
+        raise ValueError("merge_shards writes the full rows of an "
+                         "index-sharded WGBS program")
+    if not len(vcs) == len(slots) == cfg.shards <= MAX_SHARDS:
+        raise ValueError(f"{len(vcs)} shards' candidates for cfg.shards "
+                         f"{cfg.shards} (at most {MAX_SHARDS})")
+
+
+def merge_shards(cfg, cands: int, rows, vcs: list,
+                 slots: list) -> torch.Tensor:
+    """K7 (csrc/merge_shards.cu) on CUDA tensors, the twin on CPU.  Each
+    shard's K3 output and stage-1 totals are gathered to ``rows``' device
+    (one copy per shard, a device-to-device copy when the shard lives
+    there too)."""
+    if not rows.is_cuda:
+        return merge_shards_plain(cfg, cands, rows, vcs, slots)
+    from . import _build
+    _check_merge(cfg, vcs, slots)
+    dev = rows.device
+    st = [torch.stack([getattr(v, f).to(dev) for v in vcs])
+          for f in ("starts", "chrp", "wloc", "info")]
+    ftot = torch.stack([s.ftot_rank[:, -1].to(dev) for s in slots])
+    soff, coff = slots[0].s_off.to(dev), slots[0].c_off.to(dev)
+    _check_cuda(cfg, rows, *st, ftot, soff, coff)
+    m, MS = rows.shape[0], cfg.maxseg
+    if st[0].shape[1] != m * cfg.NB + 1 or st[1].shape[1] != cands:
+        raise ValueError("candidates of another window or capacity")
+    out = _empty(dev, m, 2 * MS + N_EXTRAS + 2 * cfg.hits_k)
+    err = _run(
+        rows, _build.lib().bsmap_merge_shards,
+        _ptr(rows), m, cfg.nw, MS, cfg.I, cfg.S, cfg.nch, cfg.shards, cands,
+        *[_ptr(t) for t in st], _ptr(ftot), _ptr(soff), _ptr(coff),
+        cfg.max_num_hits, cfg.report_repeat_hits, int(cfg.pe), cfg.hits_k,
+        _ptr(out), _stream(rows))
+    _launched("merge_shards", err)
+    merge_shards.launches += 1
+    return out
+
+
 KERNELS = (fixed_schedule, exact_schedule, verify_candidates, reduce_reads,
-           rc_words, pair_join)
+           rc_words, pair_join, merge_shards)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -1147,6 +1351,8 @@ def align_program(cfg, cands: int, tables, rows) -> torch.Tensor:
     chains of 'b' in each launch.  ``cands`` is the JAX program's capacity
     (its B rows, padding included), so the ok/overflow bits and the dedup
     table size match its rows."""
+    if cfg.shards:
+        raise ValueError("a sharded cfg runs index_sharded_program")
     rows, rows_rc = chain_inputs(cfg, rows)
     if cfg.fixed and not cfg.probe:
         slots = fixed_schedule(cfg, rows, tables["kmer_tab"], rows_rc)
@@ -1171,3 +1377,43 @@ def pair_program(cfg_a, cfg_b, cands: int, tables, rows_a,
     full = [align_program(cfg, cands, tables, rows)
             for cfg, rows in ((cfg_a, rows_a), (cfg_b, rows_b))]
     return pair_join(cfg_a, full[0], full[1], rows_a, rows_b)
+
+
+def index_sharded_program(cfg, cands: int, shard_tables: list,
+                          rows) -> torch.Tensor:
+    """The port of ``_index_sharded_call`` (index_sharded.py:115-142) with
+    ``_align_fused_kernel``'s ``bounds`` branches: the same (m, 2nw+4)
+    dispatch rows through every region shard (``shard_tables[d]``, on the
+    shard's device; ``cfg.shards`` = D), then K7 on shard 0's device, where
+    the result lies.  Per device: the rows copied there once, K5 for the rc
+    chain once; per shard: K1, or K2 on the global counts ``gcnt``, then K3
+    with the shard's corner test.  ``cands`` is the capacity of each shard.
+    Under ``cfg.probe`` the result is the elementwise maximum of the
+    shards' per-rank totals (the pmax, device_engine.py:1189-1190).  Each
+    shard enqueues on its device's current stream, with no synchronisation
+    between shards."""
+    if cfg.shards != len(shard_tables):
+        raise ValueError(f"cfg.shards {cfg.shards} for {len(shard_tables)} "
+                         "shard tables")
+    placed = {}                 # device -> (rows, (rows, rows_rc) for K1-K3)
+    slots, vcs = [], []
+    for d, tabs in enumerate(shard_tables):
+        dev = tabs["kmer_tab"].device
+        if dev not in placed:
+            r = rows.to(dev)
+            placed[dev] = (r, chain_inputs(cfg, r))
+        r, rc = placed[dev][1]
+        if cfg.fixed and not cfg.probe:
+            s = fixed_schedule(cfg, r, tabs["kmer_tab"], rc)
+        else:
+            s = exact_schedule(cfg, r, tabs["kmer_tab"], tabs["prof_a"],
+                               probe=cfg.probe, rows_rc=rc,
+                               gcnt=tabs["gcnt"])
+        slots.append(s)
+        if not cfg.probe:
+            vcs.append(verify_candidates(cfg, cands, r, s, tabs, rc, d))
+    rows0 = placed[shard_tables[0]["kmer_tab"].device][0]
+    if cfg.probe:
+        return torch.stack([s.ftot_rank.to(rows0.device)
+                            for s in slots]).amax(dim=0)
+    return merge_shards(cfg, cands, rows0, vcs, slots)

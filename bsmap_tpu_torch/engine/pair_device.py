@@ -19,9 +19,10 @@ join.
     and commits the pairs with i* == 0 (the reference stops at step 0 with
     exactly the rank-0 hits); phase 2 re-dispatches the rest at full rank,
     bin-packed by the per-pair candidate totals of phase 1.
-  * Per-pair path (BSP with -2, -R, trimming): two SE dispatches per window
-    (K5, K2, K3, K4) whose full rows come back to the host for the Python
-    formatter, then K6 on those rows.
+  * Per-pair path (BSP with -2, -R, trimming, and every run over the mesh
+    engines of ``parallel``): two SE dispatches per window (K5, K2, K3, K4,
+    or the SE engine's own program) whose full rows come back to the host
+    for the Python formatter, then K6 on those rows.
 
 Sequential corners replay the PAIR on the exact host engine
 (PairHostEngine) with the per-mate MateState kept bit-exact: per-mate
@@ -117,12 +118,14 @@ class PairSEView:
 
 
 class PairDeviceEngine:
-    """Batch PE aligner on one torch device: one ``pair_program`` per
-    window on the block path, two SE dispatches + K6 per window on the
-    per-pair path."""
+    """Batch PE aligner: one ``pair_program`` per window on the block path
+    (the single-device engine), two SE dispatches + K6 per window on the
+    per-pair path (any engine, the mesh engines of ``parallel`` included:
+    ``se_engine``)."""
 
     def __init__(self, genome: PackedGenome, index: SeedIndex, param: Param,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 se_engine: DeviceEngine | None = None):
         if param.RRBS_flag:
             raise EngineUnsupported("device PE: RRBS runs on the host engine")
         # -S 0 (the reference default) is handled like the SE engine does:
@@ -131,7 +134,8 @@ class PairDeviceEngine:
         # (pairs.cpp:258,271) — those pairs replay on the exact host engine;
         # draw-free pairs stay on the device and consume nothing
         self.param = param
-        self.se = DeviceEngine(genome, index, param, device=device)
+        self.se = (se_engine if se_engine is not None
+                   else DeviceEngine(genome, index, param, device=device))
         self.pair_host = PairHostEngine(self.se.host)   # exact replay path
         self.K = PAIR_HITS_K
         self.MS = self.se._maxseg
@@ -148,13 +152,16 @@ class PairDeviceEngine:
             max_ins=self.param.max_insert)
 
     def supports_pair_blocks(self) -> bool:
-        """SAM PE output without trimming/-R runs on the native block path;
-        everything else uses the per-pair path."""
+        """SAM PE output without trimming/-R on the single-device engine
+        runs on the native block path; everything else, the mesh engines
+        (which override ``_dispatch``) included, uses the per-pair path,
+        each mate dispatching through the SE engine."""
         from .. import native
         p = self.param
         return (native.get_lib() is not None and not p.adapters
                 and p.qual_threshold == 0 and p.out_sam >= 1
-                and not p.out_ref)
+                and not p.out_ref
+                and type(self.se)._dispatch is DeviceEngine._dispatch)
 
     # -- dispatch core ---------------------------------------------------------
 

@@ -27,12 +27,14 @@ from ..utils import RandR, StepTimer
 PE_BLOCK_WINDOWS = 2
 
 
-def run_pair_end(o, genome, index, stats: dict | None = None) -> int:
+def run_pair_end(o, genome, index, stats: dict | None = None,
+                 mesh=None) -> int:
     """Align every pair of ``o.query_a``/``o.query_b``; returns the pair
     count and, into ``stats``, the alignment phase's wall time (engine
-    set-up excluded) and the engine."""
+    set-up excluded) and the engine.  ``mesh``: the device list of the
+    mesh engines (``cli.make_engine``)."""
     p = o.param
-    engine = make_pair_engine(o, genome, index)
+    engine = make_pair_engine(o, genome, index, mesh)
     from ..cli import _randr_seed
     fmt = PairFormatter(genome, p, RandR(_randr_seed()))
     t0 = time.perf_counter()
@@ -177,14 +179,20 @@ def run_pair_end_blocks(o, genome, engine, fmt) -> int:
     return total
 
 
-def make_pair_engine(o, genome, index):
+def make_pair_engine(o, genome, index, mesh=None):
     """``--engine host`` is the exact per-pair host engine; anything else
     is the PyTorch PE engine on ``o.device`` (which raises when that device
-    is missing)."""
+    is missing), over the SE engine that ``--engine sharded`` or
+    ``index-sharded`` names (``cli.make_engine``)."""
     if o.engine == "host":
         return HostPairBatch(genome, index, o.param)
     from .pair_device import PairDeviceEngine
-    return PairDeviceEngine(genome, index, o.param, device=o.device)
+    se = None
+    if o.engine in ("sharded", "index-sharded"):
+        from ..cli import make_engine
+        se = make_engine(o, genome, index, mesh)
+    return PairDeviceEngine(genome, index, o.param, device=o.device,
+                            se_engine=se)
 
 
 class HostPairBatch:

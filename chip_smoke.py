@@ -66,13 +66,39 @@ Phases (each raises on failure; any failure exits non-zero):
      every second read
      reverse-complemented, -n 1, byte-identical to the host engine (SAM
      -m 100 -x 150, and BSP).
+ 20. index-sharded kernels on the first window of phase 5's repeat-heavy
+     reads, D = 4 region shards round-robin over the visible cards (one
+     card holds all four): per shard K1 (its local-count table) and K2 (on
+     the global counts), K3 with the corner bit, then K7 merge_shards, each
+     against its twin on the same card, at -n 0 and -n 1 (and K5 there);
+     fixed at rank 0 on the small tier, exact at full rank on the big tier,
+     the probe pass; equal bit for bit.  The merged rows are also held
+     against ``align_program`` on the unsharded tables, column by column:
+     they differ by design only in the per-shard capacity columns (X_OK,
+     X_BIG, X_FTOT) and, for reads without a pick, in the pick columns
+     (JAX's psum of nothing is 0) -- and for corner and per-shard dedup
+     replays, which are left out;
+ 21. SE through ``IndexShardedEngine`` (``--engine index-sharded``, the D =
+     4 mesh of phase 20) on phase 5's 100,000 reads: the SAM byte-identical
+     to phase 5's, its first 10,000 reads to phase 6's host-engine output;
+     reads/s, replays, and the replays past the single-device run's (corner
+     reads and per-shard dedup failures); then both engines timed at -v 5
+     (BASELINE config 4's budget), byte-identical;
+ 22. SE through ``ShardedDeviceEngine`` (``--engine sharded``, D = 2 read
+     stripes) on phase 4's 1,000,000 reads, byte-identical to phase 4's SAM;
+ 23. PE through both mesh engines on phase 11's 10,000 error pairs (the
+     per-pair path; their SE engine overrides the dispatch): D = 2 with
+     phase 11's SAM flags, D = 4 with its BSP -2 flags, each byte-identical
+     to phase 11's host-engine output.
 
 The kernels' launch counters are zeroed right before each run of a main
 path and read right after it: phase 4 to 5 (the single-end path: K1-K4
 must have run), each GPU run of phases 9 and 11 (the pair-end paths: K2-K6),
 phase 14 and each GPU run of phase 15 (the RRBS path: K2-K4, never K1),
 phase 17 (-n 1: K1-K5), each GPU run of phase 18 (K2-K6) and phase 19 and
-each GPU run of its set (K2-K5, never K1).  Every kernel's JSON row has its
+each GPU run of its set (K2-K5, never K1), phase 21's runs (K2, K3, K7,
+never K4), phase 22 (K1-K4, never K7) and each run of phase 23 (K2, K3,
+K5, K6 and, index-sharded, K7 in place of K4).  Every kernel's JSON row has its
 launches summed over those runs, its error against the twin, its time and
 the twin's at the single-end headline window (the pair-end one for K5 and
 K6), and its bound there: the bytes it must move over the card's memory
@@ -133,12 +159,16 @@ KERNEL_SOURCES = {
                  "bsmap_tpu/engine/device_engine.py:302"),
     "pair_join": ("bsmap_tpu_torch/csrc/pair_join.cu",
                   "bsmap_tpu/engine/pair_device.py:73"),
+    "merge_shards": ("bsmap_tpu_torch/csrc/merge_shards.cu",
+                     "bsmap_tpu/parallel/index_sharded.py:115"),
 }
 SE_PATH = ("fixed_schedule", "exact_schedule", "verify_candidates",
            "reduce_reads")
 PE_PATH = ("exact_schedule", "verify_candidates", "reduce_reads", "rc_words",
            "pair_join")
 RRBS_PATH = ("exact_schedule", "verify_candidates", "reduce_reads")
+N_SHARDS = 4                     # phases 20, 21 and 23's D = 4 runs
+INDEX_SHARDED_PATH = ("exact_schedule", "verify_candidates", "merge_shards")
 RRBS_ADAPTER = "AGATCGGAAGAGC"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12                # its non-tensor (float32) peak, for int32 ops
@@ -281,6 +311,14 @@ def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0) -> dict:
     elif name == "rc_words":
         nbytes = 2 * m * row
         ops = 80 * m * cfg.nw
+    elif name == "merge_shards":
+        # one sector of the row (len, budget, hash, rank), every shard's
+        # NB + 1 slot starts and ftot of a read, soff/coff, the output, and
+        # three words (chrp, wloc, info) per candidate
+        D = cfg.shards
+        nbytes = (m * (32 + 4 * D * (NB + 1) + 4 * D + 8 + full_w)
+                  + 12 * ncand)
+        ops = 45 * ncand + 10 * m * NB * D
     else:                                       # pair_join
         nbytes = m * (2 * full_w + 32 + 44)
         ops = 40 * m * cfg.hits_k ** 2
@@ -316,14 +354,15 @@ def cuda_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def run_cli(argv: list[str]) -> dict:
+def run_cli(argv: list[str], mesh=None) -> dict:
     """``cli.run`` in this process with its progress lines kept quiet;
-    returns the alignment stats."""
+    returns the alignment stats.  ``mesh``: the device list of the mesh
+    engines."""
     from bsmap_tpu_torch import cli
     stats: dict = {}
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli.run(argv, stats=stats)
+        rc = cli.run(argv, stats=stats, mesh=mesh)
     if rc != 0:
         raise RuntimeError(f"cli.run returned {rc}:\n{buf.getvalue()}")
     stats["log"] = buf.getvalue()
@@ -788,10 +827,11 @@ def phase_pe_paths(root: str, dev: str = "cuda", extra=(),
         flags = flags + list(extra)
         outs = {}
         for eng in (["--device", dev], ["--engine", "host"]):
-            files = [os.path.join(d, f"{eng[1]}.{suffix}")]
+            name = eng[1] + "".join(extra).replace("-", "_")
+            files = [os.path.join(d, f"{name}.{suffix}")]
             argv = ["-o", files[0]]
             if unpaired:
-                files.append(os.path.join(d, f"{eng[1]}_unpaired.{suffix}"))
+                files.append(os.path.join(d, f"{name}_unpaired.{suffix}"))
                 argv += ["-2", files[1]]
             outs[eng[0]] = files
             if eng[0] == "--engine":
@@ -955,6 +995,326 @@ def phase_rrbs_set(root: str, dev: str = "cuda", extra=(),
     return total
 
 
+def shard_mesh(n: int) -> list:
+    """n shards round-robin over the visible cards."""
+    import torch
+    return [torch.device("cuda", k % torch.cuda.device_count())
+            for k in range(n)]
+
+
+def phase_shard_kernels(o, genome, index, rpath: str, dev: str = "cuda",
+                        phase: str = "20") -> list[dict]:
+    """Phase 20: the index-sharded kernels on the first window against
+    their twins (per shard K1/K2/K3 and K5 under 'b', then K7), and the
+    merged rows against the unsharded program, at -n 0 ('f') and -n 1
+    ('b'); returns per mode per-kernel {max_abs_err, bound_ms, bound_by[,
+    ms, plain_ms]} (times at round 1's shapes, fixed on the small tier, on
+    shard 0; K2 at full rank)."""
+    import torch
+    from bsmap_tpu_torch import native
+    from bsmap_tpu_torch.blockio import BlockReadStream
+    from bsmap_tpu_torch.engine import kernels as K
+    from bsmap_tpu_torch.engine.device_engine import DeviceEngine
+    from bsmap_tpu_torch.parallel import IndexShardedEngine
+
+    mesh = shard_mesh(N_SHARDS) if dev == "cuda" else \
+        [torch.device("cpu")] * N_SHARDS
+    t0 = time.time()
+    eng = IndexShardedEngine(genome, index, o.param, mesh=mesh)
+    one = DeviceEngine(genome, index, o.param, device=mesh[0])
+    sizes = [int(t["wlocs"].numel() + t["clocs"].numel())
+             for t in eng.shard_tables]
+    log(f"[{phase}] {N_SHARDS} region shards on "
+        f"{sorted(set(map(str, mesh)))} in {time.time() - t0:.1f} s; "
+        f"bounds {eng.bounds.tolist()}; entries per shard {sizes}")
+    stream = BlockReadStream(rpath, o.param, readset=0, lib=native.get_lib())
+    blk = stream.next_block(eng.B)
+    stream.close()
+    nw, _live, rows_np, _b = eng.block_rows(blk)
+    MS = eng._maxseg
+    ex = 2 * MS
+    rows0 = torch.from_numpy(rows_np.copy())                # round 1: rank 0
+    rows_np[:, -1] = MS - 1
+    rowsF = torch.from_numpy(rows_np)                       # full rank
+
+    def unsharded_diff(g, w):
+        """{column: rows differing} over the reads both programs hold
+        within capacity and without replay (pick columns: reads with a
+        pick); raises on a column outside the capacity ones."""
+        ok = ((g[:, ex + K.X_OK] != 0) & (w[:, ex + K.X_OK] != 0)
+              & (g[:, ex + K.X_REPLAY] == 0) & (w[:, ex + K.X_REPLAY] == 0))
+        bad = {}
+        for col in range(g.shape[1]):
+            sel = ok.copy()
+            if col - ex in (K.X_CHRP, K.X_WLOC):
+                sel &= g[:, ex + K.X_FOUND] != 0
+            if col - ex in (K.X_H00C, K.X_H00W):
+                sel &= g[:, ex + K.X_H00F] != 0
+            n_bad = int((g[sel, col] != w[sel, col]).sum())
+            if n_bad:
+                bad[col - ex] = n_bad
+        if set(bad) - {K.X_OK, K.X_BIG, K.X_FTOT}:
+            raise AssertionError(f"[{phase}] merged rows differ from the "
+                                 f"unsharded program in X_* columns {bad}")
+        return int(ok.sum()), bad
+
+    def one_mode(mode):
+        cfg = eng._cfg(mode, nw=nw)                         # full rows
+        names = INDEX_SHARDED_PATH + ("fixed_schedule",) + \
+            (("rc_words",) if mode == "b" else ())
+        errs = {k: 0 for k in names}
+        keep = {}
+        for case, c, cands, rows in (
+                ("fixed, rank 0, small tier", cfg._replace(fixed=True),
+                 eng.CANDS, rows0),
+                ("exact, full rank, big tier", cfg, eng.CANDS_BIG, rowsF),
+                ("probe", cfg._replace(probe=True), 1, rowsF)):
+            placed, slots, vcs = {}, [], []
+            for d, tabs in enumerate(eng.shard_tables):
+                dv = tabs["kmer_tab"].device
+                if dv not in placed:
+                    r = rows.to(dv)
+                    fwd, rc = K.chain_inputs(c, r)
+                    if rc is not None:
+                        check(errs, "rc_words", case, [rc],
+                              [K.rc_words_plain(c, r)])
+                    placed[dv] = (r, fwd, rc)
+                r, fwd, rc = placed[dv]
+                kt = tabs["kmer_tab"]
+                if c.fixed:
+                    sl = K.fixed_schedule(c, fwd, kt, rc)
+                    check(errs, "fixed_schedule", case, sl,
+                          K.fixed_schedule_plain(c, fwd, kt, rc))
+                else:
+                    kw = dict(probe=c.probe, rows_rc=rc, gcnt=tabs["gcnt"])
+                    sl = K.exact_schedule(c, fwd, kt, tabs["prof_a"], **kw)
+                    want = K.exact_schedule_plain(c, fwd, kt,
+                                                  tabs["prof_a"], **kw)
+                    check(errs, "exact_schedule", case,
+                          [sl.ftot_rank] if c.probe else sl,
+                          [want.ftot_rank] if c.probe else want)
+                slots.append(sl)
+                if not c.probe:
+                    vc = K.verify_candidates(c, cands, fwd, sl, tabs, rc, d)
+                    check(errs, "verify_candidates", case, vc,
+                          K.verify_candidates_plain(c, cands, fwd, sl, tabs,
+                                                    rc, d))
+                    vcs.append(vc)
+            if c.probe:
+                continue
+            r0 = placed[mesh[0]][0]
+            out = K.merge_shards(c, cands, r0, vcs, slots)
+            check(errs, "merge_shards", case, [out],
+                  [K.merge_shards_plain(c, cands, r0, vcs, slots)])
+            corner = torch.zeros(r0.shape[0], dtype=torch.int32,
+                                 device=r0.device)
+            for v in vcs:
+                corner.scatter_reduce_(
+                    0, v.rid.to(r0.device, torch.int64),
+                    ((v.info & K.INFO_CORNER) != 0).to(r0.device,
+                                                        torch.int32), "amax")
+            g = out.cpu().numpy()
+            msg = ""
+            if not c.fixed:
+                # the unsharded program on the same card, column by column
+                w = K.align_program(c._replace(shards=0), cands, one.tables,
+                                    r0).cpu().numpy()
+                n_cmp, bad = unsharded_diff(g, w)
+                msg = (f"; against the unsharded program on {n_cmp} reads "
+                       f"(both within capacity, no replay) equal but for "
+                       f"X_* columns {bad} (X_OK {K.X_OK}, X_BIG {K.X_BIG}, "
+                       f"X_FTOT {K.X_FTOT}); replays "
+                       f"{int((g[:, ex + K.X_REPLAY] != 0).sum())} sharded, "
+                       f"{int((w[:, ex + K.X_REPLAY] != 0).sum())} unsharded")
+            log(f"[{phase}] '{mode}' {case}: {r0.shape[0]} reads, "
+                f"candidates per shard {[int(v.starts[-1]) for v in vcs]}, "
+                f"{int((g[:, ex + K.X_FOUND] != 0).sum())} found, "
+                f"{int(corner.sum())} with a corner candidate — kernels == "
+                "twins" + msg)
+            if c.fixed:
+                keep = dict(c=c, cands=cands, vcs=vcs, slots=slots,
+                            rows=placed[mesh[0]])
+        c, cands, vcs, slots = (keep[k] for k in ("c", "cands", "vcs",
+                                                  "slots"))
+        r0, fwd, rc = keep["rows"]
+        t0_ = eng.shard_tables[0]
+        fwdF, rcF = K.chain_inputs(cfg, rowsF.to(mesh[0]))
+        kt, pa, gc = t0_["kmer_tab"], t0_["prof_a"], t0_["gcnt"]
+        timed = {
+            "fixed_schedule": (
+                lambda: K.fixed_schedule(c, fwd, kt, rc),
+                lambda: K.fixed_schedule_plain(c, fwd, kt, rc)),
+            "exact_schedule": (
+                lambda: K.exact_schedule(cfg, fwdF, kt, pa, rows_rc=rcF,
+                                         gcnt=gc),
+                lambda: K.exact_schedule_plain(cfg, fwdF, kt, pa,
+                                               rows_rc=rcF, gcnt=gc)),
+            "verify_candidates": (
+                lambda: K.verify_candidates(c, cands, fwd, slots[0], t0_, rc,
+                                            0),
+                lambda: K.verify_candidates_plain(c, cands, fwd, slots[0],
+                                                  t0_, rc, 0)),
+            "merge_shards": (
+                lambda: K.merge_shards(c, cands, r0, vcs, slots),
+                lambda: K.merge_shards_plain(c, cands, r0, vcs, slots)),
+        }
+        if mode == "b":
+            timed["rc_words"] = (lambda: K.rc_words(c, r0),
+                                 lambda: K.rc_words_plain(c, r0))
+        m = r0.shape[0]
+        ncand = [min(int(v.starts[-1]), cands) for v in vcs]
+        res = {}
+        for name, (kern, plain) in timed.items():
+            whole = name == "merge_shards"
+            res[name] = {"max_abs_err": errs[name],
+                         **bound(name, c, m, sum(ncand) if whole
+                                 else ncand[0], cands)}
+            if dev == "cuda":
+                res[name].update(timed_pair(
+                    f"[{phase}] '{mode}' {name}", kern, plain,
+                    f"{m} reads, {'all shards' if whole else 'shard 0'}; "
+                    f"bound {res[name]['bound_ms']:.4f} ms"))
+        return res
+
+    out = [one_mode(mode) for mode in ("f", "b")]
+    del eng, one
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_index_sharded_se(root: str, gpath: str, rpath: str, rep: dict,
+                           dev: str = "cuda") -> dict:
+    """Phase 21: the repeat-heavy reads through ``--engine index-sharded``
+    on the D = 4 mesh, against phase 5's SAM and phase 6's host-engine
+    prefix; then -v 5 on both engines.  Returns the launch counts summed
+    over its runs (each one zeroed right before it) and the rates."""
+    import torch
+    from bsmap_tpu_torch.engine import kernels as K
+    mesh = shard_mesh(N_SHARDS) if dev == "cuda" else \
+        [torch.device("cpu")] * N_SHARDS
+    total = {k: 0 for k in K.launch_counts()}
+
+    def run(out, flags, engine, mesh_=None):
+        K.reset_launch_counts()
+        st = run_cli(["-a", rpath, "-d", gpath, "-o", out, "--device", dev]
+                     + flags + ["--engine", engine], mesh=mesh_)
+        counts = K.launch_counts()
+        if engine == "index-sharded":
+            need_launches(f"[21] {' '.join(flags)} index-sharded run", counts,
+                          INDEX_SHARDED_PATH, ("reduce_reads",))
+            for k, v in counts.items():
+                total[k] += v
+        return st
+
+    out = os.path.join(root, "rep_is.sam")
+    st = run(out, ALIGN_FLAGS, "index-sharded", mesh)
+    eng = st["engine"]
+    size = assert_same_file("[21] index-sharded vs phase 5",
+                            out, os.path.join(root, "rep.sam"))
+    with open(out, "rb") as f:
+        head = f.read()
+    with open(os.path.join(root, "repeat", "parity_host.sam"), "rb") as f:
+        host = f.read()
+    if head[: len(host)] != host:
+        raise AssertionError("[21] first reads differ from the host engine")
+    rate = st["reads"] / st["align_s"]
+    log(f"[21] {st['reads']} reads on {N_SHARDS} shards in "
+        f"{st['align_s']:.3f} s = {rate:.1f} reads/s; n_dispatched "
+        f"{eng.n_dispatched}, n_probe {eng.n_probe}, n_replayed "
+        f"{eng.n_replayed} ({eng.n_replayed - rep['n_replayed']} past the "
+        f"single-device run's {rep['n_replayed']}: corner reads and "
+        f"per-shard dedup), probe_mode {eng.probe_mode}; byte-identical to "
+        f"phase 5 ({size} bytes) and, first {N_PARITY} reads, to the host "
+        "engine")
+    v5 = ["-v", "5", "-S", "17"]
+    res = {"reads_per_s": rate}
+    outs = []
+    for engine in ("index-sharded", "device"):
+        outs.append(os.path.join(root, f"rep_v5_{engine}.sam"))
+        st = run(outs[-1], v5, engine,
+                 mesh if engine == "index-sharded" else None)
+        res[engine + " -v 5"] = st["reads"] / st["align_s"]
+        log(f"[21] -v 5 {engine}: {st['reads']} reads in {st['align_s']:.3f}"
+            f" s = {res[engine + ' -v 5']:.1f} reads/s, n_replayed "
+            f"{st['engine'].n_replayed}")
+    size = assert_same_file("[21] -v 5 index-sharded vs device", *outs)
+    log(f"[21] -v 5: index-sharded byte-identical to the single-device "
+        f"engine ({size} bytes)")
+    res["launches"] = total
+    return res
+
+
+def phase_stripes_se(root: str, gpath: str, rpath: str,
+                     dev: str = "cuda") -> tuple[dict, dict]:
+    """Phase 22: the headline reads through ``--engine sharded`` on D = 2
+    read stripes, byte-identical to phase 4's SAM; returns (rate, launch
+    counts)."""
+    import torch
+    from bsmap_tpu_torch.engine import kernels as K
+    mesh = shard_mesh(2) if dev == "cuda" else [torch.device("cpu")] * 2
+    out = os.path.join(root, "head_sd.sam")
+    K.reset_launch_counts()
+    st = run_cli(["-a", rpath, "-d", gpath, "-o", out, "--device", dev,
+                  "--engine", "sharded"] + ALIGN_FLAGS, mesh=mesh)
+    counts = K.launch_counts()
+    need_launches("[22] sharded run", counts, SE_PATH, ("merge_shards",))
+    eng = st["engine"]
+    size = assert_same_file("[22] sharded vs phase 4", out,
+                            os.path.join(root, "head.sam"))
+    rate = st["reads"] / st["align_s"]
+    log(f"[22] {st['reads']} reads on {len(mesh)} stripes of {eng.B_loc} in "
+        f"{st['align_s']:.3f} s = {rate:.1f} reads/s; n_dispatched "
+        f"{eng.n_dispatched}, last window's n_aligned "
+        f"{int(eng.last_n_aligned)}; byte-identical to phase 4 ({size} "
+        "bytes)")
+    return rate, counts
+
+
+def phase_mesh_pe(root: str, dev: str = "cuda") -> dict:
+    """Phase 23: phase 11's error pairs through both mesh engines (the
+    per-pair path), D = 2 with its SAM flags and D = 4 with its BSP -2
+    flags, against its host-engine files; returns the launch counts summed
+    over the runs."""
+    import torch
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "pe_err")
+    g, r1, r2 = (os.path.join(d, x) for x in ("ref.fa", "r1.fq", "r2.fq"))
+    total = {k: 0 for k in K.launch_counts()}
+    for engine in ("sharded", "index-sharded"):
+        for D, (tag, flags, (suffix, *unpaired), _md, _mr) in (
+                (2, PE_PATH_RUNS[0]), (4, PE_PATH_RUNS[1])):
+            mesh = shard_mesh(D) if dev == "cuda" else \
+                [torch.device("cpu")] * D
+            files = [os.path.join(d, f"mesh_{engine}_{D}.{suffix}")]
+            argv = ["-o", files[0]]
+            if unpaired:
+                files.append(os.path.join(d, f"mesh_{engine}_{D}_u.{suffix}"))
+                argv += ["-2", files[1]]
+            K.reset_launch_counts()
+            st = run_cli(["-a", r1, "-b", r2, "-d", g, "--device", dev,
+                          "--engine", engine] + flags + argv, mesh=mesh)
+            counts = K.launch_counts()
+            need = ("exact_schedule", "verify_candidates", "rc_words",
+                    "pair_join") + (("merge_shards",) if engine ==
+                                    "index-sharded" else ("reduce_reads",))
+            never = ("reduce_reads",) if engine == "index-sharded" else \
+                ("merge_shards",)
+            need_launches(f"[23] {engine} D={D}", counts, need, never)
+            for k, v in counts.items():
+                total[k] += v
+            host = [os.path.join(d, f"host.{suffix}")] + (
+                [os.path.join(d, f"host_unpaired.{suffix}")]
+                if unpaired else [])
+            sizes = [assert_same_file(f"[23] {engine} D={D}", a, b)
+                     for a, b in zip(files, host)]
+            log(f"[23] {engine}, D = {D}, per-pair path ({' '.join(flags)}, "
+                f"{suffix}): {N_PARITY} pairs in {st['align_s']:.3f} s, "
+                f"n_replayed {st['engine'].n_replayed}; byte-identical to "
+                f"the host engine ({' + '.join(map(str, sizes))} bytes)")
+    return total
+
+
 def need_launches(what: str, counts: dict, need, never=()) -> None:
     """A main path's launch counts: every kernel of ``need`` launched, none
     of ``never``."""
@@ -1098,6 +1458,19 @@ def main() -> int:
         need_launches("[19] RRBS -n 1 run", c19, RRBS_PATH + ("rc_words",),
                       ("fixed_schedule",))
         main_runs.append(phase_rrbs_set(root, extra=N1, phase="19"))
+
+        # the multi-device engines: D region shards / read stripes, round
+        # robin over the visible cards
+        o20 = parse_args(["-a", r2, "-d", g2, "-o", "x.sam"] + ALIGN_FLAGS)
+        genome = load_genome(g2, o20.param)
+        index = get_index(o20, genome)
+        sres, sres1 = phase_shard_kernels(o20, genome, index, r2)
+        del genome, index
+        ise = phase_index_sharded_se(root, g2, r2, rep)
+        main_runs.append(ise.pop("launches"))
+        sd_rate, c22 = phase_stripes_se(root, g1, r1)
+        main_runs.append(c22)
+        main_runs.append(phase_mesh_pe(root))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1107,12 +1480,17 @@ def main() -> int:
         f"{rrbs['reads_per_s']:.1f} reads/s; -n 1: headline "
         f"{head1['reads_per_s']:.1f} reads/s, pair-end "
         f"{pe1['pairs_per_s']:.1f} pairs/s, RRBS "
-        f"{rrbs1['reads_per_s']:.1f} reads/s")
-    results = (kres, pres, rres, kres16, pres18, rres19)
+        f"{rrbs1['reads_per_s']:.1f} reads/s; index-sharded (D = "
+        f"{N_SHARDS}) repeat-heavy {ise['reads_per_s']:.1f} reads/s, at -v 5 "
+        f"{ise['index-sharded -v 5']:.1f} (single-device "
+        f"{ise['device -v 5']:.1f}); read stripes (D = 2) headline "
+        f"{sd_rate:.1f} reads/s")
+    results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1)
     rows = []
     for k, (src, rep_) in KERNEL_SOURCES.items():
-        # the main path's shapes: the SE headline window, else the PE one
-        t = kres[k] if "ms" in kres.get(k, {}) else pres[k]
+        # the main path's shapes: the SE headline window, else the PE one,
+        # the index-sharded repeat-heavy window for K7
+        t = next(r[k] for r in (kres, pres, sres) if "ms" in r.get(k, {}))
         rows.append({"name": k, "route": "cuda", "source": src,
                      "replaces": rep_,
                      "launches": sum(c[k] for c in main_runs),

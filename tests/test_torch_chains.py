@@ -130,7 +130,8 @@ def cfgs(world, v: int, nw: int, mode: str = "b", **kw):
     maxseg = min(15, v) + 1
     cj = J.make_cfg(_param(max_snp_num=v), je.W, je.genome.n_chr, mode,
                     maxseg, nw=nw)._replace(**kw)
-    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields})
+    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields
+                   if f != "shards"})
 
 
 def port_slots(world, cfg, rows):
@@ -399,7 +400,8 @@ def test_rrbs_chains_match_jax(rrbs, mode, v, lean, window):
     je = rrbs["je"]
     cj = J.make_cfg(_rrbs_param(v, window), je.W, je.genome.n_chr, mode,
                     v + 1, nw=7)._replace(lean=lean)
-    ct = T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields})
+    ct = T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields
+                   if f != "shards"})
     rows = rrbs_rows(rrbs, v, ct.maxseg - 1)
     cands = 16 * J.DEV_BATCH
     want_s, scal = jax_schedule(rrbs, cj, rows)

@@ -171,13 +171,13 @@ def test_torch_cli_pe_per_pair_many_hits(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--proc-id", "0"], ["--coordinator", "h:1"],
     ["-b", "r2.fq", "-o", "out.bam"],
-    ["-p", "2"], ["--nprocs", "2"], ["--engine", "sharded"],
+    ["-p", "2"], ["--nprocs", "2"], ["--engine", "auto"],
     ["-o", "out.bam"],
 ])
 def test_torch_cli_refuses_unported(flags):
-    """Multi-process runs (-p > 1, --nprocs, --proc-id, --coordinator), the
-    sharded engines and BAM output, single-end or pair-end, exit non-zero
-    with a pointer to ROADMAP.md (no silent engine or format
+    """Multi-process runs (-p > 1, --nprocs, --proc-id, --coordinator),
+    bsmap_tpu's --engine auto and BAM output, single-end or pair-end, exit
+    non-zero with a pointer to ROADMAP.md (no silent engine or format
     substitution)."""
     from bsmap_tpu_torch import cli
     argv = ["-a", "r.fq", "-d", "ref.fa", "-o", "out.sam"] + flags
@@ -188,16 +188,17 @@ def test_torch_cli_refuses_unported(flags):
 
 def test_torch_cuda_request_without_gpu_raises(monkeypatch, cli_data):
     """--device cuda without a CUDA device raises instead of running on the
-    CPU or on the host engine."""
+    CPU or on the host engine, on every device engine."""
     import torch
 
     from bsmap_tpu_torch import cli
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["-a", str(cli_data / "reads.fq"), "-d", str(cli_data / "ref.fa"),
             "-o", str(cli_data / "never.sam"), "-S", "1", "--device", "cuda"]
-    with pytest.raises(RuntimeError, match="CUDA"):
-        cli.run(argv)
-    assert not (cli_data / "never.sam").exists()
+    for engine in ("device", "sharded", "index-sharded"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.run(argv + ["--engine", engine])
+        assert not (cli_data / "never.sam").exists()
     # pair-end too
     argv = ["-a", str(cli_data / "pe1.fq"), "-b", str(cli_data / "pe2.fq"),
             "-d", str(cli_data / "refpe.fa"), "-o",

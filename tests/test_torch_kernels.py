@@ -102,7 +102,8 @@ def cfgs(world, v: int, nw: int, **kw):
     p = _param(v)
     maxseg = min(15, v) + 1
     cj = J.make_cfg(p, je.W, je.genome.n_chr, "f", maxseg, nw=nw)._replace(**kw)
-    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields})
+    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields
+                   if f != "shards"})
 
 
 @functools.lru_cache(maxsize=None)

@@ -33,7 +33,10 @@ def test_port_imports_without_jax():
             "bsmap_tpu_torch.engine.kernels", "bsmap_tpu_torch.engine._build",
             "bsmap_tpu_torch.blockio", "bsmap_tpu_torch.output.sam",
             "bsmap_tpu_torch.engine.pair_device",
-            "bsmap_tpu_torch.engine.pair_pipeline"]
+            "bsmap_tpu_torch.engine.pair_pipeline",
+            "bsmap_tpu_torch.parallel", "bsmap_tpu_torch.parallel.mesh",
+            "bsmap_tpu_torch.parallel.sharded",
+            "bsmap_tpu_torch.parallel.index_sharded"]
     code = ("import sys; sys.modules['jax'] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -98,8 +101,12 @@ def test_index_cache_maps_without_private_numpy_header(tmp_path,
 
 
 def test_port_never_names_jax_or_bsmap_tpu_imports():
+    """No module of the port, ``parallel/`` included, nor chip_smoke.py
+    imports jax or bsmap_tpu."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|bsmap_tpu)\b", re.M)
-    for f in PORT.rglob("*.py"):
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert PORT / "parallel" / "index_sharded.py" in files
+    for f in files:
         assert not pat.search(f.read_text()), f
 
 
@@ -235,7 +242,8 @@ def test_cuda_kernels_equal_twins(tmp_path):
     torch.cuda.synchronize()
     assert K.launch_counts() == {"fixed_schedule": 1, "exact_schedule": 6,
                                  "verify_candidates": 6, "reduce_reads": 6,
-                                 "rc_words": 1, "pair_join": 1}
+                                 "rc_words": 1, "pair_join": 1,
+                                 "merge_shards": 0}
 
 
 def _tiny_rrbs(d):
@@ -311,7 +319,8 @@ def test_cuda_rrbs_kernels_equal_twins(tmp_path):
     torch.cuda.synchronize()
     assert K.launch_counts() == {"fixed_schedule": 0, "exact_schedule": 3,
                                  "verify_candidates": 3, "reduce_reads": 3,
-                                 "rc_words": 0, "pair_join": 0}
+                                 "rc_words": 0, "pair_join": 0,
+                                 "merge_shards": 0}
 
 
 @pytest.mark.gpu
@@ -392,3 +401,67 @@ def test_cuda_both_chains_kernels_equal_twins(tmp_path):
     torch.cuda.synchronize()
     counts = K.launch_counts()
     assert counts["fixed_schedule"] == 1 and counts["rc_words"] == 3
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_engines_on_one_card(tmp_path):
+    """On a CUDA device, two virtual shards on cuda:0: the index-sharded
+    program (K2 on the global counts, K3 with the corner bit, K7) equals
+    its twins on the CPU bit for bit and the single-device rows in every
+    column but the per-shard capacity ones (ok, big, ftot) and the picks
+    of reads without one; the stripe engine equals the single-device
+    program on each stripe."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import device_engine as T
+    from bsmap_tpu_torch.engine import kernels as K
+    from bsmap_tpu_torch.index import build_index
+    from bsmap_tpu_torch.params import Param
+    from bsmap_tpu_torch.parallel import (IndexShardedEngine,
+                                          ShardedDeviceEngine)
+    from bsmap_tpu_torch.reference import load_genome
+    _eng, rows = _tiny(tmp_path)
+    p = Param()
+    p.set_seed_size(12)
+    p.randseed = 1
+    p.init_mapping()
+    genome = load_genome(str(tmp_path / "ref.fa"), p)
+    index = build_index(genome, p)
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    one = T.DeviceEngine(genome, index, p, device=cuda)
+    K.reset_launch_counts()
+    for cls, kw in ((IndexShardedEngine, {}),
+                    (ShardedDeviceEngine, {"b_loc": 128})):
+        on_card = cls(genome, index, p, mesh=[cuda, cuda], **kw)
+        twin = cls(genome, index, p, mesh=[cpu, cpu], **kw)
+        for fixed in (False, True):
+            cfg = on_card._cfg("f", nw=7)._replace(fixed=fixed)
+            got = on_card._dispatch(cfg, rows, 4096)
+            assert got.device == cuda
+            assert torch.equal(got.cpu(), twin._dispatch(cfg, rows, 4096))
+            if cls is ShardedDeviceEngine:
+                assert len(rows) > 128                    # two stripes
+                want = torch.cat([K.align_program(
+                    cfg, 4096, one.tables, torch.from_numpy(
+                        rows[k: k + 128]).to(cuda)) for k in (0, 128)])
+                assert torch.equal(got, want)
+                continue
+            want = K.align_program(cfg._replace(shards=0), 4096, one.tables,
+                                   torch.from_numpy(rows).to(cuda))
+            ex = 2 * cfg.maxseg
+            g, w = got.cpu().numpy(), want.cpu().numpy()
+            same = np.ones(g.shape[1], bool)
+            same[[ex + K.X_OK, ex + K.X_BIG, ex + K.X_FTOT]] = False
+            keep = g[:, ex + K.X_REPLAY] == 0
+            found, h00 = g[:, ex + K.X_FOUND] != 0, g[:, ex + K.X_H00F] != 0
+            for c, rowsel in ((K.X_CHRP, found), (K.X_WLOC, found),
+                              (K.X_H00C, h00), (K.X_H00W, h00)):
+                same[ex + c] = False
+                assert (g[keep & rowsel, ex + c]
+                        == w[keep & rowsel, ex + c]).all()
+            assert (g[keep][:, same] == w[keep][:, same]).all()
+            assert keep.sum() > len(rows) // 2 and found.sum() > 0
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["merge_shards"] == 2 and counts["fixed_schedule"] > 0

@@ -139,7 +139,8 @@ def cfgs(world, p: Param, mode: str, nw: int, **kw):
     maxseg = min(15, p.max_snp_num) + 1
     cj = J.make_cfg(p, je.W, je.genome.n_chr, mode, maxseg, nw=nw)._replace(
         pe=True, hits_k=HITS_K, **kw)
-    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields})
+    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields
+                   if f != "shards"})
 
 
 def mate_rows(d, world, name: str, v: int, maxrank: int, lens=None):

@@ -90,7 +90,8 @@ def rrbs_cfgs(world, v: int, window=None, **kw):
     je = world["je"]
     cj = J.make_cfg(_param(v, window), je.W, je.genome.n_chr, "f", v + 1,
                     nw=7)._replace(**kw)
-    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields})
+    return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields
+                   if f != "shards"})
 
 
 def port_slots(world, cfg, rows):
