@@ -4,15 +4,19 @@ PyTorch, on the forward strands (-n 0) or all four (-n 1).
 
 Supports both ``-x val`` and ``-x=val`` forms.  Output format is chosen by
 the -o suffix: .sam = SAM, anything else = BSP (main.cpp:293-296).  The
-alignment engine is ``--engine device`` (the default: PyTorch, on the
-device named by ``--device``, CUDA kernels on a GPU), ``--engine sharded``
-(stripes of reads over every visible card), ``--engine index-sharded``
-(the seed index split by genome region over every visible card; not for
-RRBS) or ``--engine host`` (the exact sequential oracle).  Under
-``--device cpu`` the mesh engines run one shard on the CPU.  A device
-request never turns into the host engine.  Pair-end RRBS runs on
-``--engine host`` only; BAM output and multi-process runs are not ported
-yet and exit with an error.
+alignment engine is ``--engine auto`` (the default, ``bsmap_tpu``'s own
+choice: ``sharded`` when more than one card is visible, else ``device``;
+a configuration that engine does not support -- pair-end RRBS, a genome
+past 32-bit strand coordinates -- runs on the host engine, and stderr says
+so), ``--engine device`` (PyTorch, on the device named by ``--device``,
+CUDA kernels on a GPU), ``--engine sharded`` (stripes of reads over every
+visible card), ``--engine index-sharded`` (the seed index split by genome
+region over every visible card; not for RRBS) or ``--engine host`` (the
+exact sequential oracle).  Under ``--device cpu`` the mesh engines run one
+shard on the CPU.  A missing device or a kernel that fails to build or
+launch raises under every engine, ``auto`` included; an engine named
+explicitly also raises on a configuration it does not support.  BAM
+output and multi-process runs are not ported yet and exit with an error.
 
     python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam --device cuda
     python -m bsmap_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -o out.sam
@@ -62,22 +66,26 @@ USAGE = """Usage: bsmap_tpu_torch [options]
        -n  [0,1]   0: map to the 2 forward strands, 1: to all 4 strands
        -R          print reference sequence (XR tag)
        -u          report unmapped reads
-       --engine {device,sharded,index-sharded,host}
-                               alignment engine (default device; sharded:
-                               read stripes over every visible card;
-                               index-sharded: the seed index split by
-                               genome region over every visible card)
+       --engine {auto,device,sharded,index-sharded,host}
+                               alignment engine (default auto: sharded
+                               when more than one card is visible, else
+                               device; the host engine where that engine
+                               does not support the configuration;
+                               sharded: read stripes over every visible
+                               card; index-sharded: the seed index split
+                               by genome region over every visible card)
        --device {cuda,cpu}     torch device of the device engines (default
                                cuda; cpu runs the kernels' plain twins,
                                one shard for the mesh engines)
        --index-cache <dir>     persist/reuse the seed index
        -h          help
-   Not ported yet (see ROADMAP.md): .bam output, -p > 1, --nprocs;
-   pair-end -D runs on --engine host only, and -D not on index-sharded.
+   Not ported yet (see ROADMAP.md): .bam output, -p > 1, --nprocs.
+   Pair-end -D runs on the host engine (auto picks it; --engine device
+   refuses), and -D not on index-sharded.
 """
 
 
-ENGINES = ("device", "sharded", "index-sharded", "host")
+ENGINES = ("auto", "device", "sharded", "index-sharded", "host")
 
 
 def _unported(what: str):
@@ -92,7 +100,7 @@ class Options:
         self.ref_file = ""
         self.out_file = ""
         self.out_unpair = ""
-        self.engine = "device"
+        self.engine = "auto"
         self.device = "cuda"
         self.index_cache = os.environ.get("BSMAP_TPU_INDEX_CACHE", "")
 
@@ -230,31 +238,73 @@ def get_index(o: Options, genome, log=print):
     return build_index(genome, p)
 
 
+def resolve_engine(o: Options, mesh=None):
+    """(engine name, mesh) with ``auto`` resolved as ``bsmap_tpu`` resolves
+    it (bsmap_tpu/cli.py:224-226): ``sharded`` over ``mesh`` (default
+    ``make_mesh(device=o.device)``, which raises when ``--device cuda``
+    finds no card) when it has more than one entry, else ``device``."""
+    if o.engine != "auto":
+        return o.engine, mesh
+    if mesh is None:
+        from .parallel import make_mesh
+        mesh = make_mesh(device=o.device)
+    return ("sharded" if len(mesh) > 1 else "device"), mesh
+
+
+def with_host_fallback(o: Options, build, host, stats: dict | None = None):
+    """The engine of ``build()`` (``make_engine`` or ``make_pair_engine``).
+    Under ``auto`` alone, an ``EngineUnsupported`` raised while that engine
+    is constructed sends the run to ``host()``, as ``bsmap_tpu``'s ``auto``
+    does; any other error, and ``EngineUnsupported`` under an engine named
+    explicitly, propagates.  stderr says which engine runs and why;
+    ``stats["engine_name"]`` records it."""
+    from .engine.device_engine import EngineUnsupported
+    why = f"--engine {o.engine}"
+    try:
+        engine = build()
+        name = getattr(engine, "engine_name", "host")
+    except EngineUnsupported as e:
+        if o.engine != "auto":
+            raise
+        engine, name, why = host(), "host", f"{why}: {e}"
+    print(f"engine: {name} ({why})", file=sys.stderr)
+    if stats is not None:
+        stats["engine_name"] = name
+    return engine
+
+
 def make_engine(o: Options, genome, index, mesh=None):
     """``--engine host`` is the exact host engine; ``sharded`` and
     ``index-sharded`` the mesh engines over ``mesh`` (default
     ``make_mesh(device=o.device)``: every visible card, or one CPU entry);
-    ``device`` the PyTorch engine on ``o.device``.  Each raises when its
-    device is missing."""
-    if o.engine == "host":
+    ``device`` the PyTorch engine on ``o.device``; ``auto`` is
+    ``resolve_engine``'s pick.  Each raises when its device is missing or
+    (``EngineUnsupported``) when it does not run the configuration."""
+    name, mesh = resolve_engine(o, mesh)
+    if name == "host":
         from .engine.host_engine import HostEngine
         return HostEngine(genome, index, o.param)
-    if o.engine in ("sharded", "index-sharded"):
+    if name in ("sharded", "index-sharded"):
         from .parallel import IndexShardedEngine, ShardedDeviceEngine
         from .parallel import make_mesh
-        cls = (ShardedDeviceEngine if o.engine == "sharded"
+        cls = (ShardedDeviceEngine if name == "sharded"
                else IndexShardedEngine)
-        return cls(genome, index, o.param, mesh=(
+        engine = cls(genome, index, o.param, mesh=(
             mesh if mesh is not None else make_mesh(device=o.device)))
-    from .engine.device_engine import DeviceEngine
-    return DeviceEngine(genome, index, o.param, device=o.device)
+    else:
+        from .engine.device_engine import DeviceEngine
+        engine = DeviceEngine(genome, index, o.param, device=o.device)
+    engine.engine_name = name
+    return engine
 
 
 def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
     """Run the CLI on ``argv``; returns the exit code.  A ``stats`` dict
     receives the alignment phase's ``reads`` (SE) or ``pairs`` (PE),
-    ``align_s`` and ``engine``.  ``mesh`` overrides the device list of
-    ``--engine sharded``/``index-sharded`` (it may repeat a device)."""
+    ``align_s``, ``engine`` (the engine object) and ``engine_name`` (the
+    engine that ran: ``auto`` resolved, ``host`` where it gave way).
+    ``mesh`` overrides the device list of the mesh engines and of
+    ``auto``'s choice (it may repeat a device)."""
     if not argv:
         print(USAGE)
         return 1
@@ -302,7 +352,13 @@ def run_single_end(o: Options, genome, index, stats: dict | None = None,
     read count and, into ``stats``, the alignment phase's wall time (engine
     set-up excluded) and the engine."""
     p = o.param
-    engine = make_engine(o, genome, index, mesh)
+
+    def host():
+        from .engine.host_engine import HostEngine
+        return HostEngine(genome, index, p)
+
+    engine = with_host_fallback(
+        o, lambda: make_engine(o, genome, index, mesh), host, stats)
     fmt = SamFormatter(genome, p, RandR(_randr_seed()))
     timer = StepTimer()
     t0 = time.perf_counter()

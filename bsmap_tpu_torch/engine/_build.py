@@ -37,13 +37,13 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P, _P, _P],
     "bsmap_exact_schedule": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _P, _L, _P,
-                             _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                             _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "bsmap_verify_candidates": [_P, _P, _I, _I, _I, _I, _I, _I,
                                 _P, _P, _P, _P, _P,
                                 _P, _I, _P, _I, _P, _P, _P, _L, _P, _L,
                                 _I, _P, _P, _P, _L, _I, _I, _I,
                                 _I, _P, _I, _I,
-                                _P, _P, _P, _P, _P, _P, _P],
+                                _P, _P, _P, _P, _P, _P, _I, _P],
     "bsmap_reduce_reads": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "bsmap_rc_words": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -52,6 +52,11 @@ _SIGNATURES = {
                            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P, _P],
 }
+
+
+# K3's scan and its one-launch form are cooperative launches
+# (cudaLaunchCooperativeKernel with a co-resident grid): grid.sync() on
+# sm_90a needs no relocatable device code (-rdc) and no flag here.
 
 
 def sources() -> list[str]:

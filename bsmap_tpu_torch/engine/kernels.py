@@ -1138,12 +1138,28 @@ def fixed_schedule(cfg, rows, kmer_tab, rows_rc=None) -> Slots:
     return Slots(*outs, zero, zero, ftot)
 
 
+def k2_groups(cfg) -> tuple:
+    """The group widths (lanes per read) K2 takes for ``cfg``, the default
+    first.  WGBS: 32 (a warp a read) and 16 (two reads a warp; its arg-min
+    lanes are the S <= 16 start offsets), 32 first on one chain and 16
+    first on both ('b'), as measured on the H100 (PERF.md section 6).
+    RRBS, whose schedule is one probe per segment: the smallest of 4,
+    8 and 16 that holds maxseg lanes, and 16."""
+    if not cfg.rrbs:
+        return (16, 32) if cfg.chains_mode == "b" else (32, 16)
+    least = next(g for g in (4, 8, 16) if g >= cfg.maxseg)
+    return (least,) if least == 16 else (least, 16)
+
+
 def exact_schedule(cfg, rows, kmer_tab, prof_a, probe: bool = False,
-                   tag_off=None, rows_rc=None, gcnt=None) -> Slots:
+                   tag_off=None, rows_rc=None, gcnt=None,
+                   group: int | None = None) -> Slots:
     """K2 (csrc/exact_schedule.cu) on CUDA tensors, the twin on CPU.  With
     ``probe`` only ``ftot_rank`` is written (the other tensors are left
     uninitialised).  ``cfg.rrbs`` needs the ``tag_off`` table, chains
-    mode 'b' K5's ``rows_rc``, ``cfg.shards`` the global counts ``gcnt``."""
+    mode 'b' K5's ``rows_rc``, ``cfg.shards`` the global counts ``gcnt``.
+    ``group`` is the kernel's lanes per read (one of ``k2_groups(cfg)``,
+    default its first); every width writes the same words."""
     if not rows.is_cuda:
         return exact_schedule_plain(cfg, rows, kmer_tab, prof_a, probe,
                                     tag_off, rows_rc, gcnt)
@@ -1155,8 +1171,9 @@ def exact_schedule(cfg, rows, kmer_tab, prof_a, probe: bool = False,
                 *_rc_rows(cfg, rows, rows_rc))
     m, NB, MS = rows.shape[0], cfg.NB, cfg.maxseg
     dev = rows.device
-    outs = [_empty(dev, m, NB) for _ in range(5)]
-    offs = [_empty(dev, m) for _ in range(2)]
+    # one allocation per shape: the five slot tensors, the two offsets
+    outs = list(_empty(dev, 5, m, NB).unbind(0))
+    offs = list(_empty(dev, 2, m).unbind(0))
     ftot = _empty(dev, m, MS)
     err = _run(
         rows, _build.lib().bsmap_exact_schedule,
@@ -1165,16 +1182,31 @@ def exact_schedule(cfg, rows, kmer_tab, prof_a, probe: bool = False,
         _MODES[cfg.chains_mode], int(probe), int(cfg.rrbs),
         _opt_ptr(cfg.rrbs, tag_off), tag_off.numel() if cfg.rrbs else 0,
         _opt_ptr(gcnt is not None, gcnt),
-        *[_ptr(o) for o in outs + offs], _ptr(ftot), _stream(rows))
+        *[_ptr(o) for o in outs + offs], _ptr(ftot),
+        k2_groups(cfg)[0] if group is None else group, _stream(rows))
     _launched("exact_schedule", err)
     exact_schedule.launches += 1
     return Slots(*outs, *offs, ftot)
 
 
+# K3's scratch ahead of its three dedup tables, in ints: 16 counters and
+# 2,048 64-bit partial sums (csrc/verify_candidates.cu BSM_K3_HEAD)
+K3_SCRATCH_HEAD = 16 + 2 * 2048
+# K3's launch form: 0 = four launches (cooperative scan; verify + insert;
+# two fused dedup passes), 1 = one persistent cooperative launch, the
+# faster on the H100 in every configuration measured (PERF.md section 6);
+# the four-launch form stays as the measurable decomposition (its kernels
+# are the scan, verify and dedup parts that chip_smoke.py times by name)
+K3_VARIANT = 1
+
+
 def verify_candidates(cfg, cands: int, rows, slots: Slots,
-                      tables, rows_rc=None, shard: int = 0) -> Cands:
+                      tables, rows_rc=None, shard: int = 0,
+                      variant: int | None = None) -> Cands:
     """K3 (csrc/verify_candidates.cu) on CUDA tensors, the twin on CPU.
-    ``cfg.shards`` needs region ``shard``'s tables with the ``bounds``."""
+    ``cfg.shards`` needs region ``shard``'s tables with the ``bounds``.
+    ``variant`` picks the kernel's launch form (default ``K3_VARIANT``);
+    both write the same words."""
     if not rows.is_cuda:
         return verify_candidates_plain(cfg, cands, rows, slots, tables,
                                        rows_rc, shard)
@@ -1189,8 +1221,8 @@ def verify_candidates(cfg, cands: int, rows, slots: Slots,
     dev = rows.device
     T = dedup_table_size(cands)
     starts = _empty(dev, m * NB + 1)
-    scratch = _empty(dev, 1 + 3 * T)
-    out = [_empty(dev, cands) for _ in range(4)]
+    scratch = _empty(dev, K3_SCRATCH_HEAD + 3 * T)
+    out = list(_empty(dev, 4, cands).unbind(0))
     err = _run(
         rows, _build.lib().bsmap_verify_candidates,
         _ptr(rows), _opt_ptr(rows_rc is not None, rows_rc), m, cfg.nw,
@@ -1206,7 +1238,8 @@ def verify_candidates(cfg, cands: int, rows, slots: Slots,
         tables["sites"].numel() if cfg.rrbs else 0, cfg.tail, cfg.min_ins,
         cfg.max_ins, shard, _opt_ptr(bool(cfg.shards), tables.get("bounds")),
         cfg.shards + 1 if cfg.shards else 0, T, _ptr(starts), _ptr(scratch),
-        *[_ptr(o) for o in out], _stream(rows))
+        *[_ptr(o) for o in out],
+        K3_VARIANT if variant is None else variant, _stream(rows))
     _launched("verify_candidates", err)
     verify_candidates.launches += 1
     return Cands(starts, *out)

@@ -34,8 +34,10 @@ def run_pair_end(o, genome, index, stats: dict | None = None,
     set-up excluded) and the engine.  ``mesh``: the device list of the
     mesh engines (``cli.make_engine``)."""
     p = o.param
-    engine = make_pair_engine(o, genome, index, mesh)
-    from ..cli import _randr_seed
+    from ..cli import _randr_seed, with_host_fallback
+    engine = with_host_fallback(
+        o, lambda: make_pair_engine(o, genome, index, mesh),
+        lambda: HostPairBatch(genome, index, p), stats)
     fmt = PairFormatter(genome, p, RandR(_randr_seed()))
     t0 = time.perf_counter()
     if (getattr(engine, "supports_pair_blocks", lambda: False)()
@@ -182,17 +184,22 @@ def run_pair_end_blocks(o, genome, engine, fmt) -> int:
 def make_pair_engine(o, genome, index, mesh=None):
     """``--engine host`` is the exact per-pair host engine; anything else
     is the PyTorch PE engine on ``o.device`` (which raises when that device
-    is missing), over the SE engine that ``--engine sharded`` or
-    ``index-sharded`` names (``cli.make_engine``)."""
-    if o.engine == "host":
+    is missing, and ``EngineUnsupported`` on pair-end RRBS), over the SE
+    engine that ``--engine sharded`` or ``index-sharded`` names, or that
+    ``auto`` picks when more than one card is visible
+    (``cli.resolve_engine``, as bsmap_tpu's make_pair_engine)."""
+    from ..cli import make_engine, resolve_engine
+    name, mesh = resolve_engine(o, mesh)
+    if name == "host":
         return HostPairBatch(genome, index, o.param)
     from .pair_device import PairDeviceEngine
     se = None
-    if o.engine in ("sharded", "index-sharded"):
-        from ..cli import make_engine
+    if name in ("sharded", "index-sharded"):
         se = make_engine(o, genome, index, mesh)
-    return PairDeviceEngine(genome, index, o.param, device=o.device,
-                            se_engine=se)
+    engine = PairDeviceEngine(genome, index, o.param, device=o.device,
+                              se_engine=se)
+    engine.engine_name = name
+    return engine
 
 
 class HostPairBatch:

@@ -14,10 +14,28 @@ Phases (each raises on failure; any failure exits non-zero):
      65,536-read window: fixed lean (round 1), exact lean at both capacity
      tiers, exact full rows, and the probe pass.  Equal bit for bit
      (int32 throughout, tolerance 0); CUDA-event medians of 7 runs;
-  4. the main path: ``bsmap_tpu_torch.cli.run`` on all 1M reads on cuda;
+     Then what no real window reaches.  K3 on synthetic slot counts put
+     in place of the window's (``k3_synthetic_counts``: none; one slot
+     holding the capacity; a count past the 2^30 saturation limit and a
+     run of them; totals one under, at and one over the capacity; two full
+     slots with only empty ones between, past what a block stages in
+     shared memory; every slot 0-2), on the window, on one read and on slot
+     counts beside a multiple of the scan's tile, with the reads' budgets
+     and with every candidate eligible (all dedup rounds run), in both
+     launch forms, the whole set twice in a row.  K2 on the reads cut to
+     51 nt and on reads built to tie, at -v 2, 4 and 5 (prefix sums of
+     several scan rounds), slot rows and the probe pass, at both group
+     widths.  The same K2 cases run under cfg.rrbs in phases 13 and 19, on
+     both chains in 16, on the global counts in 20.  Times: each kernel's
+     wrapper call by CUDA events, and for K2 and K3 the kernels' own time
+     from a profiler trace, the other launch form / group width in turns,
+     and one ``torch.cumsum`` of the clamped counts as a yardstick for K3's
+     scan part (the port never calls it);
+  4. the main path: ``bsmap_tpu_torch.cli.run`` on all 1M reads on cuda
+     (no --engine: ``auto``, the single-device engine on one card);
   5. repeat-heavy data: one 46.7 Mb chromosome with 8% repeats, 100,000
      reads (probe mode and round 2);
-  6. byte parity: the first 10,000 reads of both datasets, GPU run against
+  6. byte parity: the first 5,000 reads of both datasets, GPU run against
      the port's exact host engine;
   7. pair-end data: one 4.6 Mb chromosome, 200,000 pairs of 76 nt
      (tools/genreads.generate_pe, BASELINE config 2); genome + index;
@@ -27,8 +45,8 @@ Phases (each raises on failure; any failure exits non-zero):
      for bit, CUDA-event medians of 7 runs;
   9. the pair-end main path: ``cli.run`` with -a/-b on all 200,000 pairs
      on cuda; at least 90% properly paired;
- 10. byte parity: the first 10,000 pairs, GPU run against the host engine;
- 11. the pair-end paths that error-free pairs never reach: 10,000 simulated
+ 10. byte parity: the first 5,000 pairs, GPU run against the host engine;
+ 11. the pair-end paths that error-free pairs never reach: 5,000 simulated
      pairs with 2% errors (tools/simulate.py), every 8th cut to 51 nt (a
      length whose seed schedule may read stale state: host replays),
      through the block path (SAM; phase 2 at full rank) and the per-pair
@@ -41,8 +59,8 @@ Phases (each raises on failure; any failure exits non-zero):
      equal bit for bit, CUDA-event medians of 7 runs;
  14. the RRBS main path: ``cli.run`` with -D C-CGG -A AGATCGGAAGAGC -q 2
      -S 17 on all 200,000 reads on cuda; at least 90% aligned;
- 15. RRBS byte parity against the host engine: the first 10,000 reads of
-     phase 12 (SAM, trimming), and 10,000 mixed-strand reads with
+ 15. RRBS byte parity against the host engine: the first 5,000 reads of
+     phase 12 (SAM, trimming), and 5,000 mixed-strand reads with
      mismatches on a two-chromosome digest (``make_rrbs_set``, the CPU
      tests' generator) as SAM with -m 100 -x 150 and as BSP.
  16. -n 1 (all four strands), non-directional headline data: the reads of
@@ -52,7 +70,7 @@ Phases (each raises on failure; any failure exits non-zero):
      65,536-read window; equal bit for bit, CUDA-event medians of 7 runs;
  17. the -n 1 main path: ``cli.run -n 1 -v 2 -S 17`` on all 1,000,000 of
      them on cuda; at least 90% aligned, both chains among the picks; the
-     first 10,000 reads byte-identical to the host engine;
+     first 5,000 reads byte-identical to the host engine;
  18. PE -n 1 on the 200,000 pairs of phase 7 with every second pair's
      mates swapped: K5, both mates' K2/K3/K4 on 'b' with cfg.pe and 16 hits
      and K6 against their twins; ``cli.run`` with at least 90% properly
@@ -80,16 +98,18 @@ Phases (each raises on failure; any failure exits non-zero):
      replays, which are left out;
  21. SE through ``IndexShardedEngine`` (``--engine index-sharded``, the D =
      4 mesh of phase 20) on phase 5's 100,000 reads: the SAM byte-identical
-     to phase 5's, its first 10,000 reads to phase 6's host-engine output;
+     to phase 5's, its first 5,000 reads to phase 6's host-engine output;
      reads/s, replays, and the replays past the single-device run's (corner
      reads and per-shard dedup failures); then both engines timed at -v 5
      (BASELINE config 4's budget), byte-identical;
  22. SE through ``ShardedDeviceEngine`` (``--engine sharded``, D = 2 read
      stripes) on phase 4's 1,000,000 reads, byte-identical to phase 4's SAM;
- 23. PE through both mesh engines on phase 11's 10,000 error pairs (the
+ 23. PE through both mesh engines on phase 11's 5,000 error pairs (the
      per-pair path; their SE engine overrides the dispatch): D = 2 with
      phase 11's SAM flags, D = 4 with its BSP -2 flags, each byte-identical
      to phase 11's host-engine output.
+ 24. K2 at -s 12 -I 2 (after phase 11, on its reads' first mates): the K2
+     cases of phase 3 on 'f' and 'b', then K3 and K4 on the -v 4 slots.
 
 The kernels' launch counters are zeroed right before each run of a main
 path and read right after it: phase 4 to 5 (the single-end path: K1-K4
@@ -104,7 +124,10 @@ the twin's at the single-end headline window (the pair-end one for K5 and
 K6), and its bound there: the bytes it must move over the card's memory
 rate, or its int32 operations over the card's non-tensor peak, whichever
 is larger.  No single PyTorch call computes any of these functions, so
-``library_ms`` is null.  The last lines are the per-kernel JSON, the card's
+``library_ms`` is null.  K2's and K3's rows also carry ``device_ms`` and
+``parts_ms`` (the kernels' own time, by kernel name), the launch form or
+group width in use with the other one's times, and K3's
+``scan_cumsum_ms``.  The last lines are the per-kernel JSON, the card's
 name and power limit, and the result line.  Exits non-zero without
 printing a result when torch sees no CUDA device.
 """
@@ -127,7 +150,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_HEADLINE = 1_000_000
 N_REPEAT = 100_000
-N_PARITY = 10_000
+N_PARITY = 5_000
 N_PAIRS = 200_000
 # phase 11: (tag, flags, output suffix [, -2], the least n_dispatched and
 # n_replayed that show the path's corners ran: phase 2, host replays)
@@ -170,6 +193,12 @@ RRBS_PATH = ("exact_schedule", "verify_candidates", "reduce_reads")
 N_SHARDS = 4                     # phases 20, 21 and 23's D = 4 runs
 INDEX_SHARDED_PATH = ("exact_schedule", "verify_candidates", "merge_shards")
 RRBS_ADAPTER = "AGATCGGAAGAGC"
+# per-kernel extras of the JSON line: the launch form or group width in use
+# and the other one's time, K3's parts by kernel name, the library scan
+FORM_KEYS = ("device_ms", "parts_ms", "variant", "variant_ms",
+             "other_variant", "other_variant_ms", "group", "group_ms",
+             "other_group", "other_group_ms", "other_device_ms",
+             "scan_cumsum_ms")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12                # its non-tensor (float32) peak, for int32 ops
 _COMP = bytes.maketrans(b"ACGTN", b"TGCAN")
@@ -283,6 +312,188 @@ def rc_chain_share(sam: str) -> tuple[int, int]:
     return n, rc
 
 
+def k3_synthetic_counts(N: int, cands: int, seed: int = 7) -> list:
+    """Slot-count patterns for K3's scan and slot lookup that real windows
+    never reach, as (name, (N,) int32 numpy array): no candidate at all; one
+    slot holding the whole capacity; one count past the 2^30 saturation
+    limit in the middle, and a run of them (their sum passes 2^31); totals
+    one under, at and one over ``cands``; two full slots with every slot
+    between them empty (a block of candidates then spans more slots than
+    the kernel stages in shared memory); and every slot holding 0-2."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sat = 1 << 30
+
+    def sparse(total: int):
+        """``total`` candidates over about a tenth of the slots."""
+        c = np.zeros(N, np.int64)
+        k = max(1, min(N, total, N // 10))
+        idx = rng.choice(N, size=k, replace=False)
+        c[idx] = 1 + rng.multinomial(total - k, np.full(k, 1.0 / k))
+        return c
+
+    zero = np.zeros(N, np.int64)
+    one = zero.copy()
+    one[N // 3] = cands
+    sat1 = sparse(cands // 2)
+    sat1[N // 2] = sat + 5
+    run = sparse(cands // 4)
+    run[N // 2: N // 2 + 4] = sat
+    far = zero.copy()
+    first = max(cands // 2 - 100, 1)
+    far[min(5, N - 1)] = first
+    far[max(N - 7, 0)] += cands - first
+    cases = [("all zero", zero), ("one slot holds all", one),
+             ("a count past 2^30", sat1), ("a run of 2^30 counts", run),
+             ("total cands - 1", sparse(cands - 1)),
+             ("total cands", sparse(cands)),
+             ("total cands + 1", sparse(cands + 1)),
+             ("two full slots far apart", far),
+             ("every slot 0-2", rng.integers(0, 3, size=N))]
+    return [(name, c.astype(np.int32)) for name, c in cases]
+
+
+def k3_near_tile_shapes(nch: int, tile: int = 1024) -> list:
+    """(maxseg, I, reads) whose slot count maxseg*nch*I*reads lies one (or,
+    where parity forbids it, two) under and over a multiple of the scan's
+    tile."""
+    out = []
+    for sign in (-1, 1):
+        for d in (1, 2):
+            hit = [(ms, i, (tile + sign * d) // (ms * nch * i))
+                   for ms in range(2, 17) for i in (1, 2, 3, 4)
+                   if (tile + sign * d) % (ms * nch * i) == 0]
+            if hit:
+                out.append(hit[0])
+                break
+    return out
+
+
+def phase_k3_synthetic(K, cfg, cands: int, rows, slots, tabs, rc, errs: dict,
+                       tag: str, repeats: int = 2) -> None:
+    """K3 on synthetic slot counts against its twin: every pattern of
+    ``k3_synthetic_counts`` on the whole window, on a window of one read
+    and on windows whose slot count lies beside a multiple of the scan's
+    tile; each with the reads' own budgets and with a budget no candidate
+    exceeds (every in-bounds candidate eligible: all three dedup rounds
+    and the compact list run); both launch forms of the kernel; the whole
+    set ``repeats`` times in a row, so each call finds the previous call's
+    scratch."""
+    import torch
+    nw = cfg.nw
+    shapes = [(cfg, rows.shape[0]), (cfg, 1)] + [
+        (cfg._replace(maxseg=ms, I=i), m)
+        for ms, i, m in k3_near_tile_shapes(cfg.nch)]
+    if max(m for _, m in shapes) > rows.shape[0]:
+        raise ValueError(f"the window holds {rows.shape[0]} reads, fewer "
+                         "than the shapes beside a tile multiple need")
+    n_cases = n_round2 = 0
+    for rep in range(repeats):
+        for c, m in shapes:
+            NB = c.NB
+            r = rows[:m].contiguous()
+            rcm = None if rc is None else rc[:m].contiguous()
+            loose = r.clone()
+            loose[:, 2 * nw + 1] = 255
+            rc_loose = None if rcm is None else rcm.clone()
+            if rc_loose is not None:
+                rc_loose[:, 2 * nw + 1] = 255    # K5 copies the budget
+            base = [t[:m, :NB].contiguous() for t in slots[:4]]
+            for name, cnt in k3_synthetic_counts(m * NB, cands):
+                sl = K.Slots(*base, torch.from_numpy(cnt).to(r.device)
+                             .reshape(m, NB), slots.s_off[:m],
+                             slots.c_off[:m], slots.ftot_rank[:m])
+                for rr, rrc, budget in ((r, rcm, "own budgets"),
+                                        (loose, rc_loose, "budget 255")):
+                    want = K.verify_candidates_plain(c, cands, rr, sl, tabs,
+                                                     rrc)
+                    for variant in (0, 1):
+                        got = K.verify_candidates(c, cands, rr, sl, tabs, rrc,
+                                                  variant=variant)
+                        check(errs, "verify_candidates",
+                              f"synthetic, {name}, {m} reads x {NB} slots, "
+                              f"{budget}, variant {variant}, pass {rep}",
+                              got, want)
+                    n_cases += 1
+                    n_round2 = max(n_round2, int(
+                        ((want.info & K.INFO_UNRESOLVED) != 0).sum()))
+    log(f"[{tag}] K3 synthetic slot counts: {n_cases} cases x 2 launch "
+        f"forms over shapes {[(c.maxseg, c.I, m) for c, m in shapes]} "
+        f"(maxseg, I, reads), {repeats} passes; up to {n_round2} candidates "
+        "unresolved after three dedup rounds — kernels == twins")
+
+
+def k2_row_variants(rows_np, nw: int) -> dict:
+    """Dispatch rows that stress K2's tie rules and short schedules, from a
+    window's rows (numpy, (m, 2nw+4) int32): the rows as read; the reads
+    cut to 51 nt (no room for a start offset: (len - I + 1) % S == 0 at
+    -s 16 -I 4, and fewer segments than maxseg at -v 4 and up); and reads
+    built to tie: every second read one repeated base (equal bucket costs
+    at every position, so every arg-min and the segment order tie), every
+    fourth a 16-base pattern repeated (segments tie, offsets do not)."""
+    import numpy as np
+    cut = rows_np.copy()
+    lane = np.arange(16 * nw).reshape(nw, 16)
+    keep = np.where(lane < 51, 3, 0).astype(np.uint64)
+    mask = (keep << (2 * (15 - np.arange(16, dtype=np.uint64)))[None, :]
+            ).sum(axis=1).astype(np.uint32).view(np.int32)
+    cut[:, : 2 * nw] &= np.concatenate([mask, mask])[None, :]
+    cut[:, 2 * nw] = np.minimum(cut[:, 2 * nw], 51)
+    ties = rows_np.copy()
+    ties[::2, :nw] = -1                                  # all one base
+    ties[1::4, :nw] = np.int32(0x1B1B6C93)               # one word repeated
+    return {"as read": rows_np, "51 nt": cut, "built to tie": ties}
+
+
+def k2_budget_cfg(cfg, v: int):
+    """``cfg`` at a budget of ``v`` mismatches (-v v): v + 1 segments and
+    the schedule table that goes with them (device_engine.make_cfg)."""
+    ms = v + 1
+    return cfg._replace(maxseg=ms, P=min(16 * cfg.nw - cfg.S + 1,
+                                         ms * cfg.S + 2 * cfg.I))
+
+
+def phase_k2_cases(K, cfg, rows_np, tabs, dev, errs: dict, tag: str,
+                   budgets=(2, 4, 5), gcnt=None) -> None:
+    """K2 against its twin beyond the main path's windows: the row
+    variants of ``k2_row_variants`` at each budget (more segments: at -v 5
+    the prefix sum of a -s 16 read spans 100 words, several scan rounds),
+    at full rank, slot rows and the probe pass, with both group widths of
+    the kernel; ``cfg`` carries the chains ('f', 'r' or 'b') and the index
+    sharding (``gcnt``)."""
+    import torch
+    nw = cfg.nw
+    n = 0
+    for v in budgets:
+        c = k2_budget_cfg(cfg, v)
+        for name, r_np in k2_row_variants(rows_np, nw).items():
+            r_np = r_np.copy()
+            r_np[:, 2 * nw + 1] = v
+            r_np[:, 2 * nw + 3] = c.maxseg - 1
+            rows, rc = K.chain_inputs(c, torch.from_numpy(r_np).to(dev))
+            kw = dict(tag_off=tabs.get("tag_off"), rows_rc=rc, gcnt=gcnt)
+            want = K.exact_schedule_plain(c, rows, tabs["kmer_tab"],
+                                          tabs["prof_a"], **kw)
+            for group in K.k2_groups(c):
+                got = K.exact_schedule(c, rows, tabs["kmer_tab"],
+                                       tabs["prof_a"], group=group, **kw)
+                check(errs, "exact_schedule",
+                      f"{name}, -v {v}, group {group}", got, want)
+                got = K.exact_schedule(c._replace(probe=True), rows,
+                                       tabs["kmer_tab"], tabs["prof_a"],
+                                       probe=True, group=group, **kw)
+                check(errs, "exact_schedule",
+                      f"{name}, -v {v}, probe, group {group}",
+                      [got.ftot_rank], [want.ftot_rank])
+            n += 1
+    log(f"[{tag}] K2 '{cfg.chains_mode}' -s {cfg.S} -I {cfg.I}"
+        f"{' on global counts' if gcnt is not None else ''}: {n} cases "
+        f"(rows as read, cut to 51 nt, built to tie; -v "
+        f"{'/'.join(map(str, budgets))}) x slot rows and probe x groups of "
+        f"{' and '.join(map(str, K.k2_groups(cfg)))} lanes — kernels == "
+        "twins")
+
+
 def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0) -> dict:
     """The least time the card could take for one call of kernel ``name``
     on this window (m reads or pairs; ncand live candidates of a capacity
@@ -299,8 +510,13 @@ def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0) -> dict:
         nbytes = m * (nch * row + 32 * NB + 20 * NB + 4 * MS)
         ops = 2 * m * NB * seed_ops
     elif name == "exact_schedule":
-        nbytes = m * (nch * row + 32 * nch * cfg.P + 20 * NB + 8 + 4 * MS)
-        ops = m * nch * (cfg.P * seed_ops + 4 * MS * S * MS + NB * seed_ops)
+        # cost gathers: every schedule position (the slot rows are among
+        # them), or under RRBS one probe per segment plus the slots'
+        # tag_off pairs
+        gathers = nch * MS + NB if cfg.rrbs else nch * cfg.P
+        nbytes = m * (nch * row + 32 * gathers + 20 * NB + 8 + 4 * MS)
+        ops = m * ((gathers + NB) * seed_ops
+                   + (0 if cfg.rrbs else 4 * nch * MS * S * MS))
     elif name == "verify_candidates":
         nbytes = (m * (nch * row + 20 * NB) + 4 * (m * NB + 1)
                   + 64 * ncand + 16 * cands)
@@ -327,7 +543,20 @@ def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0) -> dict:
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
+_PHASE_S: dict = {}
+_LAST_LOG = [time.time()]
+
+
 def log(msg: str) -> None:
+    """Print one progress line; the seconds since the previous line are
+    booked to the line's leading [phase] tag (``_PHASE_S``, printed in the
+    summary)."""
+    now = time.time()
+    m = re.match(r"\s*\[(\w+)\]", msg)
+    if m:
+        _PHASE_S[m.group(1)] = _PHASE_S.get(m.group(1), 0.0) \
+            + now - _LAST_LOG[0]
+    _LAST_LOG[0] = now
     print(msg, flush=True)
 
 
@@ -392,6 +621,91 @@ def timed_pair(name: str, kern, plain, what: str) -> dict:
     log(f"    {name}: kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} "
         f"ms ({what})")
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
+
+
+def queued_ms(fn, reps: int = 20, holds=(40.0, 120.0, 360.0)):
+    """The card's own time for one call of ``fn``, ms: ``reps`` calls are
+    enqueued behind a spin kernel that holds the stream for a while, so
+    the host has enqueued them all before the first one starts and the
+    CUDA-event interval around them holds no wait for the host (which the
+    event time of a single call does when the host is the slower side).
+    A try in which the host needed longer than 0.8 of the hold (a stalled
+    host) is repeated with a longer hold; None when every try was."""
+    import torch
+    fn()
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 1_755_000)
+    for hold_ms in holds:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(hold_ms * khz))
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if host_ms <= 0.8 * hold_ms:
+            return a.elapsed_time(b) / reps
+        log(f"    queued_ms: the host took {host_ms:.1f} ms to enqueue {reps} "
+            f"calls behind a {hold_ms:.0f} ms hold")
+    return None
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
+
+
+def device_ms(res: dict, timed: dict, what: str) -> None:
+    """For K2 and K3, the card's own time for a call (``queued_ms``) beside
+    the wrapper call's event time: res[name]["device_ms"]."""
+    for name in ("exact_schedule", "verify_candidates"):
+        if name in timed:
+            res[name]["device_ms"] = queued_ms(timed[name][0])
+            log(f"    {what} {name}: {_ms(res[name]['device_ms'])} a call "
+                "on the card (calls queued behind a hold)")
+
+
+def timed_forms(name: str, key: str, forms: tuple, call) -> dict:
+    """Two forms of one kernel (``forms[0]`` the one in use) timed in turns
+    (a, b, b, a); returns {key: forms[0], "other_<key>": forms[1],
+    "other_<key>_ms": its time} and logs both."""
+    a, b = forms
+    t = [cuda_ms(lambda f=f: call(f)) for f in (a, b, b, a)]
+    ta, tb = min(t[0], t[3]), min(t[1], t[2])
+    log(f"    {name}: {key} {a} {t[0]:.3f}/{t[3]:.3f} ms, {key} {b} "
+        f"{t[1]:.3f}/{t[2]:.3f} ms")
+    return {key: a, f"{key}_ms": ta, f"other_{key}": b,
+            f"other_{key}_ms": tb}
+
+
+def kernel_parts_ms(fn, reps: int = 5) -> dict:
+    """Device time per CUDA kernel name, ms per launch (each of K3's kernels
+    launches once a call), from a torch.profiler trace of ``reps`` calls of
+    ``fn``: the kernel's time over the launches the trace recorded, since a
+    later profiler session of one process sometimes records only some of
+    them.  A trace that holds no device event is taken once more; {} when
+    that one is empty too."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for _attempt in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+            if t and ev.count and ev.device_type.name == "CUDA":
+                out[ev.key.split("(")[0]] = round(t / 1000.0 / ev.count, 5)
+        if out:
+            break
+    return out
 
 
 def phase_build() -> None:
@@ -526,6 +840,11 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda",
     # K1/K3/K4 (and K5), the full-rank exact schedule for K2
     cfg_f = cfg_lean._replace(fixed=True)
     s_f = K.fixed_schedule(cfg_f, rows0, tabs["kmer_tab"], rc0)
+    # what no real window reaches: K3 on synthetic slot counts (in place
+    # of this window's), K2 on short and tying reads at larger budgets
+    phase_k3_synthetic(K, cfg_f, eng.CANDS, rows0, s_f, tabs, rc0, errs,
+                       phase)
+    phase_k2_cases(K, cfg_lean, rows0.cpu().numpy(), tabs, dev, errs, phase)
     vc_f = K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f, tabs, rc0)
     ncand = min(int(vc_f.starts[-1]), eng.CANDS)
     timed = {
@@ -560,6 +879,46 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda",
             res[name].update(timed_pair(f"[{phase}] '{mode}' {name}", kern,
                                         plain, f"{m} reads; bound "
                                         f"{res[name]['bound_ms']:.4f} ms"))
+    if dev == "cuda":
+        # the other launch form of K3 and the other group width of K2, in
+        # turns with the ones in use; K3's parts by kernel name; and, as a
+        # yardstick for the scan part alone (the port never calls it), one
+        # library scan of the same counts
+        what = f"[{phase}] '{mode}'"
+        v, (g, g_other) = K.K3_VARIANT, K.k2_groups(cfg_lean)
+        res["verify_candidates"].update(timed_forms(
+            f"{what} verify_candidates launch form", "variant", (v, 1 - v),
+            lambda form: K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f,
+                                             tabs, rc0, variant=form)))
+        res["exact_schedule"].update(timed_forms(
+            f"{what} exact_schedule lanes per read", "group", (g, g_other),
+            lambda form: K.exact_schedule(cfg_lean, rowsF, tabs["kmer_tab"],
+                                          tabs["prof_a"], rows_rc=rcF,
+                                          group=form)))
+        device_ms(res, timed, what)
+        for kname, form, fn in (
+                ("verify_candidates", 1 - v, lambda: K.verify_candidates(
+                    cfg_f, eng.CANDS, rows0, s_f, tabs, rc0, variant=1 - v)),
+                ("exact_schedule", g_other, lambda: K.exact_schedule(
+                    cfg_lean, rowsF, tabs["kmer_tab"], tabs["prof_a"],
+                    rows_rc=rcF, group=g_other))):
+            res[kname]["other_device_ms"] = queued_ms(fn)
+            log(f"    {what} {kname}, the other form ({form}): "
+                f"{_ms(res[kname]['other_device_ms'])} a call on the card")
+        # K3's parts (scan, verify, dedup) by kernel name, both forms
+        for form in (v, 1 - v):
+            parts = kernel_parts_ms(lambda: K.verify_candidates(
+                cfg_f, eng.CANDS, rows0, s_f, tabs, rc0, variant=form))
+            log(f"    {what} verify_candidates variant {form}, ms per launch "
+                f"by kernel (torch.profiler): {json.dumps(parts)}")
+            if form == v and parts:
+                res["verify_candidates"]["parts_ms"] = parts
+        flat = s_f.cnt.reshape(-1)
+        lib = cuda_ms(lambda: torch.cumsum(
+            flat.clamp(max=2 ** 30).long(), 0))
+        log(f"    {what} torch.cumsum of the {flat.numel()} clamped counts "
+            f"(int64): {lib:.4f} ms (yardstick for K3's scan part only)")
+        res["verify_candidates"]["scan_cumsum_ms"] = lib
     del eng, tabs, s_f, vc_f, rows0, rowsF, rc0, rcF
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -586,7 +945,8 @@ def phase_align(tag: str, gpath: str, rpath: str, out: str,
     log(f"[{tag}] {st['reads']} reads in {st['align_s']:.3f} s = "
         f"{rate:.1f} reads/s; {lines} mapped; n_dispatched "
         f"{eng.n_dispatched}, n_probe {eng.n_probe}, n_replayed "
-        f"{eng.n_replayed}, probe_mode {eng.probe_mode}")
+        f"{eng.n_replayed}, probe_mode {eng.probe_mode}; engine "
+        f"{st['engine_name']}")
     return {"reads_per_s": rate, "align_s": st["align_s"],
             "n_dispatched": eng.n_dispatched, "n_probe": eng.n_probe,
             "n_replayed": eng.n_replayed}
@@ -741,6 +1101,7 @@ def phase_pe_kernels(o, genome, index, r1: str, r2: str,
             res[name].update(timed_pair(
                 f"[{phase}] {name}", kern, plain,
                 f"{what}; bound {res[name]['bound_ms']:.4f} ms"))
+        device_ms(res, timed, f"[{phase}]")
     del eng, tabs, window, s_b, vc_b, fwd, rc
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -789,7 +1150,7 @@ def phase_pe_parity(gpath: str, r1: str, r2: str, d: str,
 
 
 def make_pe_err_set(d: str, g: str, r1: str, r2: str) -> None:
-    """Phase 11's data: 10,000 simulated pairs of 76 nt with 2% errors on a
+    """Phase 11's data: 5,000 simulated pairs of 76 nt with 2% errors on a
     2 x 1 Mb genome, every 8th pair cut to 51 nt (stale-schedule reads: host
     replays)."""
     os.makedirs(d)
@@ -924,6 +1285,8 @@ def phase_rrbs_kernels(o, genome, index, rpath: str, dev: str = "cuda",
             f"{int(vc.starts[-1])} candidates, {n_first} first of their key "
             f"({n_rc} on the rc chain), {n_frag} inside a valid fragment, "
             f"{found} found — kernels == twins")
+    phase_k2_cases(K, cfg_lean, rows_np, tabs, dev, errs, phase,
+                   budgets=(2, 4))
     s_l = schedule(cfg_lean)
     vc_l = K.verify_candidates(cfg_lean, cands, fwd, s_l, tabs, rc)
     m, ncand = rows.shape[0], min(int(vc_l.starts[-1]), cands)
@@ -948,6 +1311,17 @@ def phase_rrbs_kernels(o, genome, index, rpath: str, dev: str = "cuda",
                 f"[{phase}] '{mode}' {name}", kern, plain,
                 f"{m} RRBS reads, lean, big tier; bound "
                 f"{res[name]['bound_ms']:.4f} ms"))
+        device_ms(res, timed, f"[{phase}] '{mode}'")
+        v, groups = K.K3_VARIANT, K.k2_groups(cfg_lean)
+        res["verify_candidates"].update(timed_forms(
+            f"[{phase}] '{mode}' verify_candidates launch form", "variant",
+            (v, 1 - v), lambda form: K.verify_candidates(
+                cfg_lean, cands, fwd, s_l, tabs, rc, variant=form)))
+        res["exact_schedule"].update(timed_forms(
+            f"[{phase}] '{mode}' exact_schedule lanes per read", "group",
+            (groups[0], groups[-1]), lambda form: K.exact_schedule(
+                cfg_lean, fwd, tabs["kmer_tab"], tabs["prof_a"],
+                tag_off=tabs["tag_off"], rows_rc=rc, group=form)))
     del eng, tabs, rows, fwd, rc, s_l, vc_l
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -957,7 +1331,7 @@ def phase_rrbs_kernels(o, genome, index, rpath: str, dev: str = "cuda",
 def phase_rrbs_set(root: str, dev: str = "cuda", extra=(),
                    phase: str = "15") -> dict:
     """Phase 15 (and with ``extra`` = -n 1, phase 19's part), second part:
-    10,000 mixed-strand reads with mismatches on a two-chromosome digest
+    5,000 mixed-strand reads with mismatches on a two-chromosome digest
     (with -n 1 every second read reverse-complemented), SAM in a -m 100
     -x 150 window and BSP, each on ``dev`` against the host engine byte for
     byte; returns the launch counts summed over the GPU runs, each of which
@@ -993,6 +1367,55 @@ def phase_rrbs_set(root: str, dev: str = "cuda", extra=(),
             f"{st['engine'].n_replayed}; launches {counts}; byte-identical "
             f"to the host engine ({size} bytes)")
     return total
+
+
+def phase_small_seed(root: str, dev: str = "cuda", phase: str = "24") -> dict:
+    """Phase 24: K2 at -s 12 -I 2 (a schedule of other proportions: 12-base
+    seeds every second position) on phase 11's reads (76 nt, every 8th cut
+    to 51 nt, 2% errors), first mates as single-end reads: the cases of
+    ``phase_k2_cases`` on 'f' and 'b', then K3 and K4 on the -v 4
+    full-rank slots; returns per-kernel {max_abs_err}."""
+    import torch
+    from bsmap_tpu_torch import native
+    from bsmap_tpu_torch.blockio import BlockReadStream
+    from bsmap_tpu_torch.cli import get_index, parse_args
+    from bsmap_tpu_torch.engine import kernels as K
+    from bsmap_tpu_torch.engine.device_engine import DeviceEngine
+    from bsmap_tpu_torch.reference import load_genome
+    d = os.path.join(root, "pe_err")
+    g, r1 = os.path.join(d, "ref.fa"), os.path.join(d, "r1.fq")
+    o = parse_args(["-a", r1, "-d", g, "-o", "x.sam", "-s", "12", "-I", "2",
+                    "-v", "4", "-S", "1"])
+    genome = load_genome(g, o.param)
+    eng = DeviceEngine(genome, get_index(o, genome), o.param, device=dev)
+    stream = BlockReadStream(r1, o.param, readset=0, lib=native.get_lib())
+    blk = stream.next_block(eng.B)
+    stream.close()
+    nw, _live, rows_np, _b = eng.block_rows(blk)
+    rows_np = rows_np.copy()
+    rows_np[:, -1] = eng._maxseg - 1
+    errs = {k: 0 for k in RRBS_PATH}
+    tabs = eng.tables
+    for mode in ("f", "b"):
+        cfg = eng._cfg(mode, nw=nw)
+        phase_k2_cases(K, cfg, rows_np, tabs, dev, errs, phase)
+        rows, rc = K.chain_inputs(cfg, torch.from_numpy(rows_np).to(dev))
+        slots = K.exact_schedule(cfg, rows, tabs["kmer_tab"], tabs["prof_a"],
+                                 rows_rc=rc)
+        vc = K.verify_candidates(cfg, eng.CANDS_BIG, rows, slots, tabs, rc)
+        check(errs, "verify_candidates", f"-s 12 -I 2 '{mode}'", vc,
+              K.verify_candidates_plain(cfg, eng.CANDS_BIG, rows, slots, tabs,
+                                        rc))
+        out = K.reduce_reads(cfg, eng.CANDS_BIG, rows, vc, slots)
+        check(errs, "reduce_reads", f"-s 12 -I 2 '{mode}'", [out],
+              [K.reduce_reads_plain(cfg, eng.CANDS_BIG, rows, vc, slots)])
+        log(f"[{phase}] -s 12 -I 2 -v 4 '{mode}': {rows.shape[0]} reads, "
+            f"{cfg.NB} slots a read, {int(vc.starts[-1])} candidates, "
+            f"{int(out[:, 2 * cfg.maxseg].sum())} found — kernels == twins")
+    del eng, tabs
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {k: {"max_abs_err": v} for k, v in errs.items()}
 
 
 def shard_mesh(n: int) -> list:
@@ -1138,6 +1561,8 @@ def phase_shard_kernels(o, genome, index, rpath: str, dev: str = "cuda",
                                                   "slots"))
         r0, fwd, rc = keep["rows"]
         t0_ = eng.shard_tables[0]
+        phase_k2_cases(K, cfg, rows0.numpy(), t0_, mesh[0], errs, phase,
+                       budgets=(2, 5), gcnt=t0_["gcnt"])
         fwdF, rcF = K.chain_inputs(cfg, rowsF.to(mesh[0]))
         kt, pa, gc = t0_["kmer_tab"], t0_["prof_a"], t0_["gcnt"]
         timed = {
@@ -1174,6 +1599,8 @@ def phase_shard_kernels(o, genome, index, rpath: str, dev: str = "cuda",
                     f"[{phase}] '{mode}' {name}", kern, plain,
                     f"{m} reads, {'all shards' if whole else 'shard 0'}; "
                     f"bound {res[name]['bound_ms']:.4f} ms"))
+        if dev == "cuda":
+            device_ms(res, timed, f"[{phase}] '{mode}' shard 0")
         return res
 
     out = [one_mode(mode) for mode in ("f", "b")]
@@ -1389,6 +1816,7 @@ def main() -> int:
         need_launches("[9] pair-end run", c9, PE_PATH)
         phase_pe_parity(gp, p1, p2, os.path.join(root, "pe_parity"))
         main_runs.append(phase_pe_paths(root))
+        sres24 = phase_small_seed(root)
 
         gr, rr, orr, genome, index = phase_data(
             root, generate_rrbs, "rrbs", flags=RRBS_FLAGS, phase="12")
@@ -1485,7 +1913,9 @@ def main() -> int:
         f"{ise['index-sharded -v 5']:.1f} (single-device "
         f"{ise['device -v 5']:.1f}); read stripes (D = 2) headline "
         f"{sd_rate:.1f} reads/s")
-    results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1)
+    log("[summary] seconds by phase: " + json.dumps(
+        {k: round(v, 1) for k, v in _PHASE_S.items()}))
+    results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1, sres24)
     rows = []
     for k, (src, rep_) in KERNEL_SOURCES.items():
         # the main path's shapes: the SE headline window, else the PE one,
@@ -1498,7 +1928,8 @@ def main() -> int:
                                         for r in results if k in r),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                     "library_ms": None})
+                     "library_ms": None,
+                     **{x: t[x] for x in FORM_KEYS if x in t}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -171,19 +171,59 @@ def test_torch_cli_pe_per_pair_many_hits(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--proc-id", "0"], ["--coordinator", "h:1"],
     ["-b", "r2.fq", "-o", "out.bam"],
-    ["-p", "2"], ["--nprocs", "2"], ["--engine", "auto"],
+    ["-p", "2"], ["--nprocs", "2"], ["--engine", "tpu"],
     ["-o", "out.bam"],
 ])
 def test_torch_cli_refuses_unported(flags):
     """Multi-process runs (-p > 1, --nprocs, --proc-id, --coordinator),
-    bsmap_tpu's --engine auto and BAM output, single-end or pair-end, exit
-    non-zero with a pointer to ROADMAP.md (no silent engine or format
-    substitution)."""
+    an engine name the port does not know and BAM output, single-end or
+    pair-end, exit non-zero with a pointer to ROADMAP.md (no silent engine
+    or format substitution)."""
     from bsmap_tpu_torch import cli
     argv = ["-a", "r.fq", "-d", "ref.fa", "-o", "out.sam"] + flags
     with pytest.raises(SystemExit) as e:
         cli.run(argv)
     assert "unported" in str(e.value) and "ROADMAP" in str(e.value)
+
+
+def test_torch_cli_default_engine_matches_jax_default(cli_data):
+    """With no --engine both packages run their ``auto`` choice: on one
+    device the single-device engine.  The port's SE WGBS bytes equal
+    ``python -m bsmap_tpu.cli``'s, and the port says on stderr which engine
+    ran."""
+    base = ["-a", "reads.fq", "-d", "ref.fa", "-S", "1", "-v", "2", "-u"]
+    r = subprocess.run([sys.executable, "-m", "bsmap_tpu_torch.cli"] + base
+                       + ["-o", "auto_t.sam", "--device", "cpu"],
+                       cwd=cli_data, capture_output=True, env=ENV)
+    assert r.returncode == 0, r.stderr.decode()
+    assert b"engine: device (--engine auto)" in r.stderr
+    _cli(cli_data, "bsmap_tpu.cli", base + ["-o", "auto_j.sam"])
+    assert_same(cli_data, "auto_j.sam", "auto_t.sam")
+
+
+def test_torch_cli_engine_auto_is_device_on_one_device(cli_data):
+    """--engine auto on one device is --engine device: the same bytes, and
+    ``stats`` holds the engine object with the name of the engine that
+    ran; over a mesh of two entries auto picks the read-stripe engine."""
+    import torch
+
+    from bsmap_tpu_torch import cli
+    base = ["-a", str(cli_data / "reads100.fq"), "-d",
+            str(cli_data / "ref3.fa"), "-S", "1", "-v", "2", "-u", "-s", "12",
+            "--device", "cpu"]
+    names = {}
+    for tag, extra, mesh in (("auto", ["--engine", "auto"], None),
+                             ("device", ["--engine", "device"], None),
+                             ("mesh", [], [torch.device("cpu")] * 2)):
+        st = {}
+        assert cli.run(base + ["-o", str(cli_data / f"ea_{tag}.sam")] + extra,
+                       stats=st, mesh=mesh) == 0
+        names[tag] = (st["engine_name"], type(st["engine"]).__name__)
+    assert names == {"auto": ("device", "DeviceEngine"),
+                     "device": ("device", "DeviceEngine"),
+                     "mesh": ("sharded", "ShardedDeviceEngine")}
+    assert_same(cli_data, "ea_device.sam", "ea_auto.sam")
+    assert_same(cli_data, "ea_device.sam", "ea_mesh.sam")
 
 
 def test_torch_cuda_request_without_gpu_raises(monkeypatch, cli_data):
@@ -195,7 +235,7 @@ def test_torch_cuda_request_without_gpu_raises(monkeypatch, cli_data):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = ["-a", str(cli_data / "reads.fq"), "-d", str(cli_data / "ref.fa"),
             "-o", str(cli_data / "never.sam"), "-S", "1", "--device", "cuda"]
-    for engine in ("device", "sharded", "index-sharded"):
+    for engine in ("auto", "device", "sharded", "index-sharded"):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.run(argv + ["--engine", engine])
         assert not (cli_data / "never.sam").exists()

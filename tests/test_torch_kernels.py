@@ -189,6 +189,26 @@ def test_exact_schedule_twin_matches_jax(world, name, v, rank):
     assert_rows_equal(probe.ftot_rank.numpy(), want[10], "K2 probe totals")
 
 
+def _hit_lists(vc, n: int, NB: int, cands: int):
+    """K3's output as _verify_impl's compacted hit columns: per read the
+    first HITS_K candidates that are first of their dedup key, in
+    discovery order, as (starts int64, hit locs, hit words)."""
+    starts = vc.starts.numpy().astype(np.int64)
+    info = vc.info.numpy()
+    loc = np.zeros((n, HITS_K), np.int32)
+    w1 = np.full((n, HITS_K), -1, np.int32)
+    for r in range(n):
+        lo = starts[r * NB]
+        hi = min(starts[(r + 1) * NB], cands)
+        acc = [s for s in range(lo, hi) if info[s] & K.INFO_FIRST]
+        for j, s in enumerate(acc[:HITS_K]):
+            wmm = (info[s] >> K.INFO_WMM_SHIFT) & 0xFF
+            rank = (info[s] >> K.INFO_RANK_SHIFT) & 0x1F
+            loc[r, j] = vc.wloc[s]
+            w1[r, j] = wmm | (rank << 5) | (int(vc.chrp[s]) << 9)
+    return starts, loc, w1
+
+
 @pytest.mark.parametrize("name,v,cands", [("r100.fq", 2, 4096),
                                           ("r130.fq", 4, 4096),
                                           ("r100.fq", 4, 4)])
@@ -206,21 +226,9 @@ def test_verify_candidates_twin_matches_jax(world, name, v, cands):
     slots = port_schedule(world, ct, rows)
     vc = K.verify_candidates(ct, cands, torch.from_numpy(rows), slots,
                              world["tabs"])
-    starts = vc.starts.numpy().astype(np.int64)
-    info = vc.info.numpy()
     NB, MS = ct.maxseg * ct.I, ct.maxseg
     n = len(rows)
-    loc = np.zeros((n, HITS_K), np.int32)
-    w1 = np.full((n, HITS_K), -1, np.int32)
-    for r in range(n):
-        lo = starts[r * NB]
-        hi = min(starts[(r + 1) * NB], cands)
-        acc = [s for s in range(lo, hi) if info[s] & K.INFO_FIRST]
-        for j, s in enumerate(acc[:HITS_K]):
-            wmm = (info[s] >> K.INFO_WMM_SHIFT) & 0xFF
-            rank = (info[s] >> K.INFO_RANK_SHIFT) & 0x1F
-            loc[r, j] = vc.wloc[s]
-            w1[r, j] = wmm | (rank << 5) | (int(vc.chrp[s]) << 9)
+    starts, loc, w1 = _hit_lists(vc, n, NB, cands)
     ex = 2 * MS + J.N_EXTRAS
     assert (w1 >= 0).any(), "no accepted candidates: vacuous comparison"
     assert_rows_equal(loc, full[:, ex: ex + HITS_K], "K3 hit locs")
@@ -289,3 +297,100 @@ def test_align_program_matches_jax(world, name, v, mode, cands_per_b):
         ok = (want[:, 1] & J.BIT_OK) != 0
         big = (want[:, 1] & J.BIT_BIG) != 0
         assert (~ok).any() and big.any(), "tiny capacity did not overflow"
+
+
+def _saturating_starts(cnt: np.ndarray) -> np.ndarray:
+    """The exclusive saturating scan K3 writes, in numpy: each count and
+    each running sum capped at ``K.SATLIM`` (2^30), the total last."""
+    c = np.minimum(cnt.astype(np.int64), K.SATLIM)
+    return np.minimum(np.concatenate([[0], np.cumsum(c)]), K.SATLIM)
+
+
+def _synthetic_names():
+    from chip_smoke import k3_synthetic_counts
+    return [name for name, _ in k3_synthetic_counts(24, 16)]
+
+
+@pytest.mark.parametrize("pattern", _synthetic_names())
+@pytest.mark.parametrize("loose", [False, True])
+def test_verify_candidates_twin_matches_jax_on_synthetic_counts(
+        world, pattern, loose):
+    """K3's twin on the synthetic slot counts of chip_smoke.py's phase
+    (none, one slot holding the capacity, counts at and past the 2^30
+    saturation limit ``SATLIM``, totals beside the capacity, two full slots
+    far apart, every slot 0-2) put in place of a window's counts, against
+    _verify_impl on the same counts (pair-end semantics with hit
+    compaction, as in test_verify_candidates_twin_matches_jax): hit
+    columns and per-read totals equal exactly, and ``starts`` equal to a
+    numpy saturating cumulative sum.  ``loose`` gives every read a budget
+    that no candidate exceeds, so every in-bounds candidate is eligible
+    and the dedup rounds see them all.  int32 throughout: exact
+    equality."""
+    from chip_smoke import k3_synthetic_counts
+    cands = 2048
+    rows = rows_of(world, "r100.fq", 2, 0)
+    nw = (rows.shape[1] - 4) // 2
+    cj, ct = cfgs(world, 2, nw)
+    rows[:, -1] = ct.maxseg - 1
+    if loose:
+        rows[:, 2 * nw + 1] = 255
+    n, NB, MS = len(rows), ct.maxseg * ct.I, ct.maxseg
+    cnt = dict(k3_synthetic_counts(n * NB, cands))[pattern].reshape(n, NB)
+    sched, scal = jax_schedule(world, cj, rows)
+    sched = list(sched)
+    sched[6] = jnp.asarray(cnt)
+    full = jax_verify(world, cj._replace(pe=True, hits_k=HITS_K), cands,
+                      sched, scal)
+    slots = port_schedule(world, ct, rows)._replace(
+        cnt=torch.from_numpy(cnt.copy()))
+    vc = K.verify_candidates(ct, cands, torch.from_numpy(rows), slots,
+                             world["tabs"])
+    starts, loc, w1 = _hit_lists(vc, n, NB, cands)
+    assert np.array_equal(starts, _saturating_starts(cnt.reshape(-1)))
+    ex = 2 * MS + J.N_EXTRAS
+    assert_rows_equal(loc, full[:, ex: ex + HITS_K], "K3 hit locs")
+    assert_rows_equal(w1, full[:, ex + HITS_K:], "K3 hit words")
+    totals = np.diff(starts[::NB])
+    want_tot = full[:, 2 * MS + J.X_TOTAL].astype(np.int64)
+    assert_rows_equal(totals.astype(np.int32), want_tot.astype(np.int32),
+                      "K3 totals")
+    if loose and cnt.sum() > 0:
+        assert (w1 >= 0).any(), "no accepted candidate under a loose budget"
+    if "2^30" in pattern:
+        assert starts[-1] == K.SATLIM and cnt.max() >= K.SATLIM
+
+
+@pytest.mark.parametrize("name,v,variant", [
+    ("r100.fq", 5, "as read"), ("r100.fq", 5, "51 nt"),
+    ("r100.fq", 5, "built to tie"), ("r100.fq", 2, "built to tie"),
+    ("r130.fq", 5, "built to tie"), ("rmix.fq", 4, "51 nt"),
+])
+def test_exact_schedule_twin_matches_jax_on_short_and_tying_reads(
+        world, name, v, variant):
+    """K2's twin against _schedule_impl on the cases chip_smoke.py adds
+    for the kernel (``k2_row_variants``): reads cut to 51 nt (no room for a
+    start offset, fewer segments than maxseg), a -v 5 budget (six
+    segments, a prefix sum of 100 words) and reads built to tie (equal
+    bucket costs: every arg-min and the segment order fall to the tie
+    rules), at full rank: slot rows, the chosen start offset, per-rank
+    totals and the probe pass's totals.  int32 throughout: exact
+    equality."""
+    from chip_smoke import k2_row_variants
+    rows = rows_of(world, name, v, 0)
+    nw = (rows.shape[1] - 4) // 2
+    cj, ct = cfgs(world, v, nw)
+    rows[:, -1] = ct.maxseg - 1
+    rows = k2_row_variants(rows, nw)[variant]
+    want, _ = jax_schedule(world, cj, rows)
+    got = port_schedule(world, ct, rows)
+    for f, w in zip(("h", "off0", "off3", "wcnt", "cnt", "s_off"),
+                    list(want[2:7]) + [want[8]]):
+        assert_rows_equal(getattr(got, f).numpy(), w, f"K2 {f}")
+    assert_rows_equal(got.ftot_rank.numpy(), want[10], "K2 ftot_rank")
+    probe = port_schedule(world, ct._replace(probe=True), rows)
+    assert_rows_equal(probe.ftot_rank.numpy(), want[10], "K2 probe totals")
+    if variant == "51 nt":
+        cut = rows[:, 2 * nw] == 51          # rmix keeps its 50 nt reads
+        assert cut.any() and (got.s_off.numpy()[cut] == 0).all()
+        if v > 2:       # seedseg = 3 < maxseg: the upper ranks stay empty
+            assert (got.cnt.numpy()[:, 3 * ct.I:] == 0).all()

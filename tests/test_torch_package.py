@@ -465,3 +465,69 @@ def test_cuda_mesh_engines_on_one_card(tmp_path):
     torch.cuda.synchronize()
     counts = K.launch_counts()
     assert counts["merge_shards"] == 2 and counts["fixed_schedule"] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_verify_candidates_on_synthetic_counts(tmp_path):
+    """On a CUDA device: the redesigned K3 (multi-block scan, block-shared
+    slot lookup, fused dedup passes) against its twin on the synthetic slot
+    counts of ``chip_smoke.k3_synthetic_counts`` (no candidates, one slot
+    holding the capacity, counts at and past the 2^30 saturation limit,
+    totals beside the capacity, two full slots far apart), on the whole
+    window, one read and slot counts beside a multiple of the scan's tile,
+    in both launch forms, twice in a row; on the forward chain and on both
+    chains.  Exact equality, one counted launch per wrapper call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    from chip_smoke import phase_k3_synthetic
+    eng, rows = _tiny(tmp_path)
+    tabs = {k: v.cuda() for k, v in eng.tables.items()}
+    # the window twice over: the shapes beside a tile multiple need 341 reads
+    r = torch.from_numpy(np.tile(rows, (2, 1))).cuda()
+    K.reset_launch_counts()
+    for mode in ("f", "b"):
+        cfg = eng._cfg(mode, lean=True, nw=7)._replace(fixed=True)
+        rc = K.rc_words(cfg, r) if mode == "b" else None
+        slots = K.fixed_schedule(cfg, r, tabs["kmer_tab"], rc)
+        errs = {}
+        phase_k3_synthetic(K, cfg, 4096, r, slots, tabs, rc, errs, "gpu test")
+        assert errs == {"verify_candidates": 0}
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    # 9 patterns x 4 shapes x 2 budgets x 2 launch forms x 2 passes x 2 modes
+    assert counts["verify_candidates"] == 9 * 4 * 2 * 2 * 2 * 2
+    assert counts["reduce_reads"] == counts["exact_schedule"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_exact_schedule_on_short_and_tying_reads(tmp_path):
+    """On a CUDA device: the redesigned K2 (a group of lanes per read)
+    against its twin on ``chip_smoke.k2_row_variants`` (rows as read, cut
+    to 51 nt, built to tie) at -v 2, 4 and 5, slot rows and the probe
+    pass, with groups of 32 and of 16 lanes, on 'f', 'r' and 'b', and with
+    cfg.rrbs; exact equality."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    from chip_smoke import phase_k2_cases
+    eng, rows = _tiny(tmp_path)
+    tabs = {k: v.cuda() for k, v in eng.tables.items()}
+    errs = {}
+    K.reset_launch_counts()
+    for mode in ("f", "r", "b"):
+        phase_k2_cases(K, eng._cfg(mode, nw=7), rows, tabs, "cuda", errs,
+                       "gpu test")
+    rows_cfg = _tiny_rrbs(tmp_path / "rrbs")
+    reng, rrows, rcfg = rows_cfg(2, False)
+    rtabs = {k: t.cuda() for k, t in reng.tables.items()}
+    for mode in ("f", "b"):
+        phase_k2_cases(K, rcfg._replace(chains_mode=mode), rrows, rtabs,
+                       "cuda", errs, "gpu test", budgets=(2, 4))
+    torch.cuda.synchronize()
+    assert errs == {"exact_schedule": 0}
+    # 3 variants x budgets x (slot rows + probe) x 2 group widths
+    assert K.launch_counts()["exact_schedule"] == \
+        3 * 3 * 3 * 4 + 2 * 3 * 2 * 4

@@ -14,8 +14,9 @@ two mismatches.  Checked against the JAX package on the CPU:
     which the filter rejects hits;
   * ``align_program`` equals ``_align_fused_kernel``;
   * the CLI's bytes equal both ``bsmap_tpu`` engines' (SAM with ZP/ZL,
-    trimming, BSP, -R, -r 0, -S 0, the fragment window), pair-end -D on the
-    host engine equals ``bsmap_tpu``'s, and on the device engine exits.
+    trimming, BSP, -R, -r 0, -S 0, the fragment window); pair-end -D with no
+    --engine runs the host engine as ``bsmap_tpu``'s default does, and
+    under --engine device exits.
 
 All values are int32: every comparison is exact (``np.array_equal``)."""
 
@@ -216,16 +217,42 @@ def test_torch_cli_rrbs_matches_jax_engines(rrbs, flags, suffix):
 
 
 def test_torch_cli_rrbs_pair_end(rrbs):
-    """Pair-end -D: the port's host engine equals bsmap_tpu's; the port's
-    device engine refuses it as bsmap_tpu's does (no silent host run)."""
+    """Pair-end -D with no --engine: both packages' ``auto`` finds the
+    device PE engine unsupported and runs the host engine, so the port's
+    bytes equal ``python -m bsmap_tpu.cli``'s with no --engine (and its
+    host engine's), stderr says which engine ran and why, and ``stats``
+    names it."""
+    from bsmap_tpu_torch import cli
     d = rrbs["dir"]
     base = ["-a", "pe1.fq", "-b", "pe2.fq", "-d", "rrbs.fa", "-D", "C-CGG",
             "-S", "1", "-v", "2", "-u", "-A", ADAPT]
-    _cli(d, "bsmap_tpu_torch.cli", base + ["-o", "tpe.sam", "--engine",
-                                           "host"])
+    r = _cli(d, "bsmap_tpu_torch.cli", base + ["-o", "tpe.sam", "--device",
+                                               "cpu"])
+    assert (b"engine: host (--engine auto: device PE: RRBS runs on the "
+            b"host engine)") in r.stderr
+    _cli(d, "bsmap_tpu.cli", base + ["-o", "jpe.sam"])
     _cli(d, "bsmap_tpu.cli", base + ["-o", "hpe.sam", "--engine", "host"])
+    assert_same(d, "jpe.sam", "tpe.sam")
     assert_same(d, "hpe.sam", "tpe.sam")
+    assert (d / "tpe.sam").stat().st_size > 0
+    st = {}
+    argv = [str(d / a) if a.endswith((".fq", ".fa")) else a for a in base]
+    assert cli.run(argv + ["-o", str(d / "spe.sam"), "--device", "cpu"],
+                   stats=st) == 0
+    assert st["engine_name"] == "host"
+    assert type(st["engine"]).__name__ == "HostPairBatch"
+    assert_same(d, "hpe.sam", "spe.sam")
+
+
+@pytest.mark.parametrize("engine", ["device", "sharded"])
+def test_torch_cli_rrbs_pair_end_named_engine_refuses(rrbs, engine):
+    """Pair-end -D under an engine named explicitly still refuses, as
+    bsmap_tpu's does: no silent host run, no output file."""
+    d = rrbs["dir"]
+    base = ["-a", "pe1.fq", "-b", "pe2.fq", "-d", "rrbs.fa", "-D", "C-CGG",
+            "-S", "1", "-v", "2", "-u", "-A", ADAPT]
     r = _cli(d, "bsmap_tpu_torch.cli",
-             base + ["-o", "never.sam", "--device", "cpu"], ok=False)
+             base + ["-o", f"never_{engine}.sam", "--device", "cpu",
+                     "--engine", engine], ok=False)
     assert b"device PE: RRBS runs on the host engine" in r.stderr
-    assert not (d / "never.sam").exists()
+    assert not (d / f"never_{engine}.sam").exists()
