@@ -74,24 +74,3 @@ static __device__ __forceinline__ int bsm_seed_at(const int* row, int nw,
     acc = acc * 3 + (int)((cw >> (2 * (15 - j))) & 3u);
   return acc;
 }
-
-// Writes one read's slot row (rank-ordered) and its per-rank totals the way
-// _schedule_impl ends (device_engine.py:425-437, :649-664): counts of ranks
-// >= seedseg are zeroed, the clamped per-rank sums accumulate (int32, wrap)
-// into ftot_rank, and counts of ranks > maxrank are zeroed in the output.
-struct BsmRankTotals {
-  uint32_t cum;
-  __device__ void init() { cum = 0; }
-  // returns the slot count to store; adds `cn` to the rank sum `rsum`
-  __device__ __forceinline__ int slot(int rank, int cn, int seedseg,
-                                      int maxrank, uint32_t* rsum) const {
-    int full = rank < seedseg ? cn : 0;
-    uint32_t cl = (uint32_t)full;
-    *rsum += cl < (uint32_t)BSM_FTOT_CLAMP ? cl : (uint32_t)BSM_FTOT_CLAMP;
-    return rank <= maxrank ? full : 0;
-  }
-  __device__ __forceinline__ int close_rank(uint32_t rsum) {
-    cum += rsum;
-    return min((int)cum, BSM_FTOT_CLAMP);
-  }
-};

@@ -34,7 +34,7 @@ _L = ctypes.c_int64
 # C signatures of the entry points (each returns cudaGetLastError())
 _SIGNATURES = {
     "bsmap_fixed_schedule": [_P, _P, _I, _I, _P, _I, _I, _I, _I,
-                             _P, _P, _P, _P, _P, _P, _P],
+                             _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "bsmap_exact_schedule": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _P, _L, _P,
                              _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],

@@ -1117,25 +1117,48 @@ def _rc_rows(cfg, rows, rows_rc) -> list:
     return [] if rows_rc is None else [rows_rc]
 
 
-def fixed_schedule(cfg, rows, kmer_tab, rows_rc=None) -> Slots:
-    """K1 (csrc/fixed_schedule.cu) on CUDA tensors, the twin on CPU."""
+K1_MAX_ROUNDS = 16        # slot rounds K1 holds in registers per lane
+
+
+def k1_groups(cfg) -> tuple:
+    """The group widths (lanes per read, one lane per slot) K1 takes for
+    ``cfg``, the default first: 16 (two reads a warp) where a read's NB
+    slots fit in 16 lanes, else 32 (a warp a read, lanes looping over the
+    slots); the other width second where it holds the slots in at most
+    ``K1_MAX_ROUNDS`` rounds."""
+    if cfg.NB <= 16:
+        return (16, 32)
+    return (32, 16) if cfg.NB <= 16 * K1_MAX_ROUNDS else (32,)
+
+
+def fixed_schedule(cfg, rows, kmer_tab, rows_rc=None,
+                   group: int | None = None) -> Slots:
+    """K1 (csrc/fixed_schedule.cu) on CUDA tensors, the twin on CPU.
+    ``group`` is the kernel's lanes per read (one of ``k1_groups(cfg)``,
+    default its first); every width writes the same words."""
     if not rows.is_cuda:
         return fixed_schedule_plain(cfg, rows, kmer_tab, rows_rc)
     from . import _build
     _check_cuda(cfg, rows, kmer_tab, *_rc_rows(cfg, rows, rows_rc))
+    g = k1_groups(cfg)[0] if group is None else group
+    if g not in k1_groups(cfg):
+        raise ValueError(f"K1 takes {k1_groups(cfg)} lanes per read at "
+                         f"NB {cfg.NB}, not {g}")
     m, NB, MS = rows.shape[0], cfg.NB, cfg.maxseg
-    dev = rows.device
-    outs = [_empty(dev, m, NB) for _ in range(5)]
-    ftot = _empty(dev, m, MS)
+    # one allocation: the five slot tensors, s_off and c_off (the kernel
+    # writes their zeros), the per-rank totals
+    buf = _empty(rows.device, m * (5 * NB + 2 + MS))
+    outs = list(buf[: 5 * m * NB].view(5, m, NB).unbind(0))
+    offs = list(buf[5 * m * NB: m * (5 * NB + 2)].view(2, m).unbind(0))
+    ftot = buf[m * (5 * NB + 2):].view(m, MS)
     err = _run(
         rows, _build.lib().bsmap_fixed_schedule,
         _ptr(rows), _opt_ptr(rows_rc is not None, rows_rc), m, cfg.nw,
         _ptr(kmer_tab), cfg.S, cfg.I, MS, cfg.nch,
-        *[_ptr(o) for o in outs], _ptr(ftot), _stream(rows))
+        *[_ptr(o) for o in outs + offs], _ptr(ftot), g, _stream(rows))
     _launched("fixed_schedule", err)
     fixed_schedule.launches += 1
-    zero = torch.zeros(m, dtype=torch.int32, device=dev)
-    return Slots(*outs, zero, zero, ftot)
+    return Slots(*outs, *offs, ftot)
 
 
 def k2_groups(cfg) -> tuple:

@@ -26,11 +26,17 @@ Phases (each raises on failure; any failure exits non-zero):
      51 nt and on reads built to tie, at -v 2, 4 and 5 (prefix sums of
      several scan rounds), slot rows and the probe pass, at both group
      widths.  The same K2 cases run under cfg.rrbs in phases 13 and 19, on
-     both chains in 16, on the global counts in 20.  Times: each kernel's
-     wrapper call by CUDA events, and for K2 and K3 the kernels' own time
-     from a profiler trace, the other launch form / group width in turns,
-     and one ``torch.cumsum`` of the clamped counts as a yardstick for K3's
-     scan part (the port never calls it);
+     both chains in 16, on the global counts in 20.  K1 on a copy of the
+     table with synthetic counts at the window's buckets
+     (``k1_synthetic_cases``: tying segment costs, counts near and past the
+     2^27 clamp, wrapping sums) and on rows cut short, with seedseg <
+     maxseg, maxrank 0 and maxrank >= maxseg, at both group widths; again
+     on both chains in 16, on shard 0's table in 20, at -s 12 -I 2 in 24.
+     Times: each kernel's wrapper call by CUDA events and its card time
+     (``queued_ms``), K3's parts from a profiler trace, the other launch
+     form / group width in turns (K1's widths by card time), and one
+     ``torch.cumsum`` of the clamped counts as a yardstick for K3's scan
+     part (the port never calls it);
   4. the main path: ``bsmap_tpu_torch.cli.run`` on all 1M reads on cuda
      (no --engine: ``auto``, the single-device engine on one card);
   5. repeat-heavy data: one 46.7 Mb chromosome with 8% repeats, 100,000
@@ -41,8 +47,12 @@ Phases (each raises on failure; any failure exits non-zero):
      (tools/genreads.generate_pe, BASELINE config 2); genome + index;
   8. the pair-end kernels against their twins on the first 65,536-pair
      window: rc_words, both mates' K2/K3/K4 with cfg.pe and 16 hits at
-     rank 0 and full rank on both capacity tiers, and pair_join; equal bit
-     for bit, CUDA-event medians of 7 runs;
+     rank 0 and full rank on both capacity tiers, and pair_join; K6 on
+     14,000 synthetic pairs (``k6_synthetic_rows``: every combo eligible,
+     no hit on a mate, scattered hits, unpaired draws past K, inserts at
+     the bounds and across the int32 wrap) at K = 16, 4 and 1; equal bit
+     for bit, CUDA-event medians of 7 runs and card times, and K6's card
+     time on windows of synthetic pairs with 0, 1 and K valid hits a mate;
   9. the pair-end main path: ``cli.run`` with -a/-b on all 200,000 pairs
      on cuda; at least 90% properly paired;
  10. byte parity: the first 5,000 pairs, GPU run against the host engine;
@@ -73,9 +83,10 @@ Phases (each raises on failure; any failure exits non-zero):
      first 5,000 reads byte-identical to the host engine;
  18. PE -n 1 on the 200,000 pairs of phase 7 with every second pair's
      mates swapped: K5, both mates' K2/K3/K4 on 'b' with cfg.pe and 16 hits
-     and K6 against their twins; ``cli.run`` with at least 90% properly
-     paired; phase 11's error set with -n 1 through the block path and the
-     per-pair path, each byte-identical to the host engine;
+     and K6 (and K6's synthetic pairs) against their twins; ``cli.run``
+     with at least 90% properly paired; phase 11's error set with -n 1
+     through the block path and the per-pair path, each byte-identical to
+     the host engine;
  19. RRBS -n 1 on phase 12's reads with every second read
      reverse-complemented (the index with rc entries): K5, K2, K3 and K4 on
      'b' against their twins; ``cli.run`` (K1 never launches, at least 45%
@@ -109,7 +120,8 @@ Phases (each raises on failure; any failure exits non-zero):
      phase 11's SAM flags, D = 4 with its BSP -2 flags, each byte-identical
      to phase 11's host-engine output.
  24. K2 at -s 12 -I 2 (after phase 11, on its reads' first mates): the K2
-     cases of phase 3 on 'f' and 'b', then K3 and K4 on the -v 4 slots.
+     and K1 cases of phase 3 on 'f' and 'b', then K3 and K4 on the -v 4
+     slots.
 
 The kernels' launch counters are zeroed right before each run of a main
 path and read right after it: phase 4 to 5 (the single-end path: K1-K4
@@ -123,12 +135,15 @@ launches summed over those runs, its error against the twin, its time and
 the twin's at the single-end headline window (the pair-end one for K5 and
 K6), and its bound there: the bytes it must move over the card's memory
 rate, or its int32 operations over the card's non-tensor peak, whichever
-is larger.  No single PyTorch call computes any of these functions, so
-``library_ms`` is null.  K2's and K3's rows also carry ``device_ms`` and
-``parts_ms`` (the kernels' own time, by kernel name), the launch form or
-group width in use with the other one's times, and K3's
-``scan_cumsum_ms``.  The last lines are the per-kernel JSON, the card's
-name and power limit, and the result line.  Exits non-zero without
+is larger (K6's on the window's live combos).  No single PyTorch call
+computes any of these functions, so ``library_ms`` is null.  Every row
+also carries ``device_ms`` (the card's own time for a call) and
+``ptxas`` (registers, shared memory, stack and spills of each entry
+function of its source, also printed at the build); K3's ``parts_ms``
+(by kernel name); K2's and K3's launch form or group width in use with
+the other one's times, K1's both widths by card time (``card_group``),
+and K3's ``scan_cumsum_ms``.  The last lines are the per-kernel JSON, the
+card's name and power limit, and the result line.  Exits non-zero without
 printing a result when torch sees no CUDA device.
 """
 
@@ -198,6 +213,8 @@ RRBS_ADAPTER = "AGATCGGAAGAGC"
 FORM_KEYS = ("device_ms", "parts_ms", "variant", "variant_ms",
              "other_variant", "other_variant_ms", "group", "group_ms",
              "other_group", "other_group_ms", "other_device_ms",
+             "card_group", "card_group_ms", "other_card_group",
+             "other_card_group_ms", "card_by_valid_hits_ms",
              "scan_cumsum_ms")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12                # its non-tensor (float32) peak, for int32 ops
@@ -494,20 +511,222 @@ def phase_k2_cases(K, cfg, rows_np, tabs, dev, errs: dict, tag: str,
         "twins")
 
 
-def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0) -> dict:
+def k1_synthetic_cases(K, cfg, rows, kmer_tab, seed: int = 11):
+    """K1's cases beyond what real windows reach, on ``rows`` (a window's
+    dispatch rows, torch, on kmer_tab's device): a copy of ``kmer_tab``
+    whose rows at the window's probed buckets (both chains under 'b') get
+    synthetic counts, read by read in turn: every probe of a read one count
+    (all segment costs tie), segments equal in pairs, counts near and past
+    the 2^27 total clamp, counts of 2^30 and 2^31 - 1 and negative ones
+    (segment costs and per-rank sums that wrap int32), and the read's own
+    counts.  Returns (table, [(name, rows), ...]): the rows as read; cut to
+    random lengths (probes past len - S are not fresh, fewer segments);
+    budgets that give seedseg < maxseg; maxrank 0; maxrank >= maxseg."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    m, MS, I, S, nw = rows.shape[0], cfg.maxseg, cfg.I, cfg.S, cfg.nw
+    shape = (m, MS, I)
+    pairs = rng.integers(0, 40, size=(m, MS, I))
+    pairs = pairs[:, np.arange(MS) // 2 * 2]              # segments 2j, 2j+1
+    patterns = [
+        np.broadcast_to(rng.integers(0, 60, size=(m, 1, 1)), shape),
+        pairs,
+        (1 << 27) + rng.integers(-2, 3, size=shape)
+        * rng.choice([1, 1 << 26], size=shape),
+        rng.choice([1 << 30, (1 << 30) + 7, (1 << 31) - 1, -5, 3], size=shape),
+    ]
+    counts = np.zeros(shape, np.int64)
+    for p, pat in enumerate(patterns):
+        counts[p::len(patterns) + 1] = pat[p::len(patterns) + 1]
+    own = np.arange(m) % (len(patterns) + 1) == len(patterns)
+    tab = kmer_tab.clone()
+    k_nat = K._fixed_probe_offsets(cfg)
+    fwd, rc = K.chain_inputs(cfg, rows)
+    vals = torch.from_numpy(counts.reshape(m, -1)[~own].astype(np.int32))
+    for r in [fwd] + ([rc] if rc is not None else []):
+        buckets = K._seeds(K._unpack(r)[1], k_nat, S)[torch.from_numpy(~own)
+                                                       .to(r.device)]
+        tab[buckets.reshape(-1), 1] = vals.to(tab.device).reshape(-1)
+    r_np = rows.cpu().numpy()
+    lens = r_np[:, 2 * nw]
+    cut = r_np.copy()
+    cut[:, 2 * nw] = rng.integers(np.minimum(S, lens), lens + 1)
+    low = r_np.copy()
+    low[:, 2 * nw + 1] = rng.integers(0, max(MS - 1, 1), size=m)
+    rank0 = r_np.copy()
+    rank0[:, 2 * nw + 3] = 0
+    past = r_np.copy()
+    past[:, 2 * nw + 3] = MS + rng.integers(0, 4, size=m)
+    dev = rows.device
+    return tab, [(name, torch.from_numpy(x).to(dev)) for name, x in (
+        ("as read", r_np), ("cut to random lengths", cut),
+        ("seedseg < maxseg", low), ("maxrank 0", rank0),
+        ("maxrank >= maxseg", past))]
+
+
+def phase_k1_cases(K, cfg, rows, kmer_tab, errs: dict, tag: str) -> None:
+    """K1 against its twin on ``k1_synthetic_cases``, with every group
+    width the kernel takes (``k1_groups``)."""
+    tab, cases = k1_synthetic_cases(K, cfg, rows, kmer_tab)
+    n = 0
+    for name, r in cases:
+        fwd, rc = K.chain_inputs(cfg, r)
+        want = K.fixed_schedule_plain(cfg, fwd, tab, rc)
+        for group in K.k1_groups(cfg):
+            got = K.fixed_schedule(cfg, fwd, tab, rc, group=group)
+            check(errs, "fixed_schedule", f"synthetic table, {name}, group "
+                  f"{group}", got, want)
+        n += 1
+    log(f"[{tag}] K1 '{cfg.chains_mode}' -s {cfg.S} -I {cfg.I} -v "
+        f"{cfg.maxseg - 1}: {n} cases on a synthetic table (ties, counts "
+        f"near 2^27, wrapping sums; cut reads, seedseg < maxseg, maxrank 0 "
+        f"and >= maxseg) x groups of "
+        f"{' and '.join(map(str, K.k1_groups(cfg)))} lanes — kernels == "
+        "twins")
+
+
+def k6_synthetic_rows(cfg, n: int, seed: int = 13, valid: int | None = None):
+    """Both mates' full K4 rows and dispatch rows (numpy int32) for K6's
+    cases beyond real windows, pair by pair in turn: all ``cfg.hits_k``
+    hits valid on both mates with every combo eligible at one level (cnt =
+    K*K: the key rank over all combos, the max_hits bit); no valid hit on
+    mate 2; valid hits scattered, not a prefix; ssum past K (unpaired draws
+    jj >= K); inserts at min_ins and max_ins and one past each; hits near
+    the int32 limits (inserts that wrap); and random hits (levels 0-3,
+    both chains, three chromosomes).  With ``valid`` every pair is the
+    first case with only its first ``valid`` hits valid on each mate
+    (valid**2 eligible combos), for timing K6 by live hits."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    MS, K, nw = cfg.maxseg, cfg.hits_k, cfg.nw
+    base = 2 * MS + 17
+    lo_i, hi_i = cfg.min_ins, cfg.max_ins
+    ra = rng.integers(-2 ** 31, 2 ** 31, size=(n, base + 2 * K),
+                      dtype=np.int64)
+    rb = rng.integers(-2 ** 31, 2 ** 31, size=(n, base + 2 * K),
+                      dtype=np.int64)
+    ia = rng.integers(-2 ** 31, 2 ** 31, size=(n, 2 * nw + 4), dtype=np.int64)
+    ib = rng.integers(-2 ** 31, 2 ** 31, size=(n, 2 * nw + 4), dtype=np.int64)
+    for d in (ia, ib):
+        d[:, 2 * nw] = rng.integers(30, 151, size=n)           # len
+        d[:, 2 * nw + 1] = rng.integers(0, 6, size=n)          # budget
+    for r in (ra, rb):
+        ex = r[:, 2 * MS:]
+        ex[:, 0] = rng.integers(0, 2, size=n)                  # X_FOUND
+        ex[:, 1] = rng.integers(0, 4, size=n)                  # X_II
+        ex[:, 2] = rng.integers(0, 12, size=n)                 # X_SSUM
+        ex[:, 9] = rng.integers(0, 2, size=n)                  # X_REPLAY
+        ex[:, 13] = rng.integers(0, 2, size=n)                 # X_OK
+        ex[:, 16] = rng.integers(-5, 1 << 27, size=n)          # X_FTOT
+
+    def w1(w, ch, rk, cp):
+        return w | (ch << 4) | (rk << 5) | (cp << 9)
+
+    locs = rng.integers(1000, 1_000_000, size=(n, 2, K))
+    w = rng.integers(0, 4, size=(n, 2, K))
+    hit_w1 = w1(w, rng.integers(0, 2, size=(n, 2, K)),
+                rng.integers(0, 4, size=(n, 2, K)) % (w + 1),
+                rng.integers(0, 3, size=(n, 2, K)))
+    hit_w1[rng.random((n, 2, K)) < 0.3] = -1
+    n_case = 7
+    # every combo eligible at level 0: mate 2 (chain 1) lies mid-window
+    # downstream of mate 1 (chain 0), hits in shuffled locus order
+    c0 = (np.arange(n) % n_case == 0) if valid is None else np.ones(n, bool)
+    n0 = int(c0.sum())
+    ia[c0, 2 * nw + 1] = ib[c0, 2 * nw + 1] = 3
+    a0 = rng.integers(1000, 10 ** 6, size=n0)
+    mid = (lo_i + hi_i) // 2 - ib[c0, 2 * nw]
+    locs[c0, 0] = a0[:, None] + np.argsort(rng.random((n0, K)), axis=1)
+    locs[c0, 1] = (a0 + mid)[:, None] + np.argsort(rng.random((n0, K)),
+                                                   axis=1)
+    hit_w1[c0, 0] = w1(0, 0, 0, 2)
+    hit_w1[c0, 1] = w1(0, 1, 0, 2)
+    for p in np.nonzero(~c0)[0]:
+        case = p % n_case
+        if case == 1:               # no valid hit on mate 2
+            hit_w1[p, 1] = -1
+        elif case == 2:             # valid hits scattered
+            hit_w1[p, :, ::2] = -1
+            if K > 1:
+                hit_w1[p, :, 1::2] = np.where(hit_w1[p, :, 1::2] < 0,
+                                              w1(1, 0, 0, 1),
+                                              hit_w1[p, :, 1::2])
+        elif case == 3:             # unpaired draws past K
+            ra[p, 2 * MS + 2] = rb[p, 2 * MS + 2] = K + 20 + p % 50
+        elif case == 4:             # inserts at and beside the bounds
+            la = int(ia[p, 2 * nw])
+            a0 = int(rng.integers(10 ** 5, 10 ** 6))
+            for k in range(K):
+                ins = (lo_i, hi_i, lo_i - 1, hi_i + 1)[k % 4]
+                # mate 1 on chain 1 of chromosome 2: an A-end insert
+                locs[p, 0, k] = a0
+                locs[p, 1, k] = a0 + la - ins
+            hit_w1[p, 0] = w1(1, 1, 0, 2)
+            hit_w1[p, 1] = w1(1, 0, 0, 2)
+            ia[p, 2 * nw + 1] = ib[p, 2 * nw + 1] = 2
+        elif case == 5:             # hits near the int32 limits
+            locs[p, 0] = 2 ** 31 - 1 - rng.integers(0, 200, size=K)
+            locs[p, 1] = -2 ** 31 + rng.integers(0, 200, size=K)
+            hit_w1[p, 0] = w1(0, 0, 0, 0)
+            hit_w1[p, 1] = w1(0, 1, 0, 0)
+    if valid is not None:
+        hit_w1[:, :, valid:] = -1
+    ra[:, base: base + K] = locs[:, 0]
+    rb[:, base: base + K] = locs[:, 1]
+    ra[:, base + K:] = hit_w1[:, 0]
+    rb[:, base + K:] = hit_w1[:, 1]
+    return tuple(x.astype(np.int32) for x in (ra, rb, ia, ib))
+
+
+K6_HITS = (16, 4, 1)          # the hits_k of K6's synthetic rows
+
+
+def phase_k6_cases(K, cfg, n: int, dev, errs: dict, tag: str) -> None:
+    """K6 against its twin on ``k6_synthetic_rows`` of ``n`` pairs, at
+    each of ``K6_HITS``, with the cfg's -w and with -w K*K (the pairs whose
+    every combo is eligible then set the max_hits bit)."""
+    import torch
+    for hk in K6_HITS:
+        for w in (cfg.max_num_hits, hk * hk):
+            c = cfg._replace(hits_k=hk, max_num_hits=w)
+            ra, rb, ia, ib = (torch.from_numpy(x).to(dev)
+                              for x in k6_synthetic_rows(c, n))
+            check(errs, "pair_join", f"synthetic rows, K = {hk}, -w {w}",
+                  [K.pair_join(c, ra, rb, ia, ib)],
+                  [K.pair_join_plain(c, ra, rb, ia, ib)])
+    log(f"[{tag}] K6 on {n} synthetic pairs (all combos eligible, no hit "
+        f"on a mate, scattered hits, draws past K, inserts at the bounds "
+        f"and across the int32 wrap) at K = "
+        f"{'/'.join(map(str, K6_HITS))}, -w {cfg.max_num_hits} and K*K — "
+        "kernels == twins")
+
+
+def live_combos(cfg, rows_a, rows_b) -> int:
+    """The sum over pairs of valid hits of mate 1 times valid hits of mate
+    2 in both mates' full rows: the combos K6 walks."""
+    base = 2 * cfg.maxseg + 17 + cfg.hits_k
+    na = (rows_a[:, base: base + cfg.hits_k] >= 0).sum(dim=1)
+    nb = (rows_b[:, base: base + cfg.hits_k] >= 0).sum(dim=1)
+    return int((na * nb).sum())
+
+
+def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0,
+          live: int = 0) -> dict:
     """The least time the card could take for one call of kernel ``name``
     on this window (m reads or pairs; ncand live candidates of a capacity
-    of cands): the bytes it must move (each input read once, each output
-    written once, a random 16-byte or smaller gather as one 32-byte sector)
-    over the memory rate, or an estimate of its int32 lane operations over
-    the non-tensor peak, whichever is larger."""
+    of cands; for K6 ``live`` = the sum over pairs of valid hits of mate 1
+    times valid hits of mate 2): the bytes it must move (each input read
+    once, each output written once, a random 16-byte or smaller gather as
+    one 32-byte sector) over the memory rate, or an estimate of its int32
+    lane operations over the non-tensor peak, whichever is larger."""
     row = 4 * (2 * cfg.nw + 4)
     nch, NB, MS, S = cfg.nch, cfg.NB, cfg.maxseg, cfg.S
     seed_ops = 6 * S + 20                       # one base-3 seed value
     full_w = 4 * (2 * MS + 17 + 2 * cfg.hits_k)
     out_w = 12 if cfg.lean else full_w
     if name == "fixed_schedule":
-        nbytes = m * (nch * row + 32 * NB + 20 * NB + 4 * MS)
+        nbytes = m * (nch * row + 32 * NB + 20 * NB + 8 + 4 * MS)
         ops = 2 * m * NB * seed_ops
     elif name == "exact_schedule":
         # cost gathers: every schedule position (the slot rows are among
@@ -536,8 +755,12 @@ def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0) -> dict:
                   + 12 * ncand)
         ops = 45 * ncand + 10 * m * NB * D
     else:                                       # pair_join
-        nbytes = m * (2 * full_w + 32 + 44)
-        ops = 40 * m * cfg.hits_k ** 2
+        # per mate the 2K hit words, six extras and three dispatch words
+        # (len, budget, hash), the 11-word output; 40 operations per live
+        # combo, 12 per step of the two K-step loops of each of 2K hits
+        K = cfg.hits_k
+        nbytes = m * (2 * 4 * (2 * K + 6 + 3) + 44)
+        ops = 40 * live + 12 * m * 2 * K * K
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
     return {"bound_ms": 1e3 * max(t_b, t_o),
             "bound_by": "bytes" if t_b >= t_o else "operations"}
@@ -658,24 +881,32 @@ def _ms(t) -> str:
 
 
 def device_ms(res: dict, timed: dict, what: str) -> None:
-    """For K2 and K3, the card's own time for a call (``queued_ms``) beside
-    the wrapper call's event time: res[name]["device_ms"]."""
-    for name in ("exact_schedule", "verify_candidates"):
-        if name in timed:
-            res[name]["device_ms"] = queued_ms(timed[name][0])
-            log(f"    {what} {name}: {_ms(res[name]['device_ms'])} a call "
-                "on the card (calls queued behind a hold)")
+    """For every kernel of ``timed``, the card's own time for a call
+    (``queued_ms``) beside the wrapper call's event time:
+    res[name]["device_ms"]."""
+    for name, (kern, _plain) in timed.items():
+        res[name]["device_ms"] = queued_ms(kern)
+        log(f"    {what} {name}: {_ms(res[name]['device_ms'])} a call on the "
+            "card (calls queued behind a hold)")
 
 
-def timed_forms(name: str, key: str, forms: tuple, call) -> dict:
+def _least(*ts):
+    """The least of the times that were measured (None: not measured)."""
+    ts = [t for t in ts if t is not None]
+    return min(ts) if ts else None
+
+
+def timed_forms(name: str, key: str, forms: tuple, call, clock=None) -> dict:
     """Two forms of one kernel (``forms[0]`` the one in use) timed in turns
-    (a, b, b, a); returns {key: forms[0], "other_<key>": forms[1],
-    "other_<key>_ms": its time} and logs both."""
+    (a, b, b, a) by ``clock`` (default ``cuda_ms``, the wrapper call's event
+    time; ``queued_ms`` for the card's own time); returns {key: forms[0],
+    "<key>_ms": its time, "other_<key>": forms[1], "other_<key>_ms": its
+    time} and logs both."""
     a, b = forms
-    t = [cuda_ms(lambda f=f: call(f)) for f in (a, b, b, a)]
-    ta, tb = min(t[0], t[3]), min(t[1], t[2])
-    log(f"    {name}: {key} {a} {t[0]:.3f}/{t[3]:.3f} ms, {key} {b} "
-        f"{t[1]:.3f}/{t[2]:.3f} ms")
+    t = [(clock or cuda_ms)(lambda f=f: call(f)) for f in (a, b, b, a)]
+    ta, tb = _least(t[0], t[3]), _least(t[1], t[2])
+    log(f"    {name}: {key} {a} {_ms(t[0])}/{_ms(t[3])}, {key} {b} "
+        f"{_ms(t[1])}/{_ms(t[2])}")
     return {key: a, f"{key}_ms": ta, f"other_{key}": b,
             f"other_{key}_ms": tb}
 
@@ -708,17 +939,55 @@ def kernel_parts_ms(fn, reps: int = 5) -> dict:
     return out
 
 
-def phase_build() -> None:
+def ptxas_report(text: str) -> dict:
+    """The build log's ptxas resources (-Xptxas -v) per source file and
+    entry function: {source: [{"fn", "registers", "smem", "stack",
+    "spill"}]}, the function name shortened from its mangled form (its
+    integer template arguments in angle brackets)."""
+    out: dict = {}
+    src, cur = "", None
+    for line in text.splitlines():
+        if " -c " in line and line.rstrip().endswith(".cu"):  # an nvcc line
+            src = os.path.basename(line.split()[-1])
+            continue
+        m = re.search(r"Compiling entry function '(_Z(\d+)(\w+))'", line)
+        if m:
+            n = int(m.group(2))
+            args = re.findall(r"Li(\d+)E", m.group(3)[n:])
+            fn = m.group(3)[:n] + (f"<{','.join(args)}>" if args else "")
+            cur = {"fn": fn}
+            out.setdefault(src, []).append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            cur["stack"], cur["spill"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def phase_build() -> dict:
+    """Build the kernels; returns and logs the build's ``ptxas_report``."""
     from bsmap_tpu_torch.engine import _build
     t0 = time.time()
     so = _build.build()
     _build.lib()
     log(f"[1] kernels built in {time.time() - t0:.1f} s: {os.path.basename(so)}")
+    report = {}
     if os.path.exists(so[:-3] + ".log"):        # written by the build
         with open(so[:-3] + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    log("    " + line.strip())
+            report = ptxas_report(f.read())
+    for src, fns in sorted(report.items()):
+        for r in fns:
+            log(f"    ptxas {src} {r['fn']}: {r.get('registers')} registers, "
+                f"{r.get('smem')} B shared, {r.get('stack')} B stack, "
+                f"{r.get('spill')} B spill stores")
+    return report
 
 
 def check_index_cache(o, index, tag: str) -> None:
@@ -845,6 +1114,7 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda",
     phase_k3_synthetic(K, cfg_f, eng.CANDS, rows0, s_f, tabs, rc0, errs,
                        phase)
     phase_k2_cases(K, cfg_lean, rows0.cpu().numpy(), tabs, dev, errs, phase)
+    phase_k1_cases(K, cfg_f, rows0, tabs["kmer_tab"], errs, phase)
     vc_f = K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f, tabs, rc0)
     ncand = min(int(vc_f.starts[-1]), eng.CANDS)
     timed = {
@@ -895,6 +1165,11 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda",
             lambda form: K.exact_schedule(cfg_lean, rowsF, tabs["kmer_tab"],
                                           tabs["prof_a"], rows_rc=rcF,
                                           group=form)))
+        res["fixed_schedule"].update(timed_forms(
+            f"{what} fixed_schedule lanes per read, on the card",
+            "card_group", K.k1_groups(cfg_f)[:2],
+            lambda form: K.fixed_schedule(cfg_f, rows0, tabs["kmer_tab"],
+                                          rc0, group=form), clock=queued_ms))
         device_ms(res, timed, what)
         for kname, form, fn in (
                 ("verify_candidates", 1 - v, lambda: K.verify_candidates(
@@ -1068,6 +1343,7 @@ def phase_pe_kernels(o, genome, index, r1: str, r2: str,
             f"(mate 1/2), {paired} paired ({rc_pairs} with mate 1 on the rc "
             "chain) — kernels == twins")
         window.setdefault("rows", (da, db, full, cands))
+    phase_k6_cases(K, cfg_a, 14_000, dev, errs, phase)
     da, db, full, cands = window["rows"]
     fwd, rc = K.chain_inputs(cfg_b, db)
     s_b = K.exact_schedule(cfg_b, fwd, tabs["kmer_tab"], tabs["prof_a"],
@@ -1076,6 +1352,8 @@ def phase_pe_kernels(o, genome, index, r1: str, r2: str,
     m, ncand = da.shape[0], min(int(vc_b.starts[-1]), cands)
     res = {k: {"max_abs_err": v,
                **bound(k, cfg_b, m, ncand, cands)} for k, v in errs.items()}
+    res["pair_join"].update(bound("pair_join", cfg_a, m,
+                                  live=live_combos(cfg_a, *full)))
     if dev == "cuda":
         what = f"{m} pairs, mate 2, rank 0, small tier"
         timed = {
@@ -1102,6 +1380,16 @@ def phase_pe_kernels(o, genome, index, r1: str, r2: str,
                 f"[{phase}] {name}", kern, plain,
                 f"{what}; bound {res[name]['bound_ms']:.4f} ms"))
         device_ms(res, timed, f"[{phase}]")
+        # K6's card time on windows of synthetic pairs by valid hits a mate:
+        # none (the per-pair floor), one (a clean pair), all K (K*K combos)
+        by = {}
+        for nv in (0, 1, cfg_a.hits_k):
+            xs = [torch.from_numpy(x).to(dev)
+                  for x in k6_synthetic_rows(cfg_a, m, valid=nv)]
+            by[str(nv)] = queued_ms(lambda: K.pair_join(cfg_a, *xs))
+        res["pair_join"]["card_by_valid_hits_ms"] = by
+        log(f"    [{phase}] pair_join on {m} synthetic pairs, card ms by "
+            f"valid hits a mate: {json.dumps(by)}")
     del eng, tabs, window, s_b, vc_b, fwd, rc
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -1394,11 +1682,14 @@ def phase_small_seed(root: str, dev: str = "cuda", phase: str = "24") -> dict:
     nw, _live, rows_np, _b = eng.block_rows(blk)
     rows_np = rows_np.copy()
     rows_np[:, -1] = eng._maxseg - 1
-    errs = {k: 0 for k in RRBS_PATH}
+    errs = {k: 0 for k in RRBS_PATH + ("fixed_schedule",)}
     tabs = eng.tables
     for mode in ("f", "b"):
         cfg = eng._cfg(mode, nw=nw)
         phase_k2_cases(K, cfg, rows_np, tabs, dev, errs, phase)
+        phase_k1_cases(K, cfg._replace(fixed=True),
+                       torch.from_numpy(rows_np).to(dev), tabs["kmer_tab"],
+                       errs, phase)
         rows, rc = K.chain_inputs(cfg, torch.from_numpy(rows_np).to(dev))
         slots = K.exact_schedule(cfg, rows, tabs["kmer_tab"], tabs["prof_a"],
                                  rows_rc=rc)
@@ -1563,6 +1854,8 @@ def phase_shard_kernels(o, genome, index, rpath: str, dev: str = "cuda",
         t0_ = eng.shard_tables[0]
         phase_k2_cases(K, cfg, rows0.numpy(), t0_, mesh[0], errs, phase,
                        budgets=(2, 5), gcnt=t0_["gcnt"])
+        phase_k1_cases(K, cfg._replace(fixed=True), rows0.to(mesh[0]),
+                       t0_["kmer_tab"], errs, phase)
         fwdF, rcF = K.chain_inputs(cfg, rowsF.to(mesh[0]))
         kt, pa, gc = t0_["kmer_tab"], t0_["prof_a"], t0_["gcnt"]
         timed = {
@@ -1769,7 +2062,7 @@ def main() -> int:
     log(f"[1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, numpy {numpy.__version__}, python "
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
-    phase_build()
+    ptxas = phase_build()
     root = tempfile.mkdtemp(prefix="bsmap_smoke_")
     # every index below is built once and memory-mapped by each later run
     os.environ["BSMAP_TPU_INDEX_CACHE"] = os.path.join(root, "cache")
@@ -1929,7 +2222,8 @@ def main() -> int:
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": None,
-                     **{x: t[x] for x in FORM_KEYS if x in t}})
+                     **{x: t[x] for x in FORM_KEYS if x in t},
+                     "ptxas": ptxas.get(os.path.basename(src))})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

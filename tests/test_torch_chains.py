@@ -29,8 +29,10 @@ from bsmap_tpu_torch.engine import kernels as K
 from chip_smoke import make_rrbs_set
 
 from .conftest import simulate
-from .test_torch_kernels import (_jax_program, assert_rows_equal,
-                                 jax_schedule, jax_verify, rows_of)
+from .test_torch_kernels import _param as _seed_param
+from .test_torch_kernels import (_jax_program, assert_k1_synthetic_matches_jax,
+                                 assert_rows_equal, jax_schedule, jax_verify,
+                                 rows_of, small_seed_world)
 from .test_torch_pair import _pad, rows_from
 
 HITS_K = 16
@@ -169,6 +171,22 @@ def test_fixed_schedule_both_chains_matches_jax(world, name, v, rank):
     got, _ = port_slots(w, ct, rows)
     assert got.h.shape[1] == ct.maxseg * 2 * ct.I
     compare_slots(got, want, "K1 'b'")
+
+
+@pytest.mark.parametrize("seed,v", [("-s 16 -I 4", 2), ("-s 12 -I 3", 4)])
+def test_fixed_schedule_twin_matches_jax_on_synthetic_tables(world, seed, v):
+    """K1 on both chains ('b') at the fixture's seed size and at -s 12 -I 3
+    (an interval that is not a power of two), on synthetic tables."""
+    w = world["se"]
+    if seed != "-s 16 -I 4":
+        w = small_seed_world(w)
+    je = w["je"]
+    cj = J.make_cfg(_seed_param(v, w.get("S", 16), w.get("I", 4)), je.W,
+                    je.genome.n_chr, "b", min(15, v) + 1,
+                    nw=7)._replace(fixed=True, lean=True)
+    ct = T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields if f != "shards"})
+    assert_k1_synthetic_matches_jax(w, cj, ct,
+                                    rows_of(world["se"], "nd100.fq", v, 0))
 
 
 @pytest.mark.parametrize("name,v,rank", [("nd100.fq", 2, 0),

@@ -58,12 +58,26 @@ def world(tmp_path_factory):
             "tabs": tabs, "rows": {}}
 
 
-def _param(v: int) -> Param:
+def _param(v: int, S: int = 16, I: int = 4) -> Param:
     p = Param()
     p.max_snp_num = v
     p.randseed = 1
+    if S != 16:
+        p.set_seed_size(S)
+    p.index_interval = I
     p.init_mapping()
     return p
+
+
+def small_seed_world(world, S: int = 12, I: int = 3) -> dict:
+    """A world's genome indexed at -s S -I I (at -s 12 a 3^12-row table),
+    its JAX engine and port tables."""
+    p = _param(2, S, I)
+    index = build_index(world["genome"], p)
+    return {"dir": world["dir"], "genome": world["genome"], "S": S, "I": I,
+            "je": J.DeviceEngine(world["genome"], index, p),
+            "tabs": T.tables_from_numpy(world["genome"], index, p),
+            "rows": world["rows"]}
 
 
 def rows_of(world, name: str, v: int, maxrank: int) -> np.ndarray:
@@ -97,9 +111,9 @@ def rows_of(world, name: str, v: int, maxrank: int) -> np.ndarray:
 
 
 def cfgs(world, v: int, nw: int, **kw):
-    """(JAX Cfg, port Cfg) of one program."""
+    """(JAX Cfg, port Cfg) of one program at the world's seed size."""
     je = world["je"]
-    p = _param(v)
+    p = _param(v, world.get("S", 16), world.get("I", 4))
     maxseg = min(15, v) + 1
     cj = J.make_cfg(p, je.W, je.genome.n_chr, "f", maxseg, nw=nw)._replace(**kw)
     return cj, T.Cfg(**{f: getattr(cj, f) for f in T.Cfg._fields
@@ -116,10 +130,13 @@ def _jit_verify(cfg, cands):
     return jax.jit(functools.partial(J._verify_impl, cfg, cands))
 
 
-def jax_schedule(world, cfg, rows):
+def jax_schedule(world, cfg, rows, kmer_tab=None):
+    """_schedule_impl on the world's tables (``kmer_tab``, a numpy table,
+    in place of its own where given)."""
     a = world["je"]._engine_args()
     qw, rw, lens, buds, rand32, maxrank = J._unpack_inputs(jnp.asarray(rows))
-    out = _jit_schedule(cfg)(a[0], a[1], a[2], a[14], a[3], a[4], qw, rw,
+    kt = a[1] if kmer_tab is None else jnp.asarray(kmer_tab)
+    out = _jit_schedule(cfg)(a[0], kt, a[2], a[14], a[3], a[4], qw, rw,
                              lens, buds, maxrank)
     return out, (lens, buds, rand32, maxrank)
 
@@ -394,3 +411,64 @@ def test_exact_schedule_twin_matches_jax_on_short_and_tying_reads(
         assert cut.any() and (got.s_off.numpy()[cut] == 0).all()
         if v > 2:       # seedseg = 3 < maxseg: the upper ranks stay empty
             assert (got.cnt.numpy()[:, 3 * ct.I:] == 0).all()
+
+
+def assert_k1_synthetic_matches_jax(world, cj, ct, rows):
+    """K1's twin against _fixed_schedule_impl + the fixed branch of
+    _schedule_impl on every case of ``chip_smoke.k1_synthetic_cases`` (a
+    copy of the table with synthetic counts at the rows' probed buckets:
+    ties, counts near and past the 2^27 clamp, wrapping sums; the rows as
+    read, cut to random lengths, with seedseg < maxseg, maxrank 0 and
+    maxrank >= maxseg): slot rows, zero offsets, per-rank totals, exact.
+    Under 'b' the twin takes K5's rc rows, JAX makes its own."""
+    from chip_smoke import k1_synthetic_cases
+    tab, cases = k1_synthetic_cases(K, ct, torch.from_numpy(rows),
+                                    world["tabs"]["kmer_tab"])
+    tab_np = tab.numpy()
+    clamped = 0
+    for name, r in cases:
+        want, _ = jax_schedule(world, cj, r.numpy(), tab_np)
+        fwd, rc = K.chain_inputs(ct, r)
+        got = K.fixed_schedule_plain(ct, fwd, tab, rc)
+        for f, w in zip(("h", "off0", "off3", "wcnt", "cnt", "s_off",
+                         "c_off"), list(want[2:7]) + list(want[8:10])):
+            assert_rows_equal(getattr(got, f).numpy(), w, f"K1 {name} {f}")
+        assert_rows_equal(got.ftot_rank.numpy(), want[10],
+                          f"K1 {name} ftot_rank")
+        clamped += int((got.ftot_rank == K.FTOT_CLAMP).sum())
+    assert clamped, "no per-rank total reached the clamp"
+    assert (tab_np[:, 1] >= 1 << 30).any(), "no count whose sums wrap"
+
+
+@pytest.mark.parametrize("seed,v", [("-s 16 -I 4", 2), ("-s 12 -I 3", 4)])
+def test_fixed_schedule_twin_matches_jax_on_synthetic_tables(world, seed, v):
+    """K1 on the forward chain at the fixture's seed size and at -s 12 -I 3
+    (an interval that is not a power of two), on synthetic tables."""
+    w = world if seed == "-s 16 -I 4" else small_seed_world(world)
+    rows = rows_of(world, "r100.fq", v, 0)
+    cj, ct = cfgs(w, v, 7, fixed=True, lean=True)
+    assert_k1_synthetic_matches_jax(w, cj, ct, rows)
+
+
+@pytest.mark.parametrize("v,mode,I", [(2, "f", 4), (2, "b", 4), (4, "b", 3),
+                                      (15, "b", 16)])
+def test_k1_groups_cover_the_slots_and_cpu_wrapper_runs_twin(world, v, mode,
+                                                             I):
+    """``k1_groups`` offers 16 or 32 lanes a read, the default at least
+    min(NB, 16) and able to hold every slot in its rounds; the wrapper on
+    CPU tensors returns the twin's slots for every width and counts no
+    launch."""
+    _cj, ct = cfgs(world, v, 7, fixed=True, lean=True)
+    ct = ct._replace(chains_mode=mode, I=I)
+    groups = K.k1_groups(ct)
+    assert set(groups) <= {16, 32} and groups[0] >= min(ct.NB, 16)
+    assert groups[0] * K.K1_MAX_ROUNDS >= ct.NB
+    r = torch.from_numpy(rows_of(world, "r100.fq", v, 0))
+    fwd, rc = K.chain_inputs(ct, r)
+    kt = world["tabs"]["kmer_tab"]
+    want = K.fixed_schedule_plain(ct, fwd, kt, rc)
+    K.reset_launch_counts()
+    for g in groups:
+        got = K.fixed_schedule(ct, fwd, kt, rc, group=g)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert K.launch_counts()["fixed_schedule"] == 0

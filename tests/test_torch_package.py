@@ -531,3 +531,62 @@ def test_cuda_exact_schedule_on_short_and_tying_reads(tmp_path):
     # 3 variants x budgets x (slot rows + probe) x 2 group widths
     assert K.launch_counts()["exact_schedule"] == \
         3 * 3 * 3 * 4 + 2 * 3 * 2 * 4
+
+
+@pytest.mark.gpu
+def test_cuda_fixed_schedule_on_synthetic_tables(tmp_path):
+    """On a CUDA device: the redesigned K1 (a lane per slot, rank-ordered
+    stores) against its twin on ``chip_smoke.k1_synthetic_cases`` (a table
+    with tying, clamped and wrapping counts; reads as read, cut, with
+    seedseg < maxseg, maxrank 0 and >= maxseg) on 'f', 'r' and 'b', at -v 2
+    and -v 15 (NB up to 128: lanes loop over rounds) and -v 4 -I 3, with
+    every group width; exact equality, one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    from chip_smoke import k2_budget_cfg, phase_k1_cases
+    eng, rows = _tiny(tmp_path)
+    kt = eng.tables["kmer_tab"].cuda()
+    r = torch.from_numpy(rows).cuda()
+    errs = {}
+    K.reset_launch_counts()
+    n = 0
+    for mode in ("f", "r", "b"):
+        for v, I in ((2, 4), (15, 4), (4, 3)):
+            cfg = k2_budget_cfg(eng._cfg(mode, lean=True, nw=7), v)._replace(
+                fixed=True, I=I)
+            phase_k1_cases(K, cfg, r, kt, errs, "gpu test")
+            n += 5 * len(K.k1_groups(cfg))
+    torch.cuda.synchronize()
+    assert errs == {"fixed_schedule": 0}
+    assert K.launch_counts()["fixed_schedule"] == n
+
+
+@pytest.mark.gpu
+def test_cuda_pair_join_on_synthetic_rows(tmp_path):
+    """On a CUDA device: the redesigned K6 (a warp per pair over the live
+    combos) against its twin on ``chip_smoke.k6_synthetic_rows`` at K = 16,
+    4 and 1 with -w as configured and K*K, and on the pair engine's mate
+    rows at full rank; exact equality."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    from chip_smoke import K6_HITS, phase_k6_cases
+    pe, nw, ra, rb = _tiny_pe(tmp_path / "pe")
+    ca, cb = pe._cfg(1, nw), pe._cfg(2, nw)
+    errs = {}
+    K.reset_launch_counts()
+    phase_k6_cases(K, ca, 7000, "cuda", errs, "gpu test")
+    ra[:, -1] = rb[:, -1] = pe.MS - 1                # full rank
+    tabs = {k: v.cuda() for k, v in pe.se.tables.items()}
+    da, db = torch.from_numpy(ra).cuda(), torch.from_numpy(rb).cuda()
+    full = [K.align_program(c, pe.se.CANDS, tabs, d)
+            for c, d in ((ca, da), (cb, db))]
+    j = K.pair_join(ca, full[0], full[1], da, db)
+    assert torch.equal(j, K.pair_join_plain(ca, full[0], full[1], da, db))
+    assert int(((j[:, 6] & 31) > 0).sum()) > len(ra) // 2   # pairs found
+    torch.cuda.synchronize()
+    assert errs == {"pair_join": 0}
+    assert K.launch_counts()["pair_join"] == 2 * len(K6_HITS) + 1

@@ -310,6 +310,38 @@ def test_pair_join_twin_matches_jax(pe, world_name, name, v, rand0, pkw):
         assert ((want[:, JP.J_PAIR] >> 5) & 2047 > 1).any()
 
 
+@pytest.mark.parametrize("hits_k", [16, 4, 1])
+def test_pair_join_twin_matches_jax_on_synthetic_rows(pe, hits_k):
+    """pair_join_plain against _device_pair_join on
+    ``chip_smoke.k6_synthetic_rows`` (every combo eligible, no hit on a
+    mate, scattered hits, unpaired draws past K, inserts at the bounds and
+    across the int32 wrap, random hits) at K = 16, 4 and 1, with the
+    default -w and with -w K*K (the max_hits bit)."""
+    from chip_smoke import k6_synthetic_rows
+    _, worlds = pe
+    _cj, ct = cfgs(worlds["ref"], _param(2), "f", 7)
+    MS, nw = ct.maxseg, ct.nw
+    for max_hits in (ct.max_num_hits, hits_k * hits_k):
+        c = ct._replace(hits_k=hits_k, max_num_hits=max_hits)
+        ra, rb, ia, ib = k6_synthetic_rows(c, 700)
+        ftot = np.maximum(ra[:, 2 * MS + K.X_FTOT], rb[:, 2 * MS + K.X_FTOT])
+        want = np.asarray(_jit_join(MS, hits_k, c.min_ins, c.max_ins,
+                                    max_hits)(
+            jnp.asarray(ra), jnp.asarray(rb), jnp.asarray(ia[:, 2 * nw]),
+            jnp.asarray(ib[:, 2 * nw]), jnp.asarray(ia[:, 2 * nw + 1]),
+            jnp.asarray(ib[:, 2 * nw + 1]),
+            jnp.asarray(ia[:, 2 * nw + 2].view(np.uint32)),
+            jnp.asarray(ib[:, 2 * nw + 2].view(np.uint32)),
+            jnp.asarray(ftot)))
+        got = K.pair_join_plain(c, *(torch.from_numpy(x)
+                                     for x in (ra, rb, ia, ib))).numpy()
+        assert_rows_equal(got, want, f"J rows, K = {hits_k}, -w {max_hits}")
+        cnt = (want[:, JP.J_PAIR] >> 5) & 2047
+        assert cnt.max() == hits_k * hits_k and (cnt == 0).any()
+        capped = (want[:, JP.J_FLAGS] >> 3) & 1
+        assert capped.any() == (max_hits == hits_k * hits_k)
+
+
 @pytest.mark.parametrize("world_name,name,v,rank,cands_per_b", [
     ("ref", "p76", 2, 0, 2),
     ("rep", "rep", 3, -1, 16),
