@@ -12,78 +12,103 @@
 // rows: in place of the forward rows for the rc chain alone (PE mate 2),
 // beside them for both chains (-n 1).
 //
-// Bound on the card: 2*(2nw+4) int32 per read of traffic and a few dozen
-// bit operations per word; nothing to reuse between reads.  Design: one
-// thread per read; the 2*nw reversed words sit in registers/local memory.
+// Bound on the card: the rows read once and written once, 2*(2nw+4) int32
+// per read, and a few dozen bit operations per word; nothing to reuse
+// between reads.  Design: a block copies a tile of BSM_K5_ROWS whole rows
+// (one contiguous span of the row-major input) into shared memory with
+// coalesced loads; then one thread per output word computes it from the
+// tile (output word k of the rc chain reads reversed words i = k0 + k and
+// i + 1 only) and writes it at its own place in the tile's span, so the
+// stores coalesce as well.  What is left bounds it: the instructions per
+// word, kept few (a lane reversal is a bit reversal and one swap, a row
+// index a float multiply).  No per-thread arrays: nothing in local memory.
 
 #include "common.cuh"
 
+#define BSM_K5_THREADS 128
+#define BSM_K5_ROWS 32
+
+// the 16 2-bit lanes of w in reverse order: the bits reversed, then the
+// two bits of each lane swapped back
 static __device__ __forceinline__ uint32_t bsm_rev_lanes(uint32_t w) {
-  w = ((w & 0x33333333u) << 2) | ((w >> 2) & 0x33333333u);
-  w = ((w & 0x0F0F0F0Fu) << 4) | ((w >> 4) & 0x0F0F0F0Fu);
-  w = ((w & 0x00FF00FFu) << 8) | ((w >> 8) & 0x00FF00FFu);
-  return (w << 16) | (w >> 16);
+  w = __brev(w);
+  return ((w & 0x55555555u) << 1) | ((w >> 1) & 0x55555555u);
 }
 
-__global__ void bsm_rc_words_kernel(const int* __restrict__ rows, int m,
-                                    int nw, int rc0, int rc1, int rc2,
-                                    int rc3, int rc_n,
-                                    int* __restrict__ out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= m) return;
+// lanes of q equal to v, as 01 in each such lane
+static __device__ __forceinline__ uint32_t bsm_lanes_eq(uint32_t q, int v) {
+  const uint32_t x = q ^ (uint32_t)(v * 0x55555555u);
+  return ~(x | (x >> 1)) & 0x55555555u;
+}
+
+__global__ void __launch_bounds__(BSM_K5_THREADS)
+    bsm_rc_words_kernel(const int* __restrict__ rows, int m, int nw, int rc0,
+                        int rc1, int rc2, int rc3, int rc_n,
+                        int* __restrict__ out) {
+  __shared__ uint32_t tile[BSM_K5_ROWS * (2 * BSM_MAX_NW + 4)];
   const int width = 2 * nw + 4;
-  const int* row = rows + (size_t)b * width;
-  int* o = out + (size_t)b * width;
-  const int rc[4] = {rc0, rc1, rc2, rc3};
+  const int r0 = blockIdx.x * BSM_K5_ROWS;
+  const int nwords = min(BSM_K5_ROWS, m - r0) * width;
+  const size_t base = (size_t)r0 * width;
+  for (int t = threadIdx.x; t < nwords; t += BSM_K5_THREADS)
+    tile[t] = (uint32_t)rows[base + t];
+  __syncthreads();
   const bool plain = rc0 == 3 && rc1 == 2 && rc2 == 1 && rc3 == 0;
-  // reversed complement and reversed valid-mask words, zero past nw
-  uint32_t cq[2 * BSM_MAX_NW], cr[2 * BSM_MAX_NW];
-  for (int k = 0; k < nw; ++k) {
-    const uint32_t q = (uint32_t)row[k];
-    uint32_t comp = ~q;
-    if (!plain) {
-      comp = 0;
-      for (int v = 0; v < 4; ++v) {
-        if (rc[v] == 0) continue;
-        const uint32_t x = q ^ (uint32_t)(v * 0x55555555u);
-        const uint32_t ind = ~(x | (x >> 1)) & 0x55555555u;  // lanes == v
-        comp |= ind * (uint32_t)rc[v];
+  const uint32_t npat = (uint32_t)rc_n * 0x55555555u;
+  // t / width by a float reciprocal: exact for t < 2^12, width <= 24 (t +
+  // 0.5 lies at least 1/48 from a multiple of width)
+  const float inv_width = 1.0f / (float)width;
+  for (int t = threadIdx.x; t < nwords; t += BSM_K5_THREADS) {
+    const int r = __float2int_rz(((float)t + 0.5f) * inv_width);
+    const int c = t - r * width;
+    const uint32_t* row = tile + r * width;
+    uint32_t val = row[c];                       // the four scalars
+    if (c < 2 * nw) {
+      const int k = c < nw ? c : c - nw;
+      const int len = (int)row[2 * nw];
+      const int sh = 16 * nw - len;                // bases to shift out
+      const int i = (sh >> 4) + k;
+      const uint32_t z = (uint32_t)((sh & 15) * 2);
+      // reversed word x of the valid mask / of the complement; zero past
+      // the nw words (and before the first)
+      auto rw_at = [&](int x) {
+        return x >= 0 && x < nw ? bsm_rev_lanes(row[2 * nw - 1 - x]) : 0u;
+      };
+      auto cq_at = [&](int x) {
+        if (x < 0 || x >= nw) return 0u;
+        const uint32_t q = row[nw - 1 - x];
+        const uint32_t comp =
+            plain ? ~q
+                  : (bsm_lanes_eq(q, 0) * (uint32_t)rc0 |
+                     bsm_lanes_eq(q, 1) * (uint32_t)rc1 |
+                     bsm_lanes_eq(q, 2) * (uint32_t)rc2 |
+                     bsm_lanes_eq(q, 3) * (uint32_t)rc3);
+        return bsm_rev_lanes(comp);
+      };
+      // the JAX code guards the shift by 32 - z for z == 0 (:340-341)
+      const uint32_t ra = rw_at(i), rb = rw_at(i + 1);
+      const uint32_t crw = z == 0 ? ra : ((ra << z) | (rb >> (32u - z)));
+      val = crw;
+      if (c < nw) {
+        const uint32_t qa = cq_at(i), qb = cq_at(i + 1);
+        const uint32_t cq0 = z == 0 ? qa : ((qa << z) | (qb >> (32u - z)));
+        // lanes < len of word k: 11, beyond 00 (shift capped at 30, :298)
+        const int v = bsm_clampi(len - 16 * k, 0, 16);
+        const uint32_t lmask =
+            v > 0 ? (0xFFFFFFFFu << (uint32_t)min(2 * (16 - v), 30)) : 0u;
+        val = (cq0 & crw) | (npat & lmask & ~crw);
       }
     }
-    cq[nw - 1 - k] = bsm_rev_lanes(comp);
-    cr[nw - 1 - k] = bsm_rev_lanes((uint32_t)row[nw + k]);
-    cq[nw + k] = 0;
-    cr[nw + k] = 0;
+    out[base + t] = (int)val;
   }
-  const int len = row[2 * nw];
-  const int sh = 16 * nw - len;                // bases to shift out
-  const int k0 = sh >> 4;
-  const uint32_t z = (uint32_t)((sh & 15) * 2);
-  const uint32_t npat = (uint32_t)rc_n * 0x55555555u;
-  for (int k = 0; k < nw; ++k) {
-    const int i = k0 + k;
-    const bool in0 = i >= 0 && i < 2 * nw, in1 = i + 1 >= 0 && i + 1 < 2 * nw;
-    const uint32_t qa = in0 ? cq[i] : 0u, qb = in1 ? cq[i + 1] : 0u;
-    const uint32_t ra = in0 ? cr[i] : 0u, rb = in1 ? cr[i + 1] : 0u;
-    // the JAX code guards the shift by 32 - z for z == 0 (:340-341)
-    const uint32_t cq0 = z == 0 ? qa : ((qa << z) | (qb >> (32u - z)));
-    const uint32_t crw = z == 0 ? ra : ((ra << z) | (rb >> (32u - z)));
-    // lanes < len of word k: 11, beyond 00 (shift capped at 30, :298)
-    const int v = bsm_clampi(len - 16 * k, 0, 16);
-    const uint32_t lmask =
-        v > 0 ? (0xFFFFFFFFu << (uint32_t)min(2 * (16 - v), 30)) : 0u;
-    o[k] = (int)((cq0 & crw) | (npat & lmask & ~crw));
-    o[nw + k] = (int)crw;
-  }
-  for (int c = 2 * nw; c < width; ++c) o[c] = row[c];
 }
 
 extern "C" int bsmap_rc_words(const int* rows, int m, int nw, int rc0,
                               int rc1, int rc2, int rc3, int rc_n, int* out,
                               cudaStream_t stream) {
   if (m > 0) {
-    const int threads = 128;
-    bsm_rc_words_kernel<<<(m + threads - 1) / threads, threads, 0, stream>>>(
+    bsm_rc_words_kernel<<<(m + BSM_K5_ROWS - 1) / BSM_K5_ROWS,
+                          BSM_K5_THREADS, 0, stream>>>(
         rows, m, nw, rc0, rc1, rc2, rc3, rc_n, out);
   }
   return (int)cudaGetLastError();

@@ -31,13 +31,19 @@ _p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 
 
 def _build() -> bool:
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-           "-o", _SO + ".tmp", _SRC]
+    """Compile into a file of this process's own, then move it in place in
+    one step: processes that meet at first use each build and load a whole
+    library (a shared temporary name let one process move or load another's
+    half-written file, fail, and keep None for its lifetime)."""
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp, _SRC]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _SO)
     except (OSError, subprocess.CalledProcessError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
-    os.replace(_SO + ".tmp", _SO)
     return True
 
 

@@ -32,6 +32,12 @@ Phases (each raises on failure; any failure exits non-zero):
      2^27 clamp, wrapping sums) and on rows cut short, with seedseg <
      maxseg, maxrank 0 and maxrank >= maxseg, at both group widths; again
      on both chains in 16, on shard 0's table in 20, at -s 12 -I 2 in 24.
+     K4 on the candidates K3 makes from the synthetic slot counts at both
+     capacity tiers (``phase_k4_cases``: lean fixed rows and full rows,
+     the reads' own budgets and budget 255, -w as set and 2; reads whose
+     candidates span several chunks of a group, reads cut by the
+     capacity); again on both chains in 16, on the pair-end mate 2 program in 8 and 18, under
+     cfg.rrbs in 13 and 19.
      Times: each kernel's wrapper call by CUDA events and its card time
      (``queued_ms``), K3's parts from a profiler trace, the other launch
      form / group width in turns (K1's widths by card time), and one
@@ -53,6 +59,9 @@ Phases (each raises on failure; any failure exits non-zero):
      the bounds and across the int32 wrap) at K = 16, 4 and 1; equal bit
      for bit, CUDA-event medians of 7 runs and card times, and K6's card
      time on windows of synthetic pairs with 0, 1 and K valid hits a mate;
+     K5 on synthetic rows (``phase_k5_cases``: every nw from 1 to 10,
+     every length 1..16*nw, N lanes, the default complement, -M GA's and
+     the permutation (1, 0, 3, 2));
   9. the pair-end main path: ``cli.run`` with -a/-b on all 200,000 pairs
      on cuda; at least 90% properly paired;
  10. byte parity: the first 5,000 pairs, GPU run against the host engine;
@@ -142,7 +151,9 @@ also carries ``device_ms`` (the card's own time for a call) and
 function of its source, also printed at the build); K3's ``parts_ms``
 (by kernel name); K2's and K3's launch form or group width in use with
 the other one's times, K1's both widths by card time (``card_group``),
-and K3's ``scan_cumsum_ms``.  The last lines are the per-kernel JSON, the
+K4's and K5's card time on 32 reads
+(``card_floor_ms``: launch and one warp's chain of loads), and K3's
+``scan_cumsum_ms``.  The last lines are the per-kernel JSON, the
 card's name and power limit, and the result line.  Exits non-zero without
 printing a result when torch sees no CUDA device.
 """
@@ -214,8 +225,8 @@ FORM_KEYS = ("device_ms", "parts_ms", "variant", "variant_ms",
              "other_variant", "other_variant_ms", "group", "group_ms",
              "other_group", "other_group_ms", "other_device_ms",
              "card_group", "card_group_ms", "other_card_group",
-             "other_card_group_ms", "card_by_valid_hits_ms",
-             "scan_cumsum_ms")
+             "other_card_group_ms", "card_floor_ms",
+             "card_by_valid_hits_ms", "scan_cumsum_ms")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12                # its non-tensor (float32) peak, for int32 ops
 _COMP = bytes.maketrans(b"ACGTN", b"TGCAN")
@@ -438,6 +449,102 @@ def phase_k3_synthetic(K, cfg, cands: int, rows, slots, tabs, rc, errs: dict,
         f"forms over shapes {[(c.maxseg, c.I, m) for c, m in shapes]} "
         f"(maxseg, I, reads), {repeats} passes; up to {n_round2} candidates "
         "unresolved after three dedup rounds — kernels == twins")
+
+
+def phase_k4_cases(K, cases: list, tabs, errs: dict, tag: str) -> None:
+    """K4 against its twin on the candidates K3 makes from the slot counts
+    of ``k3_synthetic_counts`` put in place of a window's, for each
+    (name, cfg, rows, rows_rc, slots, capacities) of ``cases``: with the
+    reads' own budgets and with budget 255 (every candidate eligible: more
+    accepted hits than K, dedup exhaustion), at the cfg's -w and at -w 2 (a
+    level at max_num_hits).  The patterns give reads whose candidates span
+    several chunks of a warp (one slot holding the capacity, two full slots far apart, 0-2 a slot)
+    and reads cut by the capacity (totals one over it)."""
+    import torch
+    n_calls = long_reads = cut_reads = 0
+    for name, cfg, rows, rc, slots, tiers in cases:
+        nw, m, NB = cfg.nw, rows.shape[0], cfg.NB
+        loose, rc_loose = rows.clone(), None if rc is None else rc.clone()
+        for t in (loose, rc_loose):
+            if t is not None:
+                t[:, 2 * nw + 1] = 255
+        for cands in tiers:
+            for pname, cnt in k3_synthetic_counts(m * NB, cands):
+                sl = slots._replace(cnt=torch.from_numpy(cnt).to(rows.device)
+                                    .reshape(m, NB))
+                for rr, rrc, budget in ((rows, rc, "own budgets"),
+                                        (loose, rc_loose, "budget 255")):
+                    vc = K.verify_candidates(cfg, cands, rr, sl, tabs, rrc)
+                    st = vc.starts[::NB].to(torch.int64)
+                    span = torch.clamp(st[1:], max=cands) - st[:-1]
+                    long_reads += int((span > 32).sum())
+                    cut_reads += int(((st[:-1] < cands)
+                                      & (st[1:] > cands)).sum())
+                    for c in (cfg, cfg._replace(max_num_hits=2)):
+                        want = K.reduce_reads_plain(c, cands, rr, vc, sl)
+                        got = K.reduce_reads(c, cands, rr, vc, sl)
+                        check(errs, "reduce_reads",
+                              f"{name}, synthetic {pname}, {budget}, -w "
+                              f"{c.max_num_hits}, capacity {cands}",
+                              [got], [want])
+                        n_calls += 1
+    log(f"[{tag}] K4 on synthetic slot counts: {n_calls} calls over "
+        f"{', '.join(c[0] for c in cases)} x both budgets x -w as set and 2; "
+        f"{long_reads} reads with more than 32 "
+        f"candidates, {cut_reads} cut by the capacity — kernels == twins")
+
+
+# K5's complement permutations: the default alphabet, -M GA (rc_n 2) and a
+# non-plain permutation (the lane-indicator branch)
+K5_PERMS = (((3, 2, 1, 0), 3), ((3, 2, 1, 0), 2), ((1, 0, 3, 2), 3))
+
+
+def k5_synthetic_rows(nw: int, lens, reps: int = 5, seed: int = 17):
+    """Dispatch rows (numpy, (len(lens) * reps, 2nw+4) int32) of random
+    reads of each length in ``lens`` (``reps`` each, in turn): random bases
+    inside the read with about one lane in ten an N (valid mask 00, a
+    random code under it), zero lanes past the end, and random budgets,
+    hashes and ranks."""
+    import numpy as np
+    rng = np.random.default_rng(seed + nw)
+    ln = np.tile(np.asarray(lens, np.int64), reps)
+    m, L = len(ln), 16 * nw
+    inside = np.arange(L)[None, :] < ln[:, None]
+    codes = np.where(inside, rng.integers(0, 4, size=(m, L)), 0)
+    masks = np.where(inside & (rng.random((m, L)) > 0.1), 3, 0)
+    shift = (2 * (15 - np.arange(16))).astype(np.uint64)
+
+    def pack(x):
+        w = (x.reshape(m, nw, 16).astype(np.uint64) << shift).sum(axis=2)
+        return w.astype(np.uint32).view(np.int32)
+
+    rows = np.zeros((m, 2 * nw + 4), np.int32)
+    rows[:, :nw], rows[:, nw: 2 * nw] = pack(codes), pack(masks)
+    rows[:, 2 * nw] = ln
+    rows[:, 2 * nw + 1] = rng.integers(0, 16, size=m)
+    rows[:, 2 * nw + 2] = rng.integers(-2 ** 31, 2 ** 31, size=m)
+    rows[:, 2 * nw + 3] = rng.integers(0, 16, size=m)
+    return rows
+
+
+def phase_k5_cases(K, cfg, dev, errs: dict, tag: str) -> None:
+    """K5 against its twin on ``k5_synthetic_rows`` at every nw from 1 to
+    the kernels' limit, every length from 1 to 16*nw (z = 0 and the
+    multiples of 16 among them), N lanes, under each of ``K5_PERMS``."""
+    import torch
+    n = 0
+    for nw in range(1, K.MAX_NW + 1):
+        rows = torch.from_numpy(k5_synthetic_rows(
+            nw, range(1, 16 * nw + 1))).to(dev)
+        for rc, rc_n in K5_PERMS:
+            c = cfg._replace(nw=nw, rc=rc, rc_n=rc_n)
+            check(errs, "rc_words", f"synthetic rows, nw {nw}, rc {rc}, "
+                  f"rc_n {rc_n}", [K.rc_words(c, rows)],
+                  [K.rc_words_plain(c, rows)])
+            n += rows.shape[0]
+    log(f"[{tag}] K5 on {n} synthetic rows: nw 1-{K.MAX_NW}, every length "
+        f"1..16*nw, N lanes, rc {' / '.join(str(p) for p in K5_PERMS)} — "
+        "kernels == twins")
 
 
 def k2_row_variants(rows_np, nw: int) -> dict:
@@ -711,6 +818,13 @@ def live_combos(cfg, rows_a, rows_b) -> int:
     return int((na * nb).sum())
 
 
+def _sector_bytes(first, width: int) -> int:
+    """The bytes of the distinct 32-byte sectors that spans of ``width``
+    bytes (at most 32) at the byte offsets ``first`` touch."""
+    import numpy as np
+    return 32 * len(np.union1d(first // 32, (first + width - 1) // 32))
+
+
 def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0,
           live: int = 0) -> dict:
     """The least time the card could take for one call of kernel ``name``
@@ -741,7 +855,17 @@ def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0,
                   + 64 * ncand + 16 * cands)
         ops = 10 * m * NB + ncand * (12 * cfg.nw + 130)
     elif name == "reduce_reads":
-        nbytes = m * (row + 16 + out_w) + 12 * ncand
+        # the sectors that the reads' row scalars (len, budget, hash, rank:
+        # 16 bytes, across a sector boundary in some rows), their slot
+        # starts (word b * NB) and their totals (word b * MS + MS - 1,
+        # 4 * MS bytes apart) fall in; soff/coff for full rows, the output,
+        # and three words (chrp, wloc, info) per candidate
+        import numpy as np
+        b = np.arange(m, dtype=np.int64)
+        nbytes = (_sector_bytes(b * row + 8 * cfg.nw, 16)
+                  + _sector_bytes(4 * NB * np.arange(m + 1), 4)
+                  + _sector_bytes(4 * (b * MS + MS - 1), 4)
+                  + m * ((0 if cfg.lean else 8) + out_w) + 12 * ncand)
         ops = 45 * ncand + 10 * m * MS
     elif name == "rc_words":
         nbytes = 2 * m * row
@@ -1115,6 +1239,15 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda",
                        phase)
     phase_k2_cases(K, cfg_lean, rows0.cpu().numpy(), tabs, dev, errs, phase)
     phase_k1_cases(K, cfg_f, rows0, tabs["kmer_tab"], errs, phase)
+    cfg_x = cfg_lean._replace(lean=False)
+    s_x = K.exact_schedule(cfg_x, rowsF, tabs["kmer_tab"], tabs["prof_a"],
+                           rows_rc=rcF)
+    tiers = (eng.CANDS, eng.CANDS_BIG)
+    phase_k4_cases(K, [(f"'{mode}' lean fixed", cfg_f, rows0, rc0, s_f,
+                        tiers),
+                       (f"'{mode}' full", cfg_x, rowsF, rcF, s_x, tiers)],
+                   tabs, errs, phase)
+    del s_x
     vc_f = K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f, tabs, rc0)
     ncand = min(int(vc_f.starts[-1]), eng.CANDS)
     timed = {
@@ -1170,6 +1303,12 @@ def phase_kernels(o, genome, index, rpath: str, dev: str = "cuda",
             "card_group", K.k1_groups(cfg_f)[:2],
             lambda form: K.fixed_schedule(cfg_f, rows0, tabs["kmer_tab"],
                                           rc0, group=form), clock=queued_ms))
+        # the same call on the window's first 32 reads (one warp): the
+        # floor of launch and one read's chain of loads
+        res["reduce_reads"]["card_floor_ms"] = queued_ms(
+            lambda: K.reduce_reads(cfg_f, eng.CANDS, rows0[:32], vc_f, s_f))
+        log(f"    {what} reduce_reads on 32 reads: "
+            f"{_ms(res['reduce_reads']['card_floor_ms'])} a call on the card")
         device_ms(res, timed, what)
         for kname, form, fn in (
                 ("verify_candidates", 1 - v, lambda: K.verify_candidates(
@@ -1344,10 +1483,14 @@ def phase_pe_kernels(o, genome, index, r1: str, r2: str,
             "chain) — kernels == twins")
         window.setdefault("rows", (da, db, full, cands))
     phase_k6_cases(K, cfg_a, 14_000, dev, errs, phase)
+    phase_k5_cases(K, cfg_b, dev, errs, phase)
     da, db, full, cands = window["rows"]
     fwd, rc = K.chain_inputs(cfg_b, db)
     s_b = K.exact_schedule(cfg_b, fwd, tabs["kmer_tab"], tabs["prof_a"],
                            rows_rc=rc)
+    phase_k4_cases(K, [(f"mate 2 '{cfg_b.chains_mode}', {cfg_b.hits_k} hits",
+                        cfg_b, fwd, rc, s_b, (se.CANDS, se.CANDS_BIG))],
+                   tabs, errs, phase)
     vc_b = K.verify_candidates(cfg_b, cands, fwd, s_b, tabs, rc)
     m, ncand = da.shape[0], min(int(vc_b.starts[-1]), cands)
     res = {k: {"max_abs_err": v,
@@ -1380,6 +1523,10 @@ def phase_pe_kernels(o, genome, index, r1: str, r2: str,
                 f"[{phase}] {name}", kern, plain,
                 f"{what}; bound {res[name]['bound_ms']:.4f} ms"))
         device_ms(res, timed, f"[{phase}]")
+        res["rc_words"]["card_floor_ms"] = queued_ms(
+            lambda: K.rc_words(cfg_b, db[:32]))
+        log(f"    [{phase}] rc_words on 32 rows: "
+            f"{_ms(res['rc_words']['card_floor_ms'])} a call on the card")
         # K6's card time on windows of synthetic pairs by valid hits a mate:
         # none (the per-pair floor), one (a clean pair), all K (K*K combos)
         by = {}
@@ -1576,6 +1723,10 @@ def phase_rrbs_kernels(o, genome, index, rpath: str, dev: str = "cuda",
     phase_k2_cases(K, cfg_lean, rows_np, tabs, dev, errs, phase,
                    budgets=(2, 4))
     s_l = schedule(cfg_lean)
+    phase_k4_cases(K, [(f"RRBS '{mode}' lean", cfg_lean, fwd, rc, s_l,
+                        (cands,)),
+                       (f"RRBS '{mode}' full", cfg_lean._replace(lean=False),
+                        fwd, rc, s_l, (cands,))], tabs, errs, phase)
     vc_l = K.verify_candidates(cfg_lean, cands, fwd, s_l, tabs, rc)
     m, ncand = rows.shape[0], min(int(vc_l.starts[-1]), cands)
     res = {k: {"max_abs_err": v, **bound(k, cfg_lean, m, ncand, cands)}

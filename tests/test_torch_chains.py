@@ -32,7 +32,8 @@ from .conftest import simulate
 from .test_torch_kernels import _param as _seed_param
 from .test_torch_kernels import (_jax_program, assert_k1_synthetic_matches_jax,
                                  assert_rows_equal, jax_schedule, jax_verify,
-                                 rows_of, small_seed_world)
+                                 k4_on_synthetic_counts, rows_of,
+                                 small_seed_world)
 from .test_torch_pair import _pad, rows_from
 
 HITS_K = 16
@@ -304,6 +305,23 @@ def test_reduce_reads_both_chains_matches_jax(world, name, v, lean, fixed,
         assert ((found != 0) & (chain == 0)).sum() > len(rows) // 10
     if name == "ndmix.fq":          # 50 nt reads: start offsets 0..14
         assert (want[:, 2 * ct.maxseg + J.X_COFF] != 0).any()
+
+
+def test_reduce_reads_both_chains_matches_jax_on_synthetic_counts(world):
+    """K4 on both chains ('b'), after K3, on chip_smoke.py's synthetic slot
+    counts whose total is one over the capacity (the read at the capacity
+    is cut), full rows with both start offsets, against _verify_impl's
+    rows, every column; exact."""
+    w = world["se"]
+    rows = rows_of(w, "nd100.fq", 2, 0)
+    cj, ct = cfgs(w, 2, 7, lean=False)
+    rows[:, -1] = ct.maxseg - 1
+    slots, rc = port_slots(w, ct, rows)
+    got, want = k4_on_synthetic_counts(w, cj, ct, rows, slots,
+                                       "total cands + 1", 2048, rows_rc=rc)
+    assert_rows_equal(got, want, "K4 'b', total cands + 1")
+    ex = 2 * ct.maxseg
+    assert (got[:, ex + K.X_OK] == 0).sum() == 1
 
 
 @pytest.mark.parametrize("name,v,mode,cands_per_b", [

@@ -472,3 +472,67 @@ def test_k1_groups_cover_the_slots_and_cpu_wrapper_runs_twin(world, v, mode,
         got = K.fixed_schedule(ct, fwd, kt, rc, group=g)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert K.launch_counts()["fixed_schedule"] == 0
+
+
+def k4_on_synthetic_counts(world, cj, ct, rows, slots, pattern: str,
+                           cands: int, rows_rc=None):
+    """(port rows, JAX rows) of K4 after K3 on the slot counts ``pattern``
+    of ``chip_smoke.k3_synthetic_counts`` put in place of the window's:
+    the twins of K3 and K4 on the port's ``slots`` (``rows_rc``: K5's rows
+    under 'b'), ``_verify_impl`` on JAX's schedule."""
+    from chip_smoke import k3_synthetic_counts
+    n, NB = len(rows), ct.NB
+    cnt = dict(k3_synthetic_counts(n * NB, cands))[pattern].reshape(n, NB)
+    sched, scal = jax_schedule(world, cj, rows)
+    sched = list(sched)
+    sched[6] = jnp.asarray(cnt)
+    want = jax_verify(world, cj, cands, sched, scal)
+    slots = slots._replace(cnt=torch.from_numpy(cnt.copy()))
+    r = torch.from_numpy(rows)
+    vc = K.verify_candidates(ct, cands, r, slots, world["tabs"],
+                             rows_rc=rows_rc)
+    return K.reduce_reads(ct, cands, r, vc, slots).numpy(), want
+
+
+# K4 on synthetic slot counts: the cfg changes of each row form
+K4_SYNTHETIC = {"lean fixed": dict(lean=True, fixed=True),
+                "pe 16 hits": dict(pe=True, hits_k=16)}
+
+
+@pytest.mark.parametrize("pattern", _synthetic_names())
+@pytest.mark.parametrize("mode", list(K4_SYNTHETIC))
+def test_reduce_reads_twin_matches_jax_on_synthetic_counts(world, pattern,
+                                                          mode):
+    """K4's twin, after K3's, on the synthetic slot counts of
+    chip_smoke.py's K4 cases (reads spanning many candidates, reads cut by
+    the capacity, counts past the 2^30 saturation limit) against
+    _verify_impl's rows, every column: lean rows with the fixed-schedule
+    multi bit, and full rows with cfg.pe and 16 compacted hits; maxrank
+    cycling over 0..maxseg-1 (the stop rank at every rank).  The reads'
+    own budgets: a budget past maxseg - 1 would let JAX's per-level counts
+    of a read spill into the next reads' (its count index has no level
+    guard; the port's twin and kernel keep a read's counts in its row).
+    int32 throughout: exact equality."""
+    rows = rows_of(world, "r100.fq", 2, 0)
+    nw = (rows.shape[1] - 4) // 2
+    cj, ct = cfgs(world, 2, nw, **K4_SYNTHETIC[mode])
+    rows[:, -1] = np.arange(len(rows)) % ct.maxseg
+    got, want = k4_on_synthetic_counts(world, cj, ct, rows,
+                                       port_schedule(world, ct, rows),
+                                       pattern, 2048)
+    assert_rows_equal(got, want, f"K4 {mode}, {pattern}")
+
+
+@pytest.mark.parametrize("lean", [True, False])
+def test_reduce_reads_cpu_wrapper_runs_twin(world, lean):
+    """K4's wrapper on CPU tensors returns the twin's rows and counts no
+    launch."""
+    rows = rows_of(world, "r100.fq", 2, 0)
+    _cj, ct = cfgs(world, 2, 7, lean=lean)
+    r = torch.from_numpy(rows)
+    slots = port_schedule(world, ct, rows)
+    vc = K.verify_candidates(ct, 4096, r, slots, world["tabs"])
+    want = K.reduce_reads_plain(ct, 4096, r, vc, slots)
+    K.reset_launch_counts()
+    assert torch.equal(K.reduce_reads(ct, 4096, r, vc, slots), want)
+    assert K.launch_counts()["reduce_reads"] == 0

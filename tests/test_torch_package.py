@@ -1,10 +1,11 @@
 """Package rules of the PyTorch port: it imports without JAX, its host
-modules are byte-identical copies of ``bsmap_tpu``'s (``index.py`` with one
-declared difference, ``_mmap_npz``), wrappers run their twins (and count
+modules are byte-identical copies of ``bsmap_tpu``'s (but for the declared
+differences, ``DIFFERS``), wrappers run their twins (and count
 nothing) on CPU tensors, and on a CUDA machine each kernel equals its twin
 bit for bit (WGBS SE and PE, and SE RRBS)."""
 
 import ast
+import os
 import re
 import subprocess
 import sys
@@ -23,7 +24,8 @@ COPIED = ["params.py", "encoding.py", "utils.py", "readio.py", "blockio.py",
           "engine/pair_host.py"]
 PORT = REPO / "bsmap_tpu_torch"
 # declared differences of copied modules: (file, top-level function)
-DIFFERS = {"index.py": "_mmap_npz"}   # numpy 2.3+ header API
+DIFFERS = {"index.py": "_mmap_npz",   # numpy 2.3+ header API
+           "native/__init__.py": "_build"}   # a build file per process
 
 
 def test_port_imports_without_jax():
@@ -67,6 +69,41 @@ def test_host_module_is_identical_copy(rel):
         port = _without_function(port, DIFFERS[rel])
         ref = _without_function(ref, DIFFERS[rel])
     assert port == ref
+
+
+def test_native_build_uses_a_file_per_process(tmp_path, monkeypatch):
+    """The port's native library is compiled into a file named by the
+    process and moved into place whole: another process's build in flight
+    (its own temporary file) is left alone, and a failed compile leaves no
+    file behind."""
+    from bsmap_tpu_torch import native
+    so = str(tmp_path / "_bsmap_native.so")
+    other = f"{so}.{os.getpid() + 1}.tmp"
+    (tmp_path / os.path.basename(other)).write_bytes(b"half")
+    outs = []
+
+    def compile_ok(cmd, **kw):
+        out = cmd[cmd.index("-o") + 1]
+        outs.append(out)
+        with open(out, "wb") as f:
+            f.write(b"whole")
+
+    monkeypatch.setattr(native, "_SO", so)
+    monkeypatch.setattr(native.subprocess, "run", compile_ok)
+    assert native._build()
+    assert outs == [f"{so}.{os.getpid()}.tmp"]
+    assert open(so, "rb").read() == b"whole"
+    assert open(other, "rb").read() == b"half"
+
+    def compile_fails(cmd, **kw):
+        with open(cmd[cmd.index("-o") + 1], "wb") as f:
+            f.write(b"part")
+        raise subprocess.CalledProcessError(1, cmd)
+
+    monkeypatch.setattr(native.subprocess, "run", compile_fails)
+    assert not native._build()
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        os.path.basename(p) for p in (so, other))
 
 
 def test_index_cache_maps_without_private_numpy_header(tmp_path,
@@ -590,3 +627,79 @@ def test_cuda_pair_join_on_synthetic_rows(tmp_path):
     torch.cuda.synchronize()
     assert errs == {"pair_join": 0}
     assert K.launch_counts()["pair_join"] == 2 * len(K6_HITS) + 1
+
+
+@pytest.mark.gpu
+def test_cuda_reduce_reads_on_synthetic_counts(tmp_path):
+    """On a CUDA device: the redesigned K4 (a lane per read, the whole warp
+    for a read with more than 32 candidates) against its twin on the
+    candidates K3 makes from ``chip_smoke.k3_synthetic_counts``
+    (``phase_k4_cases``: the reads' own budgets and budget 255, -w as set
+    and 2, two capacities): lean fixed and full rows on 'f' and 'b', the pair-end
+    mate 2 program ('r', cfg.pe, 16 hits), and lean and full RRBS rows;
+    exact equality, one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    from chip_smoke import k3_synthetic_counts, phase_k4_cases
+    eng, rows = _tiny(tmp_path)
+    tabs = {k: v.cuda() for k, v in eng.tables.items()}
+    r = torch.from_numpy(rows).cuda()
+    tiers = (4096, 65536)
+    cases = []
+    for mode in ("f", "b"):
+        cf = eng._cfg(mode, lean=True, nw=7)._replace(fixed=True)
+        cx = eng._cfg(mode, nw=7)
+        rc = K.rc_words(cf, r) if mode == "b" else None
+        cases += [
+            (f"'{mode}' lean fixed", cf, r, rc,
+             K.fixed_schedule(cf, r, tabs["kmer_tab"], rc), tiers),
+            (f"'{mode}' full", cx, r, rc,
+             K.exact_schedule(cx, r, tabs["kmer_tab"], tabs["prof_a"],
+                              rows_rc=rc), tiers)]
+    errs = {}
+    K.reset_launch_counts()
+    phase_k4_cases(K, cases, tabs, errs, "gpu test")
+    pe, nw, _ra, rb = _tiny_pe(tmp_path / "pe")
+    cb = pe._cfg(2, nw)
+    ptabs = {k: v.cuda() for k, v in pe.se.tables.items()}
+    fwd, _ = K.chain_inputs(cb, torch.from_numpy(rb).cuda())
+    cases.append(("mate 2 'r', 16 hits", cb, fwd, None, K.exact_schedule(
+        cb, fwd, ptabs["kmer_tab"], ptabs["prof_a"]), tiers))
+    phase_k4_cases(K, cases[-1:], ptabs, errs, "gpu test")
+    reng, rrows, rcfg = _tiny_rrbs(tmp_path / "rrbs")(2, True)
+    rtabs = {k: t.cuda() for k, t in reng.tables.items()}
+    rr = torch.from_numpy(rrows).cuda()
+    rs = K.exact_schedule(rcfg, rr, rtabs["kmer_tab"], rtabs["prof_a"],
+                          tag_off=rtabs["tag_off"])
+    cases += [("RRBS lean", rcfg, rr, None, rs, tiers),
+              ("RRBS full", rcfg._replace(lean=False), rr, None, rs, tiers)]
+    phase_k4_cases(K, cases[-2:], rtabs, errs, "gpu test")
+    torch.cuda.synchronize()
+    assert errs == {"reduce_reads": 0}
+    n_pat = len(k3_synthetic_counts(24, 16))
+    # patterns x capacities x 2 budgets x 2 -w, each case
+    assert K.launch_counts()["reduce_reads"] == sum(
+        n_pat * len(c[5]) * 2 * 2 for c in cases)
+
+
+@pytest.mark.gpu
+def test_cuda_rc_words_at_every_length(tmp_path):
+    """On a CUDA device: the redesigned K5 (a tile of rows in shared
+    memory, a thread per output word) against its twin on
+    ``chip_smoke.k5_synthetic_rows`` at every nw from 1 to 10 and every
+    length 1..16*nw, N lanes, under the three permutations of
+    ``K5_PERMS`` (``phase_k5_cases``); exact equality."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    from chip_smoke import K5_PERMS, phase_k5_cases
+    eng, _rows = _tiny(tmp_path)
+    errs = {}
+    K.reset_launch_counts()
+    phase_k5_cases(K, eng._cfg("r", nw=7), "cuda", errs, "gpu test")
+    torch.cuda.synchronize()
+    assert errs == {"rc_words": 0}
+    assert K.launch_counts()["rc_words"] == K.MAX_NW * len(K5_PERMS)

@@ -202,6 +202,34 @@ def test_rc_words_twin_matches_jax(pe, name, lens, alphabet, rc):
     assert (rows[:, :nw] != got[:, :nw]).any()
 
 
+@pytest.mark.parametrize("nw", [1, 2, 5, 10])
+def test_rc_words_twin_matches_jax_at_every_width(pe, nw):
+    """rc_words_plain against _rc_words on chip_smoke.py's synthetic rows
+    (``k5_synthetic_rows``: random bases, about one lane in ten an N) at nw
+    words, each of the lengths 1, 15, 16, 17, 16*nw - 1 and 16*nw that fit
+    (a shift of a multiple of 16 bases, z = 0, and one base either side),
+    under the default complement, -M GA's (rc_n = 2) and a non-plain
+    permutation (the lane-indicator branch); exact."""
+    from chip_smoke import K5_PERMS, k5_synthetic_rows
+    _d, worlds = pe
+    lens = sorted({x for x in (1, 15, 16, 17, 16 * nw - 1, 16 * nw)
+                   if 1 <= x <= 16 * nw})
+    rows = k5_synthetic_rows(nw, lens)
+    assert (rows[:, nw: 2 * nw] != -1).any()          # N lanes
+    qw, rw, ln, _b, _r, _m = J._unpack_inputs(jnp.asarray(rows))
+    for rc, rc_n in K5_PERMS:
+        cj, ct = cfgs(worlds["ref"], _param(2), "r", nw)
+        cj, ct = (c._replace(rc=rc, rc_n=rc_n) for c in (cj, ct))
+        cqw, crw = J._rc_words(cj, qw, rw, ln)
+        got = K.rc_words(ct, torch.from_numpy(rows)).numpy()
+        what = f"nw {nw}, rc {rc}, rc_n {rc_n}"
+        assert_rows_equal(got[:, :nw], np.asarray(cqw).view(np.int32),
+                          f"cqw, {what}")
+        assert_rows_equal(got[:, nw: 2 * nw],
+                          np.asarray(crw).view(np.int32), f"crw, {what}")
+        assert_rows_equal(got[:, 2 * nw:], rows[:, 2 * nw:], "scalars")
+
+
 # -- K2 -> K3 -> K4 in 'r' + pe + hits_k ------------------------------------------
 
 @pytest.mark.parametrize("name,v,rank,cands_per_b", [

@@ -41,7 +41,8 @@ from chip_smoke import make_rrbs_set
 from .test_golden_se import assert_same
 from .test_torch_cli import ENV
 from .test_torch_kernels import (_jax_program, assert_rows_equal,
-                                 jax_schedule, jax_verify)
+                                 jax_schedule, jax_verify,
+                                 k4_on_synthetic_counts)
 
 
 def _param(v: int = 2, window=None) -> Param:
@@ -167,6 +168,20 @@ def test_rrbs_reduce_twin_matches_jax(rrbs, v, lean, window, cands):
         assert (got[:, 2 * ct.maxseg + K.X_OK] == 0).any()
     elif not window:
         assert found.sum() > len(rows) // 2
+
+
+def test_rrbs_reduce_twin_matches_jax_on_synthetic_counts(rrbs):
+    """K4 with cfg.rrbs, after K3, on chip_smoke.py's synthetic slot
+    counts of 0-2 candidates a slot (reads spanning several chunks of a
+    K4 group, forward hits bound to the fragment filter), full rows,
+    against _verify_impl's rows, every column; exact."""
+    cj, ct = rrbs_cfgs(rrbs, 2, lean=False)
+    rows = rrbs_rows(rrbs, 2, ct.maxseg - 1)
+    got, want = k4_on_synthetic_counts(rrbs, cj, ct, rows,
+                                       port_slots(rrbs, ct, rows),
+                                       "every slot 0-2", 16 * J.DEV_BATCH)
+    assert_rows_equal(got, want, "K4 rrbs, every slot 0-2")
+    assert got[:, 2 * ct.maxseg + K.X_FOUND].sum() > 0
 
 
 @pytest.mark.parametrize("v,lean", [(2, True), (4, False)])

@@ -353,6 +353,31 @@ def _twin_copies(d) -> tuple[str, str]:
     return str(d / "twin.fq"), str(d / "twin.fa")
 
 
+def _load_jax_native(monkeypatch) -> None:
+    """Load bsmap_tpu's native library for this test.  That package builds
+    its library at first use through one shared temporary file, and a
+    process whose first load met another process's build in flight keeps
+    None (and so the per-batch CLI path, not the block path) for its
+    lifetime: retry that load once the build is done.  The port builds
+    through a file of each process's own and needs no retry."""
+    from bsmap_tpu import native as jnative
+    if jnative.get_lib() is None:
+        monkeypatch.setattr(jnative, "_TRIED", False)
+    assert jnative.get_lib() is not None
+
+
+def _block_ranks(cls, monkeypatch) -> list:
+    """Record (reads, rank_start) at every align_block call of ``cls``."""
+    seen, real = [], cls.align_block
+
+    def align_block(self, block):
+        seen.append((len(block), self.rank_start))
+        return real(self, block)
+
+    monkeypatch.setattr(cls, "align_block", align_block)
+    return seen
+
+
 def test_fixed_round_multi_hits_match_host(world, tmp_path, monkeypatch):
     """The index-sharded engine's fixed-schedule round returns full rows;
     its multi-hit reads must re-dispatch on the exact schedule, as the
@@ -361,14 +386,25 @@ def test_fixed_round_multi_hits_match_host(world, tmp_path, monkeypatch):
     escalated), so the fixed round meets level-1 multi-hit reads: the port
     equals the host engine, while bsmap_tpu's index-sharded engine, which
     reads the multi bit from column 1 of the full rows, picks the other
-    hit of some reads (ROADMAP C)."""
+    hit of some reads (ROADMAP C).  Both CLIs must take the native block
+    path for that, and both engines must have tuned block 2 to full rank;
+    the test sees to the first and asserts the second."""
+    from bsmap_tpu_torch import native as tnative
+    _load_jax_native(monkeypatch)
+    assert tnative.get_lib() is not None
     reads, ref = _twin_copies(tmp_path)
     monkeypatch.setattr(J, "DEV_BATCH", 32)
     monkeypatch.setattr(T, "DEV_BATCH", 32)
+    ranks = {"jax": _block_ranks(JIndexSharded, monkeypatch),
+             "port": _block_ranks(IndexShardedEngine, monkeypatch)}
     argv = ["-a", reads, "-d", ref, "-s", str(SEED), "-S", "1", "-v", "2",
             "-u"]
     outs = _cli_runs(world, tmp_path, monkeypatch, argv, "index-sharded",
                      "sam")
+    full = min(T.MAXSNPS, 2)                  # maxseg - 1 at -v 2
+    for name, seen in ranks.items():
+        assert [b for b, _ in seen] == [32, 64, 104], name
+        assert [r for _, r in seen][:2] == [0, full], name
     assert outs["port"] == outs["host"]
     assert outs["jax"] != outs["host"]
 
