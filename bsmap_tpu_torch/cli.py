@@ -15,19 +15,30 @@ region over every visible card; not for RRBS) or ``--engine host`` (the
 exact sequential oracle).  Under ``--device cpu`` the mesh engines run one
 shard on the CPU.  A missing device or a kernel that fails to build or
 launch raises under every engine, ``auto`` included; an engine named
-explicitly also raises on a configuration it does not support.  BAM
-output and multi-process runs are not ported yet and exit with an error.
+explicitly also raises on a configuration it does not support.
+
+A ``.bam`` output is written as SAM and converted after the run to a
+sorted, indexed BAM (``output/bam.py``); ``-a`` reads FASTA, FASTQ, SAM or
+BAM.  ``-p N`` spawns N worker processes over contiguous read ranges where
+the per-read paths need them (RRBS, trimming, pair-end BSP or ``-R``) and
+is a no-op on the block paths; ``--nprocs``/``--proc-id`` run one range of
+a multi-process job by hand, ``--coordinator`` joins a torch.distributed
+gloo group (``parallel/distributed.py``).  Process 0 merges the shards
+byte-identical to a one-process run.
 
     python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam --device cuda
-    python -m bsmap_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -o out.sam
+    python -m bsmap_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -o out.bam
     python -m bsmap_tpu_torch.cli -a rrbs.fq -d ref.fa -D C-CGG -o out.sam
     python -m bsmap_tpu_torch.cli -a pbat.fq -d ref.fa -n 1 -o out.sam
     python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam \\
         --engine index-sharded
+    python -m bsmap_tpu_torch.cli -a rrbs.fq -d ref.fa -D C-CGG -A AGATCGGAAGAGC \\
+        -o out.sam -p 4
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -40,10 +51,10 @@ from .reference import load_genome
 from .utils import RandR, StepTimer
 
 USAGE = """Usage: bsmap_tpu_torch [options]
-       -a  <str>   query a file, FASTA/FASTQ format
+       -a  <str>   query a file, FASTA/FASTQ/SAM/BAM format
        -b  <str>   query b file (pair-end mate 2)
        -d  <str>   reference sequences file, FASTA format
-       -o  <str>   output alignment file, BSP/SAM format
+       -o  <str>   output alignment file, BSP/SAM/BAM format
        -2  <str>   output file of unpaired hits (pair-end BSP output)
        -m  <int>   minimal insert size (pair-end), default 28
        -x  <int>   maximal insert size (pair-end), default 500
@@ -53,7 +64,10 @@ USAGE = """Usage: bsmap_tpu_torch [options]
        -B  <int>   start from the Nth read
        -E  <int>   end at the Nth read
        -I  <int>   index interval, default=4 (WGBS), 1 (RRBS)
-       -p  <int>   processors (1 only)
+       -p  <int>   processes, default 8: workers over read ranges on
+                   the per-read paths (RRBS, trimming, pair-end BSP or
+                   -R; BSMAP_TPU_LOCAL_MP=0 keeps one process); a no-op
+                   on the block paths
        -S  <int>   random seed for multi-hit selection (0 = clock)
        -M  <str>   alignment transition, default TC
        -q  <int>   quality trim threshold, default 0
@@ -78,8 +92,12 @@ USAGE = """Usage: bsmap_tpu_torch [options]
                                cuda; cpu runs the kernels' plain twins,
                                one shard for the mesh engines)
        --index-cache <dir>     persist/reuse the seed index
+       --nprocs <int>          multi-process: total processes (contiguous
+                               read ranges; byte-exact merge on process 0)
+       --proc-id <int>         multi-process: this process id (0-based)
+       --coordinator <h:p>     multi-process: torch.distributed (gloo)
+                               rendezvous address, process 0's host
        -h          help
-   Not ported yet (see ROADMAP.md): .bam output, -p > 1, --nprocs.
    Pair-end -D runs on the host engine (auto picks it; --engine device
    refuses), and -D not on index-sharded.
 """
@@ -103,6 +121,9 @@ class Options:
         self.engine = "auto"
         self.device = "cuda"
         self.index_cache = os.environ.get("BSMAP_TPU_INDEX_CACHE", "")
+        self.nprocs = 1
+        self.proc_id = 0
+        self.coordinator = ""
 
 
 def parse_args(argv: list[str]) -> Options:
@@ -138,8 +159,12 @@ def parse_args(argv: list[str]) -> Options:
                 sys.exit(f"unknown device: {o.device} (cuda or cpu)")
         elif a == "--index-cache" or a.startswith("--index-cache="):
             o.index_cache = long_val("--index-cache")
-        elif a.startswith(("--nprocs", "--proc-id", "--coordinator")):
-            _unported("multi-process alignment")
+        elif a == "--nprocs" or a.startswith("--nprocs="):
+            o.nprocs = int(long_val("--nprocs"))
+        elif a == "--proc-id" or a.startswith("--proc-id="):
+            o.proc_id = int(long_val("--proc-id"))
+        elif a == "--coordinator" or a.startswith("--coordinator="):
+            o.coordinator = long_val("--coordinator")
         elif a.startswith("-") and len(a) >= 2:
             c = a[1]
             if c == "a":
@@ -185,8 +210,6 @@ def parse_args(argv: list[str]) -> Options:
                 p.zero_qual = int(val())
             elif c == "p":
                 p.num_procs = int(val())
-                if p.num_procs > 1:
-                    _unported("-p > 1 (multi-process alignment)")
             elif c == "A":
                 p.adapters.append(val())
             elif c == "R":
@@ -300,11 +323,13 @@ def make_engine(o: Options, genome, index, mesh=None):
 
 def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
     """Run the CLI on ``argv``; returns the exit code.  A ``stats`` dict
-    receives the alignment phase's ``reads`` (SE) or ``pairs`` (PE),
-    ``align_s``, ``engine`` (the engine object) and ``engine_name`` (the
-    engine that ran: ``auto`` resolved, ``host`` where it gave way).
-    ``mesh`` overrides the device list of the mesh engines and of
-    ``auto``'s choice (it may repeat a device)."""
+    receives the alignment phase's ``reads`` (SE) or ``pairs`` (PE; of
+    this process's range under ``--nprocs``), ``align_s``, ``engine`` (the
+    engine object), ``engine_name`` (the engine that ran: ``auto``
+    resolved, ``host`` where it gave way) and, for ``.bam`` output, the
+    conversion's ``bam_s`` (not in ``align_s``).  ``mesh`` overrides the
+    device list of the mesh engines and of ``auto``'s choice (it may
+    repeat a device)."""
     if not argv:
         print(USAGE)
         return 1
@@ -314,26 +339,280 @@ def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
     if o.out_file.endswith(".sam"):
         p.out_sam = 1
     elif o.out_file.endswith(".bam"):
-        _unported("BAM output")
+        p.out_sam = 2
     if not o.ref_file:
         sys.exit("fatal error: failed to open ref file")
-    if o.index_cache:
-        from .reference import load_genome_cached
-        genome = load_genome_cached(o.ref_file, p, o.index_cache)
-    else:
-        genome = load_genome(o.ref_file, p)
-    p.total_ref_seq = genome.n_chr
-    print(f"Load in {genome.n_chr} db seqs, total size {genome.sum_length} bp."
-          f" {timer.total():.1f} secs passed")
-    index = get_index(o, genome)
-    print(f"Create seed table. {timer.total():.1f} secs passed")
-    if o.query_a and o.query_b:
-        from .engine.pair_pipeline import run_pair_end
-        run_pair_end(o, genome, index, stats=stats, mesh=mesh)
-    else:
-        run_single_end(o, genome, index, stats=stats, mesh=mesh)
+    with contextlib.ExitStack() as stack:
+        if o.nprocs == 1 and _wants_local_mp(o) and not o.index_cache:
+            # -p workers would each pack the genome and build the index
+            # again: this parent builds and saves them once into a cache
+            # directory, and the workers memory-map the shared copy
+            import tempfile
+            o.index_cache = stack.enter_context(tempfile.TemporaryDirectory(
+                prefix="bsmap_tpu_idx_", ignore_cleanup_errors=True))
+            argv = list(argv) + ["--index-cache", o.index_cache]
+        if o.index_cache:
+            from .reference import load_genome_cached
+            genome = load_genome_cached(o.ref_file, p, o.index_cache)
+        else:
+            genome = load_genome(o.ref_file, p)
+        p.total_ref_seq = genome.n_chr
+        print(f"Load in {genome.n_chr} db seqs, total size "
+              f"{genome.sum_length} bp. {timer.total():.1f} secs passed")
+        index = get_index(o, genome)
+        print(f"Create seed table. {timer.total():.1f} secs passed")
+        if o.nprocs > 1:
+            if o.query_a and o.query_b:
+                run_multihost_pair(o, genome, index, stats=stats, mesh=mesh)
+            else:
+                run_multihost_se(o, genome, index, stats=stats, mesh=mesh)
+        elif _wants_local_mp(o):
+            run_local_multiprocess(o, argv)
+        elif o.query_a and o.query_b:
+            from .engine.pair_pipeline import run_pair_end
+            run_pair_end(o, genome, index, stats=stats, mesh=mesh)
+        else:
+            run_single_end(o, genome, index, stats=stats, mesh=mesh)
     print(f"Total time consumed:  {timer.total():.1f} secs")
     return 0
+
+
+def _wants_local_mp(o: Options) -> bool:
+    """-p N (>1) parallelizes the per-read paths (RRBS, trimming, PE
+    formatting) by local process sharding, ``bsmap_tpu``'s rule
+    (bsmap_tpu/cli.py:320-333): the reference's thread pool recast as the
+    byte-exact --nprocs range machinery.  On the block paths (SE SAM, BSP
+    and -R, PE SAM without -R) -p is a no-op, as there.
+    ``BSMAP_TPU_LOCAL_MP=0`` turns the workers off."""
+    p = o.param
+    if p.num_procs <= 1 or os.environ.get("BSMAP_TPU_LOCAL_MP") == "0":
+        return False
+    pe = bool(o.query_a and o.query_b)
+    block_path = (not p.RRBS_flag and not p.adapters
+                  and p.qual_threshold == 0
+                  and (not pe or (p.out_sam >= 1 and not p.out_ref)))
+    return not block_path
+
+
+def run_local_multiprocess(o: Options, argv: list[str]) -> int:
+    """Spawn -p worker processes over contiguous read ranges (each takes
+    the o.nprocs > 1 branch with this run's own argv, ``--device`` and
+    ``--engine`` included); process 0 merges the output byte-identical.
+    Read-range shards are idempotent, so a failed worker is started again
+    at once, one time; a second failure stops the other workers (worker 0
+    would otherwise wait in ``merge_shards`` for a shard that never
+    comes), removes the shards and fails the run."""
+    import subprocess
+
+    n = o.param.num_procs
+
+    def spawn(k: int):
+        cmd = [sys.executable, "-m", "bsmap_tpu_torch.cli"] + argv + [
+            "--nprocs", str(n), "--proc-id", str(k)]
+        return subprocess.Popen(cmd)
+
+    procs = {k: spawn(k) for k in range(n)}
+    retried: set[int] = set()
+    rc: dict[int, int] = {}
+    try:
+        while len(rc) < n:
+            for k in list(procs):
+                if k in rc:
+                    continue
+                r = procs[k].poll()
+                if r is None:
+                    continue
+                if r != 0 and k not in retried:
+                    print(f"retrying failed worker shard {k} "
+                          "(idempotent range)")
+                    retried.add(k)
+                    procs[k] = spawn(k)
+                else:
+                    rc[k] = r
+            if any(rc.values()):
+                break
+            time.sleep(0.2)
+    finally:
+        for k, q in procs.items():
+            if k not in rc and q.poll() is None:
+                q.kill()
+                q.wait()
+    if any(rc.values()) or len(rc) < n:
+        _cleanup_shards(o, n)
+        sys.exit(f"worker process failed after retry: {rc}")
+    return 0
+
+
+def _cleanup_shards(o: Options, n: int) -> None:
+    """Remove partial shard litter after a failed multi-process run."""
+    for base in (o.out_file, o.out_unpair):
+        if not base:
+            continue
+        for k in range(n):
+            for suf in (f".shard{k}", f".shard{k}.done", f".shard{k}.tmp"):
+                try:
+                    os.remove(base + suf)
+                except OSError:
+                    pass
+
+
+def _end_rendezvous(o: Options) -> None:
+    """With a coordinator, every process waits for the others, then leaves
+    the process group: process 0 hosts the group's TCP store, so it must
+    not exit while another process still uses it."""
+    if o.coordinator:
+        import torch.distributed as tdist
+        tdist.barrier()
+        tdist.destroy_process_group()
+
+
+def _to_bam(path: str, stats: dict | None) -> None:
+    """Convert the SAM text written to ``path`` into a sorted BAM in place,
+    with its ``.bai``; the seconds go to ``stats["bam_s"]``.  The copied
+    converter passes over an index that fails to build without a word
+    (bamio.sam_to_bam), so a ``.bai`` that is not there afterwards fails
+    the run here."""
+    from .output.bam import sam_to_bam
+    t0 = time.perf_counter()
+    bai = path + ".bai"
+    if os.path.exists(bai):
+        os.remove(bai)
+    sam_to_bam(path)
+    if not os.path.exists(bai):
+        raise RuntimeError(f"{path}: the BAM index {bai} was not built")
+    if stats is not None:
+        stats["bam_s"] = time.perf_counter() - t0
+
+
+def run_multihost_se(o: Options, genome, index, stats: dict | None = None,
+                     mesh=None) -> int:
+    """Multi-process SE: a contiguous read range per process, the MateState
+    rebuilt exactly at the range boundary, the shards merged in order on
+    process 0 (parallel/distributed.py), as bsmap_tpu/cli.py:393-435.  The
+    engine is chosen as in a one-process run (``--engine auto`` included),
+    and ``stats`` gets this range's numbers."""
+    from .parallel import distributed as dist
+
+    p = o.param
+    dist.initialize(o.coordinator, o.nprocs, o.proc_id)
+    try:
+        total = dist.count_reads(o.query_a, p)
+        s, e = dist.plan_range(total, o.nprocs, o.proc_id,
+                               p.read_start, p.read_end)
+        final_out = o.out_file
+
+        def host():
+            from .engine.host_engine import HostEngine
+            return HostEngine(genome, index, p)
+
+        engine = with_host_fallback(
+            o, lambda: make_engine(o, genome, index, mesh), host, stats)
+        if s > 1:
+            dist.reconstruct_state(engine, o.query_a, p, s)
+        p.read_start, p.read_end = s, e
+        # written through a .tmp and renamed: a shard that dies midway
+        # never looks complete to the merger
+        shard_path = final_out + f".shard{o.proc_id}"
+        o.out_file = shard_path + ".tmp"
+        fmt = SamFormatter(genome, p, RandR(1))
+        timer = StepTimer()
+        t0 = time.perf_counter()
+        from .readio import detect_format
+        if (getattr(engine, "supports_blocks", lambda: False)()
+                and detect_format(o.query_a) < 2):
+            total_n = run_single_end_blocks(o, engine, fmt, genome, timer,
+                                            header=False)
+        else:
+            total_n = run_single_end_reads(o, engine, fmt, genome, timer,
+                                           header=False)
+        if stats is not None:
+            stats.update(reads=total_n, align_s=time.perf_counter() - t0,
+                         engine=engine)
+        os.replace(o.out_file, shard_path)
+        o.out_file = shard_path
+        open(shard_path + ".done", "w").close()
+        print(f"shard {o.proc_id}: {total_n} reads, "
+              f"{fmt.n_aligned} aligned")
+        o.out_file = final_out
+        if o.proc_id == 0:
+            dist.merge_shards(final_out, o.nprocs,
+                              sam_header(genome) if p.out_sam else "")
+            print(f"merged {o.nprocs} shards -> {final_out}")
+            if p.out_sam == 2:
+                _to_bam(final_out, stats)
+    finally:
+        _end_rendezvous(o)
+    return total_n
+
+
+def run_multihost_pair(o: Options, genome, index, stats: dict | None = None,
+                       mesh=None) -> int:
+    """Multi-process PE: a contiguous PAIR range per process with both
+    mates' MateStates rebuilt exactly at the boundary, the shards merged in
+    order on process 0, as bsmap_tpu/cli.py:438-494.  The engine is chosen
+    as in a one-process run (``--engine auto`` included: the host engine
+    for pair-end -D)."""
+    from .engine.pair_pipeline import (HostPairBatch, make_pair_engine,
+                                       run_pair_end_blocks,
+                                       run_pair_end_reads)
+    from .output.pair_sam import PairFormatter
+    from .parallel import distributed as dist
+    from .readio import detect_format
+
+    p = o.param
+    dist.initialize(o.coordinator, o.nprocs, o.proc_id)
+    try:
+        total = dist.count_reads(o.query_a, p)
+        s, e = dist.plan_range(total, o.nprocs, o.proc_id,
+                               p.read_start, p.read_end)
+        engine = with_host_fallback(
+            o, lambda: make_pair_engine(o, genome, index, mesh),
+            lambda: HostPairBatch(genome, index, p), stats)
+        if s > 1:
+            dist.reconstruct_pair_state(engine, o.query_a, o.query_b, p, s)
+        p.read_start, p.read_end = s, e
+        final_out, final_unpair = o.out_file, o.out_unpair
+        if not p.out_sam and not final_unpair:
+            sys.exit("failed to open output file for unpaired hits "
+                     "(check -2 option)")
+        fmt = PairFormatter(genome, p, RandR(1))
+        shard_path = f"{final_out}.shard{o.proc_id}"
+        o.out_file = shard_path + ".tmp"
+        up_path = ""
+        if final_unpair:
+            up_path = f"{final_unpair}.shard{o.proc_id}"
+            o.out_unpair = up_path + ".tmp"
+        t0 = time.perf_counter()
+        if (getattr(engine, "supports_pair_blocks", lambda: False)()
+                and detect_format(o.query_a) < 2
+                and detect_format(o.query_b) < 2):
+            total_n = run_pair_end_blocks(o, genome, engine, fmt,
+                                          header=False)
+        else:
+            total_n = run_pair_end_reads(o, genome, engine, fmt,
+                                         header=False)
+        if stats is not None:
+            stats.update(pairs=total_n, align_s=time.perf_counter() - t0,
+                         engine=engine)
+        os.replace(o.out_file, shard_path)
+        open(shard_path + ".done", "w").close()
+        if not p.out_sam and final_unpair:
+            os.replace(o.out_unpair, up_path)
+            open(up_path + ".done", "w").close()
+        o.out_file, o.out_unpair = final_out, final_unpair
+        print(f"shard {o.proc_id}: {total_n} pairs, "
+              f"{fmt.n_aligned_pairs} aligned pairs")
+        if o.proc_id == 0:
+            dist.merge_shards(final_out, o.nprocs,
+                              sam_header(genome) if p.out_sam else "")
+            if not p.out_sam and final_unpair:
+                dist.merge_shards(final_unpair, o.nprocs, "")
+            print(f"merged {o.nprocs} shards -> {final_out}")
+            if p.out_sam == 2:
+                _to_bam(final_out, stats)
+    finally:
+        _end_rendezvous(o)
+    return total_n
 
 
 def _randr_seed() -> int:
@@ -374,6 +653,8 @@ def run_single_end(o: Options, genome, index, stats: dict | None = None,
     denom = max(total, 1)
     print(f"Total number of aligned reads: {fmt.n_aligned} "
           f"({100.0 * fmt.n_aligned / denom:.2g}%)")
+    if p.out_sam == 2:
+        _to_bam(o.out_file, stats)
     return total
 
 

@@ -31,10 +31,10 @@ def run_pair_end(o, genome, index, stats: dict | None = None,
                  mesh=None) -> int:
     """Align every pair of ``o.query_a``/``o.query_b``; returns the pair
     count and, into ``stats``, the alignment phase's wall time (engine
-    set-up excluded) and the engine.  ``mesh``: the device list of the
-    mesh engines (``cli.make_engine``)."""
+    set-up and the ``.bam`` conversion excluded) and the engine.  ``mesh``:
+    the device list of the mesh engines (``cli.make_engine``)."""
     p = o.param
-    from ..cli import _randr_seed, with_host_fallback
+    from ..cli import _randr_seed, _to_bam, with_host_fallback
     engine = with_host_fallback(
         o, lambda: make_pair_engine(o, genome, index, mesh),
         lambda: HostPairBatch(genome, index, p), stats)
@@ -57,11 +57,14 @@ def run_pair_end(o, genome, index, stats: dict | None = None,
           f"({100.0 * fmt.n_aligned_a / denom:.2g}%)\n"
           f"single b:    {fmt.n_aligned_b} "
           f"({100.0 * fmt.n_aligned_b / denom:.2g}%)")
+    if p.out_sam == 2:
+        _to_bam(o.out_file, stats)
     return total
 
 
-def run_pair_end_reads(o, genome, engine, fmt) -> int:
-    """Per-pair path: exact for every configuration (BSP, -R, trim)."""
+def run_pair_end_reads(o, genome, engine, fmt, header: bool = True) -> int:
+    """Per-pair path: exact for every configuration (BSP, -R, trim).
+    ``header``: write the SAM header (a ``--nprocs`` shard does not)."""
     p = o.param
     if not p.out_sam and not o.out_unpair:
         raise SystemExit("failed to open output file for unpaired hits "
@@ -76,7 +79,7 @@ def run_pair_end_reads(o, genome, engine, fmt) -> int:
         fout = stack.enter_context(open(o.out_file, "w"))
         fout_unpair = (fout if p.out_sam
                        else stack.enter_context(open(o.out_unpair, "w")))
-        if p.out_sam:
+        if p.out_sam and header:
             fout.write(sam_header(genome))
         while True:
             batch_a = sa.next_batch(BATCH_NUM)
@@ -92,10 +95,11 @@ def run_pair_end_reads(o, genome, engine, fmt) -> int:
     return total
 
 
-def run_pair_end_blocks(o, genome, engine, fmt) -> int:
+def run_pair_end_blocks(o, genome, engine, fmt, header: bool = True) -> int:
     """Native PE block pipeline: parse-ahead producer, align main loop that
     finishes block N after block N+1's phase 1 is enqueued, write-behind
-    thread (the native calls release the GIL)."""
+    thread (the native calls release the GIL).  ``header``: write the SAM
+    header (a ``--nprocs`` shard does not)."""
     from .. import native
     from ..blockio import BlockReadStream
 
@@ -129,7 +133,8 @@ def run_pair_end_blocks(o, genome, engine, fmt) -> int:
     def writer():
         try:
             with open(o.out_file, "wb") as fout:
-                fout.write(sam_header(genome).encode("latin1"))
+                if header:
+                    fout.write(sam_header(genome).encode("latin1"))
                 while True:
                     item = q_out.get()
                     if item is None:

@@ -8,13 +8,19 @@
     merged in global discovery order by the K7 kernel
     (``--engine index-sharded``).
 
-The shards' results meet on the mesh's first device in one process, so no
-collective library is needed.  Multi-process runs
-(``bsmap_tpu.parallel.distributed``) are not ported.
+  * ``distributed`` -- multi-process runs (``-p``, ``--nprocs``): a
+    contiguous read range per process, the aligner state rebuilt at each
+    range boundary, the shards merged in order; ``--coordinator`` joins a
+    torch.distributed gloo group.
+
+The shards' results of the mesh engines meet on the mesh's first device in
+one process, so no collective library is needed.
 """
 
+from . import distributed
 from .index_sharded import IndexShardedEngine
 from .mesh import make_mesh
 from .sharded import ShardedDeviceEngine
 
-__all__ = ["make_mesh", "ShardedDeviceEngine", "IndexShardedEngine"]
+__all__ = ["distributed", "make_mesh", "ShardedDeviceEngine",
+           "IndexShardedEngine"]

@@ -231,9 +231,11 @@ def main() -> int:
         del eng, se, aligned, align_all, fmt_all
         torch.cuda.empty_cache()
 
+        # one process (-p 1): the pipeline whose stages are timed above,
+        # not the -p workers the CLI starts by default on RRBS
         st: dict = {}
         rc = cli.run(flags + ["-o", os.path.join(root, "run.sam"),
-                              "--device", "cuda"], stats=st)
+                              "--device", "cuda", "-p", "1"], stats=st)
         if rc != 0:
             raise RuntimeError(f"cli.run returned {rc}")
     finally:

@@ -131,6 +131,32 @@ Phases (each raises on failure; any failure exits non-zero):
  24. K2 at -s 12 -I 2 (after phase 11, on its reads' first mates): the K2
      and K1 cases of phase 3 on 'f' and 'b', then K3 and K4 on the -v 4
      slots.
+ 25. BAM out and in: the 1,000,000 headline reads and the 200,000 pairs
+     with -o *.bam (no --engine), the conversion timed apart from the
+     alignment phase; each BAM's records, read back by ``bamio`` in a
+     process of its own, equal to the body of phase 4's or 9's SAM as a
+     sorted multiset, and its .bai there; the first 5,000 reads and pairs
+     as .bam byte-identical (BAM and .bai) to the host engine's; a
+     5,000-read BAM (the CLI's conversion of a card SAM with -u)
+     realigned with -a in.bam, byte-identical to the host engine;
+ 26. ``python -m bsmap_tpu_torch.methratio -z`` on phase 25's pair-end BAM
+     and on phase 9's SAM, the two processes at once, outputs identical;
+     ``bsp2sam`` on the card's BSP of the first 5,000 headline reads equal
+     to ``bsp2sam`` on the host engine's;
+ 27. multi-process runs on the one card, each byte-identical to its
+     one-process run: --nprocs 2 on the headline reads (phase 4) and on
+     the pairs (phase 9), process 0 in this process through ``cli.run``
+     and process 1 a process of its own; -p 2 on the RRBS reads (phase
+     14: the CLI's own two workers).  Every worker process reports its
+     kernel launches and its peak of allocated card memory at exit
+     (``LAUNCH_DUMP``, a sitecustomize on its path); ``nvidia-smi
+     --query-compute-apps`` is sampled while they run; each run's rate
+     from launch to the merged file beside the one-process rate.  Every
+     process has a time limit and is killed with its workers past it.
+
+The CLI's default -p 8 would start worker processes on the per-read paths
+(RRBS, trimming, pair-end BSP or -R); every phase but 27 runs in this
+process (``BSMAP_TPU_LOCAL_MP=0``).
 
 The kernels' launch counters are zeroed right before each run of a main
 path and read right after it: phase 4 to 5 (the single-end path: K1-K4
@@ -138,8 +164,11 @@ must have run), each GPU run of phases 9 and 11 (the pair-end paths: K2-K6),
 phase 14 and each GPU run of phase 15 (the RRBS path: K2-K4, never K1),
 phase 17 (-n 1: K1-K5), each GPU run of phase 18 (K2-K6) and phase 19 and
 each GPU run of its set (K2-K5, never K1), phase 21's runs (K2, K3, K7,
-never K4), phase 22 (K1-K4, never K7) and each run of phase 23 (K2, K3,
-K5, K6 and, index-sharded, K7 in place of K4).  Every kernel's JSON row has its
+never K4), phase 22 (K1-K4, never K7), each run of phase 23 (K2, K3,
+K5, K6 and, index-sharded, K7 in place of K4), phase 25's .bam runs (the
+SE and PE paths) and its -a in.bam run (K3, K4), and every process of
+phase 27 (what phase 4 launched, K2-K6, the RRBS path), counted in the
+worker processes themselves.  Every kernel's JSON row has its
 launches summed over those runs, its error against the twin, its time and
 the twin's at the single-end headline window (the pair-end one for K5 and
 K6), and its bound there: the bytes it must move over the card's memory
@@ -219,6 +248,8 @@ RRBS_PATH = ("exact_schedule", "verify_candidates", "reduce_reads")
 N_SHARDS = 4                     # phases 20, 21 and 23's D = 4 runs
 INDEX_SHARDED_PATH = ("exact_schedule", "verify_candidates", "merge_shards")
 RRBS_ADAPTER = "AGATCGGAAGAGC"
+N_NPROCS = 2                     # phase 27's processes on the one card
+PROC_TIMEOUT = 900               # seconds: phases 25-27's other processes
 # per-kernel extras of the JSON line: the launch form or group width in use
 # and the other one's time, K3's parts by kernel name, the library scan
 FORM_KEYS = ("device_ms", "parts_ms", "variant", "variant_ms",
@@ -896,10 +927,10 @@ _LAST_LOG = [time.time()]
 
 def log(msg: str) -> None:
     """Print one progress line; the seconds since the previous line are
-    booked to the line's leading [phase] tag (``_PHASE_S``, printed in the
-    summary)."""
+    booked to the line's leading [phase] tag, or that of a ``launches,
+    [phase]`` line (``_PHASE_S``, printed in the summary)."""
     now = time.time()
-    m = re.match(r"\s*\[(\w+)\]", msg)
+    m = re.match(r"\s*(?:launches, )?\[(\w+)\]", msg)
     if m:
         _PHASE_S[m.group(1)] = _PHASE_S.get(m.group(1), 0.0) \
             + now - _LAST_LOG[0]
@@ -2186,6 +2217,374 @@ def phase_mesh_pe(root: str, dev: str = "cuda") -> dict:
     return total
 
 
+# a sitecustomize module that makes every Python process started with it
+# on its path write, at exit, its kernel launch counts (a fresh process
+# starts with every count at 0) and the caching allocator's peak card
+# memory: phase 27's worker processes report their launches through it
+LAUNCH_DUMP = '''import atexit, json, os, sys
+
+
+def _bsmap_launch_dump():
+    k = sys.modules.get("bsmap_tpu_torch.engine.kernels")
+    if k is None:
+        return
+    rec = {"pid": os.getpid(), "argv": sys.argv[1:],
+           "launches": k.launch_counts()}
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        rec["max_allocated"] = torch.cuda.max_memory_allocated()
+        rec["max_reserved"] = torch.cuda.max_memory_reserved()
+    with open(os.path.join(%r, "launches.%%d.json" %% os.getpid()), "w") as f:
+        json.dump(rec, f)
+
+
+atexit.register(_bsmap_launch_dump)
+'''
+
+
+def launch_dump_env(d: str) -> dict:
+    """The environment of phase 27's processes: ``d`` (holding the
+    ``LAUNCH_DUMP`` sitecustomize, which runs an existing one after it) and
+    the repository ahead of the path, and -p's workers on."""
+    import importlib.util
+    os.makedirs(d, exist_ok=True)
+    src = LAUNCH_DUMP % d
+    spec = importlib.util.find_spec("sitecustomize")
+    if spec is not None and spec.origin and os.path.exists(spec.origin):
+        src += (f"\nexec(compile(open({spec.origin!r}).read(), "
+                f"{spec.origin!r}, 'exec'))\n")
+    with open(os.path.join(d, "sitecustomize.py"), "w") as f:
+        f.write(src)
+    path = [d, REPO] + [x for x in os.environ.get("PYTHONPATH", "").split(
+        os.pathsep) if x]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(path))
+    env.pop("BSMAP_TPU_LOCAL_MP", None)
+    return env
+
+
+def launch_dumps(d: str) -> list:
+    """The records the processes of ``launch_dump_env(d)`` wrote (removed
+    once read), those of worker processes (``--proc-id``) only."""
+    recs = []
+    for name in sorted(os.listdir(d)):
+        if name.startswith("launches."):
+            with open(os.path.join(d, name)) as f:
+                rec = json.load(f)
+            os.remove(os.path.join(d, name))
+            if "--proc-id" in rec["argv"]:
+                recs.append(rec)
+    return recs
+
+
+def spawn(cmd: list, env: dict, log_path: str) -> subprocess.Popen:
+    """``cmd`` in a session of its own (so a kill reaches the workers it
+    starts), stdout and stderr to ``log_path``."""
+    with open(log_path, "wb") as f:
+        return subprocess.Popen(cmd, env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True, cwd=REPO)
+
+
+def finish(procs: list, timeout: float = PROC_TIMEOUT) -> list:
+    """Wait for ``procs`` within ``timeout`` seconds in all; returns each
+    one's seconds from now to its exit.  Kills the session of any left
+    over and raises when one failed or ran over."""
+    import signal
+    t0 = time.time()
+    took = [None] * len(procs)
+    try:
+        while any(t is None for t in took):
+            for i, q in enumerate(procs):
+                if took[i] is None and q.poll() is not None:
+                    took[i] = time.time() - t0
+                    if q.returncode != 0:
+                        raise RuntimeError(f"{q.args[:4]}... exited "
+                                           f"{q.returncode}")
+            if time.time() - t0 > timeout:
+                raise TimeoutError(f"processes ran over {timeout} s")
+            time.sleep(0.1)
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(q.pid, signal.SIGKILL)
+                q.wait()
+    return took
+
+
+class CardMemory:
+    """Samples ``nvidia-smi --query-compute-apps=pid,used_memory`` every
+    0.5 s in a thread while it is entered; ``peak`` is the most processes
+    listed at once and the most MiB they held together (a sandbox may list
+    every process under one pid, so the processes are not told apart)."""
+
+    def __init__(self, on: bool = True):
+        import threading
+        self.on, self.peak, self.stop = on, {}, threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self) -> None:
+        while not self.stop.wait(0.5):
+            r = subprocess.run(["nvidia-smi",
+                                "--query-compute-apps=pid,used_memory",
+                                "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, timeout=60)
+            mib = [int(x) for ln in r.stdout.splitlines()
+                   for x in ln.split(",")[1:] if x.strip().isdigit()]
+            self.peak["processes"] = max(self.peak.get("processes", 0),
+                                         len(mib))
+            self.peak["MiB"] = max(self.peak.get("MiB", 0), sum(mib))
+
+    def __enter__(self):
+        if self.on:
+            self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop.set()
+        if self.on:
+            self.thread.join()
+
+
+def sorted_digest(lines) -> tuple:
+    """(count, sha256) of ``lines`` as a sorted multiset."""
+    import hashlib
+    h = hashlib.sha256()
+    lines = sorted(lines)
+    for ln in lines:
+        h.update(ln.encode("latin1"))
+    return len(lines), h.hexdigest()
+
+
+def bam_digest(path: str) -> tuple:
+    """``sorted_digest`` of a BAM's records as SAM lines."""
+    from bsmap_tpu_torch.bamio import bam_sam_lines
+    return sorted_digest(bam_sam_lines(path))
+
+
+def sam_digest(path: str) -> tuple:
+    """``sorted_digest`` of a SAM's body."""
+    with open(path, encoding="latin1") as f:
+        return sorted_digest(ln for ln in f if not ln.startswith("@"))
+
+
+def phase_bam(root: str, g1: str, r1: str, gp: str, p1: str, p2: str,
+              se_need: tuple, dev: str = "cuda", n_reads: int = N_HEADLINE,
+              n_pairs: int = N_PAIRS) -> tuple[dict, list]:
+    """Phase 25: BAM out and BAM in.  The headline reads and the pairs as
+    ``.bam`` (no --engine), each run's launches counted (``se_need``: what
+    phase 4's run of the same reads launched; ``PE_PATH``); each BAM's records
+    (read back in a process of their own while the card goes on) equal to
+    the body of phase 4's or 9's SAM as a sorted multiset, and its ``.bai``
+    there; the first ``N_PARITY`` reads and pairs as ``.bam``
+    byte-identical to the host engine's; a BAM made from a card SAM
+    (the CLI's ``sam_to_bam`` of the card's SAM of the first ``N_PARITY``
+reads, with -u) realigned with ``-a in.bam`` byte-identical to the host
+engine.
+    Returns (seconds and rates, the launch counts of each counted run)."""
+    import concurrent.futures
+    import multiprocessing
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "bam")
+    os.makedirs(d, exist_ok=True)
+    runs, res, pending = [], {}, {}
+    se = ["-a", r1, "-d", g1] + ALIGN_FLAGS
+    pe = ["-a", p1, "-b", p2, "-d", gp] + PE_FLAGS
+    with concurrent.futures.ProcessPoolExecutor(
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        for tag, base, sam, path, n in (
+                ("se", se, "head.sam", se_need, n_reads),
+                ("pe", pe, "pe.sam", PE_PATH, n_pairs)):
+            out = os.path.join(d, f"{tag}.bam")
+            K.reset_launch_counts()
+            st = run_cli(base + ["-o", out, "--device", dev])
+            runs.append(K.launch_counts())
+            need_launches(f"[25] {tag} .bam run", runs[-1], path)
+            if not os.path.exists(out + ".bai"):
+                raise AssertionError(f"[25] {tag}: no .bai")
+            got = st.get("reads", st.get("pairs"))
+            if got != n:
+                raise AssertionError(f"[25] {tag}: aligned {got} of {n}")
+            pending[tag] = (pool.submit(bam_digest, out),
+                            os.path.join(root, sam))
+            res[tag] = {"align_s": st["align_s"], "bam_s": st["bam_s"],
+                        "per_s": n / st["align_s"]}
+            log(f"[25] {tag} -> .bam: {n} {'reads' if tag == 'se' else 'pairs'}"
+                f" aligned in {st['align_s']:.3f} s ({res[tag]['per_s']:.1f}"
+                f"/s), SAM -> sorted BAM + .bai in {st['bam_s']:.3f} s "
+                f"({os.path.getsize(out)} bytes); engine {st['engine_name']}")
+        for tag, base, unit in (("se", se, "reads"), ("pe", pe, "pairs")):
+            outs = [os.path.join(d, f"parity_{tag}_{e}.bam")
+                    for e in ("gpu", "host")]
+            for out, eng in zip(outs, (["--device", dev],
+                                       ["--engine", "host"])):
+                run_cli(base + ["-E", str(N_PARITY), "-o", out] + eng)
+            sizes = [assert_same_file(f"[25] {tag} parity{x}", outs[0] + x,
+                                      outs[1] + x) for x in ("", ".bai")]
+            log(f"[25] {tag}: first {N_PARITY} {unit} as .bam byte-identical "
+                f"to the host engine's ({sizes[0]} + {sizes[1]} bytes .bai)")
+        src = os.path.join(d, "in.bam")
+        run_cli(se + ["-E", str(N_PARITY), "-u", "-o", src, "--device", dev])
+        outs = [os.path.join(d, f"from_bam_{e}.sam") for e in ("gpu", "host")]
+        K.reset_launch_counts()
+        st = run_cli(["-a", src, "-d", g1, "-o", outs[0], "--device", dev]
+                     + ALIGN_FLAGS)
+        runs.append(K.launch_counts())
+        need_launches("[25] -a in.bam run", runs[-1],
+                      ("verify_candidates", "reduce_reads"))
+        if st["reads"] != N_PARITY:
+            raise AssertionError(f"[25] -a in.bam: {st['reads']} reads")
+        run_cli(["-a", src, "-d", g1, "-o", outs[1], "--engine", "host"]
+                + ALIGN_FLAGS)
+        size = assert_same_file("[25] -a in.bam", *outs)
+        log(f"[25] -a in.bam ({N_PARITY} reads, sam_to_bam of a card SAM "
+            f"with -u): {st['align_s']:.3f} s on {dev}, engine "
+            f"{st['engine_name']}; byte-identical to the host engine "
+            f"({size} bytes)")
+        for tag, (fut, sam) in pending.items():
+            t0 = time.time()
+            want = sam_digest(sam)
+            got = fut.result(timeout=PROC_TIMEOUT)
+            if got != want:
+                raise AssertionError(f"[25] {tag}: the BAM's records "
+                                     f"{got} differ from {sam}'s {want}")
+            log(f"[25] {tag}: the BAM holds {got[0]} records, the body of "
+                f"{os.path.basename(sam)} as a sorted multiset (checked in "
+                f"{time.time() - t0:.1f} s after the reads above)")
+    return res, runs
+
+
+def phase_methratio(root: str, g1: str, r1: str, gp: str,
+                    n_pairs: int = N_PAIRS, dev: str = "cuda") -> dict:
+    """Phase 26: ``python -m bsmap_tpu_torch.methratio -z`` (fully
+    converted reads: every ratio is 0) on phase 25's pair-end BAM and on
+    phase 9's SAM of the same pairs, the two at once, outputs identical
+    (per-chromosome sorted); ``bsp2sam`` on the card's
+    BSP of the first ``N_PARITY`` headline reads equal to ``bsp2sam`` on
+    the host engine's.  Returns methratio's seconds per input."""
+    from bsmap_tpu_torch import bsp2sam
+    d = os.path.join(root, "meth")
+    os.makedirs(d, exist_ok=True)
+    srcs = {"bam": os.path.join(root, "bam", "pe.bam"),
+            "sam": os.path.join(root, "pe.sam")}
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [spawn([sys.executable, "-m", "bsmap_tpu_torch.methratio", "-d",
+                    gp, "-o", os.path.join(d, f"{k}.txt"), "-z", "-q", v],
+                   env, os.path.join(d, f"{k}.log"))
+             for k, v in srcs.items()]
+    took = dict(zip(srcs, finish(procs)))
+    size = assert_same_file("[26] methratio, BAM vs SAM",
+                            *(os.path.join(d, f"{k}.txt") for k in srcs))
+    with open(os.path.join(d, "bam.log")) as f:
+        summary = f.read().strip().splitlines()[-1]
+    log(f"[26] methratio on {n_pairs} pairs, both at once: BAM "
+        f"{took['bam']:.1f} s, SAM {took['sam']:.1f} s; outputs identical "
+        f"({size} bytes; {summary})")
+    outs = []
+    for eng in (["--device", dev], ["--engine", "host"]):
+        bsp = os.path.join(d, f"{eng[1]}.bsp")
+        run_cli(["-a", r1, "-d", g1, "-E", str(N_PARITY), "-o", bsp]
+                + ALIGN_FLAGS + eng)
+        outs.append(bsp[:-4] + "_b2s.sam")
+        with contextlib.redirect_stderr(io.StringIO()):
+            bsp2sam.run(["-d", g1, "-o", outs[-1], "-q", bsp])
+    size = assert_same_file("[26] bsp2sam", *outs)
+    log(f"[26] bsp2sam on the first {N_PARITY} reads' BSP: card == host "
+        f"engine ({size} bytes)")
+    return {"methratio_bam_s": took["bam"], "methratio_sam_s": took["sam"]}
+
+
+def _proc_id(rec: dict) -> str:
+    return rec["argv"][rec["argv"].index("--proc-id") + 1]
+
+
+def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
+    """Phase 27: multi-process runs on the one card.  For each of
+    ``runs`` (tag -> (argv without -o, the file of its one-process run,
+    the kernels each process must launch, those the processes together
+    must launch, those none may, its reads or pairs, the one-process
+    run's rate)):
+    ``--nprocs 2`` with process 0 in this process through ``cli.run``
+    (launches zeroed before it and read after) and process 1 a process of
+    its own, or ``-p 2`` (argv holds it) with the CLI's own two workers;
+    each worker's launches and card memory from ``LAUNCH_DUMP``, the
+    card's per-process memory from ``CardMemory``; the merged output
+    byte-identical to the one-process run's.  Returns (per-run numbers,
+    the launch counts of every process)."""
+    import torch
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "mp")
+    dump = os.path.join(d, "dump")
+    env = launch_dump_env(dump)
+    cli = [sys.executable, "-m", "bsmap_tpu_torch.cli"]
+    res, counts = {}, []
+    for tag, (argv, want, need, need_all, never, n, one_rate) in \
+            runs.items():
+        out = os.path.join(d, f"{tag}.sam")
+        local = "-p" in argv
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with CardMemory(dev == "cuda") as mem:
+            if local:          # the CLI starts and merges its workers
+                procs = [spawn(cli + argv + ["-o", out, "--device", dev],
+                               env, out + ".log")]
+            else:              # processes 1.. here, process 0 in-process
+                procs = [spawn(cli + argv + ["-o", out, "--device", dev,
+                                             "--nprocs", str(N_NPROCS),
+                                             "--proc-id", str(k)],
+                               env, out + f".{k}.log")
+                         for k in range(1, N_NPROCS)]
+            try:
+                if not local:
+                    K.reset_launch_counts()
+                    st = run_cli(argv + ["-o", out, "--device", dev,
+                                         "--nprocs", str(N_NPROCS),
+                                         "--proc-id", "0"])
+                    c0 = K.launch_counts()
+            finally:
+                finish(procs)
+        wall = time.time() - t0
+        recs = launch_dumps(dump)
+        if len(recs) != (N_NPROCS if local else N_NPROCS - 1):
+            raise AssertionError(f"[27] {tag}: {len(recs)} worker records")
+        per_proc = ([] if local else [("0", c0)]) + [
+            (_proc_id(r), r["launches"]) for r in recs]
+        for k, c in per_proc:
+            need_launches(f"[27] {tag}, process {k}", c, need, never)
+            counts.append(c)
+        need_launches(f"[27] {tag}, the processes together",
+                      {k: sum(c[k] for _, c in per_proc) for k in need_all},
+                      need_all)
+        size = assert_same_file(f"[27] {tag} vs its one-process run", out,
+                                want)
+        mib = {}
+        if dev == "cuda":
+            if not local:
+                mib["0"] = torch.cuda.max_memory_allocated() / 2**20
+            mib.update((_proc_id(r), r["max_allocated"] / 2**20)
+                       for r in recs)
+        res[tag] = {"wall_s": wall, "per_s_wall": n / wall,
+                    "one_process_per_s": one_rate, "alloc_mib": mib,
+                    "smi_mib": dict(mem.peak)}
+        if not local:
+            res[tag]["proc0_per_s"] = st.get("reads", st.get("pairs")) \
+                / st["align_s"]
+        log(f"[27] {tag}: {'-p' if local else '--nprocs'} {N_NPROCS} on "
+            f"{dev}, {n} in {wall:.1f} s from launch to the merged file "
+            f"({n / wall:.1f}/s; one process, alignment phase: "
+            f"{one_rate:.1f}/s)"
+            + ("" if local else ", process 0's range aligned at "
+               f"{res[tag]['proc0_per_s']:.1f}/s")
+            + f"; peak allocated MiB by process {mib or 'not on a card'} "
+            "(process 0 here: with what this process still holds); "
+            f"nvidia-smi, all processes on the card {mem.peak or 'not read'}; "
+            f"byte-identical to the one-process run ({size} bytes)")
+    return res, counts
+
+
 def need_launches(what: str, counts: dict, need, never=()) -> None:
     """A main path's launch counts: every kernel of ``need`` launched, none
     of ``never``."""
@@ -2217,6 +2616,11 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="bsmap_smoke_")
     # every index below is built once and memory-mapped by each later run
     os.environ["BSMAP_TPU_INDEX_CACHE"] = os.path.join(root, "cache")
+    # the CLI's default -p 8 starts worker processes on the per-read paths
+    # (RRBS, trimming, pair-end BSP or -R); the phases below run each path
+    # in this process, where its launches are counted, and phase 27 runs
+    # the workers
+    os.environ["BSMAP_TPU_LOCAL_MP"] = "0"
     main_runs = []                  # launch counts of every main-path run
 
     def counted(fn, *args, **kw):
@@ -2239,7 +2643,8 @@ def main() -> int:
         K.reset_launch_counts()
         head = phase_align("4", g1, r1, os.path.join(root, "head.sam"),
                            N_HEADLINE, 0.9)
-        log(f"[4] launches, headline run: {K.launch_counts()}")
+        c4 = K.launch_counts()
+        log(f"[4] launches, headline run: {c4}")
         rep = phase_align("5", g2, r2, os.path.join(root, "rep.sam"),
                           N_REPEAT, 0.5)
         main_runs.append(K.launch_counts())
@@ -2343,6 +2748,28 @@ def main() -> int:
         sd_rate, c22 = phase_stripes_se(root, g1, r1)
         main_runs.append(c22)
         main_runs.append(phase_mesh_pe(root))
+
+        # BAM out and in, methratio and bsp2sam, multi-process runs
+        # the headline's runs launch what phase 4's run launched; in
+        # ranges of it, every range the round-1 kernels (K2 runs in one
+        # window of phase 4)
+        se_need = tuple(k for k in SE_PATH if c4[k])
+        bam, c25 = phase_bam(root, g1, r1, gp, p1, p2, se_need)
+        main_runs.extend(c25)
+        meth = phase_methratio(root, g1, r1, gp)
+        mp, c27 = phase_multiprocess(root, {
+            "headline": (["-a", r1, "-d", g1] + ALIGN_FLAGS,
+                         os.path.join(root, "head.sam"),
+                         tuple(k for k in se_need if k != "exact_schedule"),
+                         se_need, (), N_HEADLINE, head["reads_per_s"]),
+            "rrbs_mspi_trim": (["-a", rr, "-d", gr, "-p", str(N_NPROCS)]
+                               + RRBS_FLAGS, os.path.join(root, "rrbs.sam"),
+                               RRBS_PATH, RRBS_PATH, ("fixed_schedule",),
+                               N_RRBS, rrbs["reads_per_s"]),
+            "pe_76nt": (["-a", p1, "-b", p2, "-d", gp] + PE_FLAGS,
+                        os.path.join(root, "pe.sam"), PE_PATH, PE_PATH, (),
+                        N_PAIRS, pe["pairs_per_s"])})
+        main_runs.extend(c27)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2357,6 +2784,13 @@ def main() -> int:
         f"{ise['index-sharded -v 5']:.1f} (single-device "
         f"{ise['device -v 5']:.1f}); read stripes (D = 2) headline "
         f"{sd_rate:.1f} reads/s")
+    log("[summary] .bam runs: " + ", ".join(
+        f"{k} aligned at {v['per_s']:.1f}/s, SAM -> BAM {v['bam_s']:.3f} s"
+        for k, v in bam.items()) + f"; methratio on {N_PAIRS} pairs: BAM "
+        f"{meth['methratio_bam_s']:.1f} s, SAM {meth['methratio_sam_s']:.1f} "
+        "s; two processes (launch to merged file) / one (alignment phase): "
+        + ", ".join(f"{k} {v['per_s_wall']:.1f} / "
+                    f"{v['one_process_per_s']:.1f}" for k, v in mp.items()))
     log("[summary] seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in _PHASE_S.items()}))
     results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1, sres24)

@@ -1,6 +1,7 @@
 """Byte parity of the PyTorch port's CLI (``--device cpu``: the kernels'
 plain twins) with ``bsmap_tpu``'s device and host engines, single-end and
-pair-end, and the port's refusals of what it does not run yet."""
+pair-end, the parsing of the multi-process and BAM options, and the port's
+refusal of an engine it does not know."""
 
 import pathlib
 import subprocess
@@ -12,10 +13,16 @@ from .conftest import REPO, simulate
 from .test_golden_se import assert_same
 from .test_pe_corners import repeat_pe_data  # noqa: F401 (fixture)
 
+# BSMAP_TPU_LOCAL_MP=0: one process per run in both packages (the default
+# -p 8 starts worker processes on RRBS, trimming, pair-end BSP and -R;
+# their merge is held to these bytes in test_torch_distributed.py and
+# test_torch_multiproc.py, which run them with MP_ENV)
 ENV = {"PYTHONPATH": str(REPO), "BSMAP_TPU_CPU_JIT_CACHE": "1",
        "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
        "BSMAP_TPU_DEV_BATCH": "2048", "BSMAP_TPU_CANDS_PER_READ": "16",
-       "HOME": str(pathlib.Path.home()), "BSMAP_TPU_RANDR_SEED": "99"}
+       "HOME": str(pathlib.Path.home()), "BSMAP_TPU_RANDR_SEED": "99",
+       "BSMAP_TPU_LOCAL_MP": "0"}
+MP_ENV = {k: v for k, v in ENV.items() if k != "BSMAP_TPU_LOCAL_MP"}
 
 
 @pytest.fixture(scope="module")
@@ -168,22 +175,51 @@ def test_torch_cli_pe_per_pair_many_hits(tmp_path):
     assert (tmp_path / "torch.bsp").stat().st_size > 0
 
 
-@pytest.mark.parametrize("flags", [
-    ["--proc-id", "0"], ["--coordinator", "h:1"],
-    ["-b", "r2.fq", "-o", "out.bam"],
-    ["-p", "2"], ["--nprocs", "2"], ["--engine", "tpu"],
-    ["-o", "out.bam"],
-])
+@pytest.mark.parametrize("flags", [["--engine", "tpu"]])
 def test_torch_cli_refuses_unported(flags):
-    """Multi-process runs (-p > 1, --nprocs, --proc-id, --coordinator),
-    an engine name the port does not know and BAM output, single-end or
-    pair-end, exit non-zero with a pointer to ROADMAP.md (no silent engine
-    or format substitution)."""
+    """An engine name the port does not know exits non-zero with a pointer
+    to ROADMAP.md (no silent engine substitution)."""
     from bsmap_tpu_torch import cli
     argv = ["-a", "r.fq", "-d", "ref.fa", "-o", "out.sam"] + flags
     with pytest.raises(SystemExit) as e:
         cli.run(argv)
     assert "unported" in str(e.value) and "ROADMAP" in str(e.value)
+
+
+class _OutSam(Exception):
+    """Raised in place of the genome load, carrying ``out_sam``."""
+
+
+@pytest.mark.parametrize("flags", [
+    ["--proc-id", "0"], ["--coordinator", "h:1"],
+    ["-b", "r2.fq", "-o", "out.bam"],
+    ["-p", "2"], ["--nprocs", "2"],
+    ["-o", "out.bam"],
+])
+def test_torch_cli_parses_like_jax(flags, monkeypatch):
+    """The multi-process options (-p, --nprocs, --proc-id, --coordinator)
+    and a .bam output, single-end or pair-end, parse as bsmap_tpu parses
+    them, and ``run`` picks the same output format for the suffix (the
+    genome load is stopped, so no file is read)."""
+    import bsmap_tpu.cli as jcli
+    from bsmap_tpu_torch import cli
+    argv = ["-a", "r.fq", "-d", "ref.fa", "-o", "out.sam"] + flags
+    monkeypatch.delenv("BSMAP_TPU_INDEX_CACHE", raising=False)
+    got = []
+    for mod in (cli, jcli):
+        o = mod.parse_args(argv)
+        got.append((o.nprocs, o.proc_id, o.coordinator, o.param.num_procs,
+                    o.out_file))
+
+        def stop(path, p):
+            raise _OutSam(p.out_sam)
+
+        monkeypatch.setattr(mod, "load_genome", stop)
+        with pytest.raises(_OutSam) as e:
+            mod.run(argv)
+        got[-1] += (e.value.args[0],)
+    assert got[0] == got[1]
+    assert got[0][-1] == (2 if "out.bam" in flags else 1)
 
 
 def test_torch_cli_default_engine_matches_jax_default(cli_data):

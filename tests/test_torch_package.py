@@ -21,11 +21,13 @@ COPIED = ["params.py", "encoding.py", "utils.py", "readio.py", "blockio.py",
           "reference.py", "index.py", "trim.py", "native/__init__.py",
           "native/bsmap_native.cpp", "output/sam.py",
           "engine/host_engine.py", "output/pair_sam.py",
-          "engine/pair_host.py"]
+          "engine/pair_host.py", "bamio.py", "output/bam.py",
+          "methratio.py", "bsp2sam.py", "parallel/distributed.py"]
 PORT = REPO / "bsmap_tpu_torch"
 # declared differences of copied modules: (file, top-level function)
 DIFFERS = {"index.py": "_mmap_npz",   # numpy 2.3+ header API
-           "native/__init__.py": "_build"}   # a build file per process
+           "native/__init__.py": "_build",   # a build file per process
+           "parallel/distributed.py": "initialize"}   # torch.distributed
 
 
 def test_port_imports_without_jax():
@@ -38,7 +40,10 @@ def test_port_imports_without_jax():
             "bsmap_tpu_torch.engine.pair_pipeline",
             "bsmap_tpu_torch.parallel", "bsmap_tpu_torch.parallel.mesh",
             "bsmap_tpu_torch.parallel.sharded",
-            "bsmap_tpu_torch.parallel.index_sharded"]
+            "bsmap_tpu_torch.parallel.index_sharded",
+            "bsmap_tpu_torch.bamio", "bsmap_tpu_torch.methratio",
+            "bsmap_tpu_torch.bsp2sam",
+            "bsmap_tpu_torch.parallel.distributed"]
     code = ("import sys; sys.modules['jax'] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -703,3 +708,45 @@ def test_cuda_rc_words_at_every_length(tmp_path):
     torch.cuda.synchronize()
     assert errs == {"rc_words": 0}
     assert K.launch_counts()["rc_words"] == K.MAX_NW * len(K5_PERMS)
+
+
+@pytest.mark.gpu
+def test_cuda_bam_and_nprocs_on_one_card(tmp_path):
+    """On a CUDA device: SE ``.bam`` output through the kernels (launches
+    counted) and ``--nprocs 2`` with both processes on the one card; the
+    BAM, its index and the merged SAM byte-identical to the host
+    engine's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch import cli
+    from bsmap_tpu_torch.engine import kernels as K
+    simulate(tmp_path, genome_out="ref.fa", reads_out="r.fq", n_reads=2000,
+             read_len=100, chr_len=12000, n_chr=2, seed=9, error_rate=0.02)
+    base = ["-a", str(tmp_path / "r.fq"), "-d", str(tmp_path / "ref.fa"),
+            "-S", "1", "-v", "2", "-u"]
+    K.reset_launch_counts()
+    assert cli.run(base + ["-o", str(tmp_path / "gpu.bam")]) == 0
+    counts = K.launch_counts()
+    assert counts["verify_candidates"] and counts["reduce_reads"], counts
+    for out in ("host.bam", "host.sam"):
+        assert cli.run(base + ["-o", str(tmp_path / out), "--engine",
+                               "host"]) == 0
+    for suffix in ("", ".bai"):
+        assert (tmp_path / f"gpu.bam{suffix}").read_bytes() == \
+            (tmp_path / f"host.bam{suffix}").read_bytes()
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bsmap_tpu_torch.cli"] + base
+        + ["-o", str(tmp_path / "two.sam"), "--nprocs", "2", "--proc-id",
+           str(k), "--device", "cuda"], env=env, cwd=tmp_path)
+        for k in (1, 0)]
+    try:
+        assert [q.wait(timeout=600) for q in procs] == [0, 0]
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+    assert (tmp_path / "two.sam").read_bytes() == \
+        (tmp_path / "host.sam").read_bytes()

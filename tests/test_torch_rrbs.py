@@ -250,10 +250,10 @@ def test_torch_cli_rrbs_pair_end(rrbs):
     assert_same(d, "jpe.sam", "tpe.sam")
     assert_same(d, "hpe.sam", "tpe.sam")
     assert (d / "tpe.sam").stat().st_size > 0
-    st = {}
+    st = {}     # -p 1: this process aligns (the default -p 8 starts workers)
     argv = [str(d / a) if a.endswith((".fq", ".fa")) else a for a in base]
-    assert cli.run(argv + ["-o", str(d / "spe.sam"), "--device", "cpu"],
-                   stats=st) == 0
+    assert cli.run(argv + ["-o", str(d / "spe.sam"), "--device", "cpu",
+                           "-p", "1"], stats=st) == 0
     assert st["engine_name"] == "host"
     assert type(st["engine"]).__name__ == "HostPairBatch"
     assert_same(d, "hpe.sam", "spe.sam")

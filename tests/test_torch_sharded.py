@@ -285,9 +285,10 @@ def _cli_runs(world, tmp_path, monkeypatch, argv, engine: str, suffix: str):
         if "-b" in argv and suffix == "bsp":
             files.append(str(tmp_path / f"{name}_u.{suffix}"))
             extra += ["-2", files[1]]
-        if name == "port":
+        if name == "port":       # -p 1: the mesh is this process's
             assert tcli.run(argv + extra + ["--engine", engine, "--device",
-                                            "cpu"], mesh=[CPU] * 4) == 0
+                                            "cpu", "-p", "1"],
+                            mesh=[CPU] * 4) == 0
         else:
             assert jcli.run(argv + extra + [
                 "--engine", engine if name == "jax" else "host"]) == 0
