@@ -49,8 +49,7 @@ _SIGNATURES = {
     "bsmap_rc_words": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "bsmap_pair_join": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "bsmap_merge_shards": [_P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P, _P],
+                           _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -51,7 +51,7 @@ holds its region's entries and per-bucket LOCAL counts in the unsharded
 layout, so K1 runs on it unchanged and K2 reads the schedule costs from
 the replicated GLOBAL counts ``gcnt``; K3 runs per shard and marks
 candidates whose dedup key lies in another shard's region
-(``INFO_CORNER``); K7 walks all shards' candidates of a read in global
+(``INFO_CORNER``); K7 ranks all shards' candidates of a read in global
 discovery order (per slot: Watson entries of shards 0..D-1, then Crick
 entries of shards D-1..0) and writes the merged full rows.
 """
@@ -1345,27 +1345,42 @@ def _check_merge(cfg, vcs: list, slots: list) -> None:
 def merge_shards(cfg, cands: int, rows, vcs: list,
                  slots: list) -> torch.Tensor:
     """K7 (csrc/merge_shards.cu) on CUDA tensors, the twin on CPU.  Each
-    shard's K3 output and stage-1 totals are gathered to ``rows``' device
-    (one copy per shard, a device-to-device copy when the shard lives
-    there too)."""
+    shard's K3 output and stage-1 totals are read where they lie, through
+    a table of device pointers (the totals as column maxseg-1 of each
+    ``ftot_rank``); only a shard on another device is copied to ``rows``'
+    device first."""
     if not rows.is_cuda:
         return merge_shards_plain(cfg, cands, rows, vcs, slots)
     from . import _build
     _check_merge(cfg, vcs, slots)
     dev = rows.device
-    st = [torch.stack([getattr(v, f).to(dev) for v in vcs])
-          for f in ("starts", "chrp", "wloc", "info")]
-    ftot = torch.stack([s.ftot_rank[:, -1].to(dev) for s in slots])
-    soff, coff = slots[0].s_off.to(dev), slots[0].c_off.to(dev)
-    _check_cuda(cfg, rows, *st, ftot, soff, coff)
+
+    def here(t):
+        return t if t.device == dev else t.to(dev)
+
+    fields = [[here(getattr(v, f)) for v in vcs]
+              for f in ("starts", "chrp", "wloc", "info")]
+    ftot = [here(s.ftot_rank) for s in slots]
+    soff, coff = here(slots[0].s_off), here(slots[0].c_off)
+    flat = [t for f in fields for t in f]
+    _check_cuda(cfg, rows, *flat, *ftot, soff, coff)
     m, MS = rows.shape[0], cfg.maxseg
-    if st[0].shape[1] != m * cfg.NB + 1 or st[1].shape[1] != cands:
+    if any(t.shape != (m * cfg.NB + 1,) for t in fields[0]) \
+            or any(t.shape != (cands,) for f in fields[1:] for t in f) \
+            or any(t.shape != (m, MS) for t in ftot) \
+            or soff.shape != (m,) or coff.shape != (m,):
         raise ValueError("candidates of another window or capacity")
+    if cfg.shards * cands >= 1 << 31:
+        raise ValueError(f"{cfg.shards} shards x {cands} candidates pass "
+                         "the kernel's int32 candidate range")
+    ptrs = [t.data_ptr() for t in flat] + \
+        [t.data_ptr() + 4 * (MS - 1) for t in ftot]
+    table = (ctypes.c_void_p * len(ptrs))(*ptrs)
     out = _empty(dev, m, 2 * MS + N_EXTRAS + 2 * cfg.hits_k)
     err = _run(
         rows, _build.lib().bsmap_merge_shards,
         _ptr(rows), m, cfg.nw, MS, cfg.I, cfg.S, cfg.nch, cfg.shards, cands,
-        *[_ptr(t) for t in st], _ptr(ftot), _ptr(soff), _ptr(coff),
+        ctypes.cast(table, ctypes.c_void_p), _ptr(soff), _ptr(coff),
         cfg.max_num_hits, cfg.report_repeat_hits, int(cfg.pe), cfg.hits_k,
         _ptr(out), _stream(rows))
     _launched("merge_shards", err)

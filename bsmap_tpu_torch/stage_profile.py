@@ -4,6 +4,8 @@
     python3 -m bsmap_tpu_torch.stage_profile [--reads N]
                                              [--repeat | --pe | --rrbs]
                                              [--chains]
+                                             [--engine index-sharded
+                                              [--shards D]]
 
 Generates the headline data (2 x 5 Mb genome, fully converted 100 nt reads,
 tools/genreads.generate), with --repeat the chr21-class data (46.7 Mb, 8%
@@ -15,6 +17,11 @@ or -D C-CGG -A AGATCGGAAGAGC -q 2 -S 17 (RRBS) and times each stage on its
 own.  With --chains it aligns with -n 1 (all four strands) on the
 non-directional copies of chip_smoke.py's phases 16-19: every second read
 reverse-complemented (SE, RRBS), every second pair's mates swapped (PE).
+With --engine index-sharded (SE WGBS only) the stages run on
+``IndexShardedEngine`` over D region shards (--shards, default 4),
+round-robin over the visible cards, and then once more on the
+single-device engine in the same process, for the comparison; the JSON
+line then holds both, each with K7's share of the kernel time.
 
   parse    native parse + filter (trimming under --rrbs) + encode of every
            block (one thread)
@@ -65,14 +72,16 @@ RRBS_FLAGS = ["-D", "C-CGG", "-A", "AGATCGGAAGAGC", "-q", "2", "-S", "17"]
 
 
 def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
-               align_flags=SE_FLAGS):
+               align_flags=SE_FLAGS, mesh=None):
     """The SE engine's stages over the headline, chr21-class or RRBS
-    blocks.  (``dev`` = "cpu" rehearses them with the kernels' twins.)"""
+    blocks; on ``IndexShardedEngine`` over ``mesh`` when one is given.
+    (``dev`` = "cpu" rehearses them with the kernels' twins.)"""
     import torch
     from . import cli, native
     from .blockio import BlockReadStream
     from .engine.device_engine import DeviceEngine
     from .output.sam import SamFormatter
+    from .parallel import IndexShardedEngine
     from .utils import RandR
 
     flags = ["-a", rpath, "-d", gpath] + align_flags
@@ -81,7 +90,8 @@ def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
     p.out_sam = 1
     genome = cli.load_genome(gpath, p)
     index = cli.get_index(o, genome)
-    eng = DeviceEngine(genome, index, p, device=dev)
+    eng = (DeviceEngine(genome, index, p, device=dev) if mesh is None
+           else IndexShardedEngine(genome, index, p, mesh=mesh))
     t0 = time.perf_counter()
     stream = BlockReadStream(rpath, p, readset=0, lib=native.get_lib())
     blocks = []
@@ -155,6 +165,66 @@ def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
     return flags, eng, eng.se, t_parse, align_all, fmt_all
 
 
+def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
+    """Time the stages of one engine (``stages`` = _se_stages' or
+    _pe_stages' result) and one whole CLI run of the same flags (on
+    ``mesh``'s index-sharded engine when given); returns the JSON fields."""
+    import torch
+    from . import cli
+    flags, eng, se, t_parse, align_all, fmt_all = stages
+    timer_keys = ("t_h2d", "t_call", "t_collect", "t_enqueue")
+
+    align_all()                                  # warm-up pass
+    for k in timer_keys:
+        setattr(se, k, 0.0)
+    se.n_dispatched = eng.n_replayed = se.n_probe = 0
+    t0 = time.perf_counter()
+    aligned = align_all()
+    t_align = time.perf_counter() - t0
+    timers = {k: getattr(se, k) for k in timer_keys}
+    # SE replays run in align, PE replays in format (emit_block)
+    counts = {"n_dispatched": se.n_dispatched, "n_probe": se.n_probe,
+              "n_replayed": eng.n_replayed}
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        align_all()
+        t_prof = time.perf_counter() - t0
+    kms = _kernel_ms(prof)
+    k_total = sum(kms.values())
+
+    r0 = eng.n_replayed
+    t0 = time.perf_counter()
+    fmt_all(aligned, os.path.join(root, "fmt.sam"))
+    t_fmt = time.perf_counter() - t0
+    counts["n_replayed"] += eng.n_replayed - r0
+    del eng, se, aligned, align_all, fmt_all, stages
+    torch.cuda.empty_cache()
+
+    # one process (-p 1): the pipeline whose stages are timed above, not
+    # the -p workers the CLI starts by default on RRBS
+    st: dict = {}
+    extra = [] if mesh is None else ["--engine", "index-sharded"]
+    rc = cli.run(flags + ["-o", os.path.join(root, "run.sam"), "--device",
+                          "cuda", "-p", "1"] + extra, stats=st, mesh=mesh)
+    if rc != 0:
+        raise RuntimeError(f"cli.run returned {rc}")
+    k7 = sum(v for k, v in kms.items() if "merge_shards" in k)
+    return {
+        "parse_s": t_parse, "align_s": t_align, "format_s": t_fmt,
+        "align_timers_s": timers, "engine_counts": counts,
+        "profiled_align_s": t_prof, "kernel_ms_total": k_total,
+        "device_idle_share": 1.0 - k_total / 1000.0 / t_prof,
+        "kernel_ms": dict(sorted(kms.items(), key=lambda kv: -kv[1])[:12]),
+        "k7_ms": k7, "k7_share": k7 / k_total if k_total else 0.0,
+        "pipeline_align_s": st["align_s"],
+        f"pipeline_{unit}_per_s": st[unit] / st["align_s"],
+        "engine": st["engine_name"],
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -170,14 +240,25 @@ def main() -> int:
     kind.add_argument("--rrbs", action="store_true")
     ap.add_argument("--chains", action="store_true",
                     help="-n 1 on non-directional data")
+    ap.add_argument("--engine", choices=("device", "index-sharded"),
+                    default="device",
+                    help="index-sharded: SE WGBS on D region shards, then "
+                    "the single-device engine beside it")
+    ap.add_argument("--shards", type=int, default=4,
+                    help="region shards of --engine index-sharded, round "
+                    "robin over the visible cards (default 4)")
     args = ap.parse_args()
+    sharded = args.engine == "index-sharded"
+    if sharded and (args.pe or args.rrbs):
+        ap.error("--engine index-sharded profiles SE WGBS (headline or "
+                 "--repeat)")
     from chip_smoke import nondirectional, swap_mates
     from tools.genreads import (generate, generate_chr21, generate_pe,
                                 generate_rrbs)
-    from . import cli
     from .engine import _build
 
     n = args.reads or (200_000 if args.pe or args.rrbs else 1_000_000)
+    unit = "pairs" if args.pe else "reads"
     _build.lib()
     root = tempfile.mkdtemp(prefix="bsmap_prof_")
     try:
@@ -187,8 +268,8 @@ def main() -> int:
             if args.chains:
                 r1, r2 = swap_mates(r1, r2, os.path.join(root, "sw_1.fq"),
                                     os.path.join(root, "sw_2.fq"))
-            flags, eng, se, t_parse, align_all, fmt_all = _pe_stages(
-                root, gpath, r1, r2, extra=n1)
+            res = _profile(root, _pe_stages(root, gpath, r1, r2, extra=n1),
+                           unit, n)
         else:
             if args.rrbs:
                 gpath, rpath = generate_rrbs(root, n_reads=n)
@@ -197,63 +278,30 @@ def main() -> int:
                 gpath, rpath = gen(root, n_reads=n)
             if args.chains:
                 rpath = nondirectional(rpath, os.path.join(root, "nd.fq"))
-            flags, eng, se, t_parse, align_all, fmt_all = _se_stages(
-                root, gpath, rpath,
-                align_flags=(RRBS_FLAGS if args.rrbs else SE_FLAGS) + n1)
-        timer_keys = ("t_h2d", "t_call", "t_collect", "t_enqueue")
-
-        align_all()                                  # warm-up pass
-        for k in timer_keys:
-            setattr(se, k, 0.0)
-        se.n_dispatched = eng.n_replayed = se.n_probe = 0
-        t0 = time.perf_counter()
-        aligned = align_all()
-        t_align = time.perf_counter() - t0
-        timers = {k: getattr(se, k) for k in timer_keys}
-        # SE replays run in align, PE replays in format (emit_block)
-        counts = {"n_dispatched": se.n_dispatched, "n_probe": se.n_probe,
-                  "n_replayed": eng.n_replayed}
-
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            align_all()
-            t_prof = time.perf_counter() - t0
-        kms = _kernel_ms(prof)
-        k_total = sum(kms.values())
-
-        r0 = eng.n_replayed
-        t0 = time.perf_counter()
-        fmt_all(aligned, os.path.join(root, "fmt.sam"))
-        t_fmt = time.perf_counter() - t0
-        counts["n_replayed"] += eng.n_replayed - r0
-        del eng, se, aligned, align_all, fmt_all
-        torch.cuda.empty_cache()
-
-        # one process (-p 1): the pipeline whose stages are timed above,
-        # not the -p workers the CLI starts by default on RRBS
-        st: dict = {}
-        rc = cli.run(flags + ["-o", os.path.join(root, "run.sam"),
-                              "--device", "cuda", "-p", "1"], stats=st)
-        if rc != 0:
-            raise RuntimeError(f"cli.run returned {rc}")
+            flags = (RRBS_FLAGS if args.rrbs else SE_FLAGS) + n1
+            meshes = [None]
+            if sharded:
+                ncard = torch.cuda.device_count()
+                meshes = [[torch.device("cuda", k % ncard)
+                           for k in range(args.shards)], None]
+            res = {}
+            for mesh in meshes:
+                name = "device" if mesh is None else "index-sharded"
+                res[name] = _profile(root, _se_stages(
+                    root, gpath, rpath, align_flags=flags, mesh=mesh), unit,
+                    n, mesh)
+                if mesh is not None:
+                    res[name]["shards"] = args.shards
+                    res[name]["mesh"] = sorted(set(map(str, mesh)))
+            if not sharded:
+                res = res["device"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    unit = "pairs" if args.pe else "reads"
-    res = {
-        "data": ("pe_76nt" if args.pe else "rrbs_mspi_trim" if args.rrbs
-                 else "chr21_class" if args.repeat else "headline")
-        + (", -n 1 non-directional" if args.chains else ""), unit: n,
-        "parse_s": t_parse, "align_s": t_align, "format_s": t_fmt,
-        "align_timers_s": timers, "engine_counts": counts,
-        "profiled_align_s": t_prof, "kernel_ms_total": k_total,
-        "device_idle_share": 1.0 - k_total / 1000.0 / t_prof,
-        "kernel_ms": dict(sorted(kms.items(), key=lambda kv: -kv[1])[:12]),
-        "pipeline_align_s": st["align_s"],
-        f"pipeline_{unit}_per_s": st[unit] / st["align_s"],
-    }
+    res = {"data": ("pe_76nt" if args.pe else "rrbs_mspi_trim" if args.rrbs
+                    else "chr21_class" if args.repeat else "headline")
+           + (", -n 1 non-directional" if args.chains else ""), unit: n,
+           **res}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True)

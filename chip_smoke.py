@@ -115,7 +115,11 @@ Phases (each raises on failure; any failure exits non-zero):
      they differ by design only in the per-shard capacity columns (X_OK,
      X_BIG, X_FTOT) and, for reads without a pick, in the pick columns
      (JAX's psum of nothing is 0) -- and for corner and per-shard dedup
-     replays, which are left out;
+     replays, which are left out.  K7 also on synthetic shard candidates
+     (``k7_synthetic_cases``: D = 1 to 16, maxseg up to 16, reads with 0 to
+     over 1,024 candidates, a read cut by the capacity on one shard,
+     saturated totals, K = 0 and 16, pe, -r 0, -w 2), and K7's times on
+     both real cases (fixed and exact) with their candidates per read;
  21. SE through ``IndexShardedEngine`` (``--engine index-sharded``, the D =
      4 mesh of phase 20) on phase 5's 100,000 reads: the SAM byte-identical
      to phase 5's, its first 5,000 reads to phase 6's host-engine output;
@@ -257,7 +261,9 @@ FORM_KEYS = ("device_ms", "parts_ms", "variant", "variant_ms",
              "other_group", "other_group_ms", "other_device_ms",
              "card_group", "card_group_ms", "other_card_group",
              "other_card_group_ms", "card_floor_ms",
-             "card_by_valid_hits_ms", "scan_cumsum_ms")
+             "card_by_valid_hits_ms", "scan_cumsum_ms",
+             "fixed_cands_per_read", "exact_cands_per_read", "exact_ms",
+             "exact_plain_ms", "exact_device_ms", "exact_bound_ms")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
 OPS_PER_S = 67e12                # its non-tensor (float32) peak, for int32 ops
 _COMP = bytes.maketrans(b"ACGTN", b"TGCAN")
@@ -523,6 +529,127 @@ def phase_k4_cases(K, cases: list, tabs, errs: dict, tag: str) -> None:
         f"{', '.join(c[0] for c in cases)} x both budgets x -w as set and 2; "
         f"{long_reads} reads with more than 32 "
         f"candidates, {cut_reads} cut by the capacity — kernels == twins")
+
+
+# K7's synthetic shapes: (D shards, maxseg, I, hits_k, pe,
+# report_repeat_hits); every shape runs at the cfg's -w and at -w 2
+K7_SHAPES = ((1, 3, 4, 0, 0, 1), (2, 3, 4, 16, 1, 1), (4, 3, 4, 0, 0, 0),
+             (4, 6, 4, 16, 0, 1), (16, 16, 2, 16, 1, 0), (16, 16, 1, 0, 0, 1))
+
+
+def k7_synthetic_cases(K, cfg, m: int = 40, seed: int = 19) -> list:
+    """Index-sharded K3 outputs built directly, for K7 against its twin,
+    as (name, cfg, cands, rows, vcs, slots) with CPU tensors: for each
+    shape of ``K7_SHAPES`` on ``cfg``'s chains, ``m`` reads with 0, 1,
+    2-32, 33-300 and two with 1,030-1,400 candidates summed over the
+    shards, spread over random slots and shards, Watson entries before
+    Crick ones in each slot; shard 0 holds 60 more on the second-to-last
+    read and the capacity cuts that read on shard 0 alone; the last read
+    has 2^30 more on every shard (the saturated scan's limit: past the
+    capacity, big, the totals' int32 sum wraps from D = 3); info words
+    with and without FIRST, UNRESOLVED and CORNER (rare), wmm at and past
+    maxseg, every rank, both chains; rows with random budgets and hashes,
+    maxrank 0, mid, maxseg-1 and past the seed segments; random ftot_rank
+    and start offsets."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    nw = cfg.nw
+    out = []
+    for D, MS, I, hits_k, pe, rrh in K7_SHAPES:
+        c = cfg._replace(maxseg=MS, I=I, hits_k=hits_k, pe=bool(pe),
+                         report_repeat_hits=rrh, shards=D, fixed=False,
+                         probe=False, lean=False, rrbs=False)
+        NB = c.NB
+        # candidates per read over all shards, then per shard
+        tot = np.select([np.arange(m) % 10 == 0, np.arange(m) % 10 == 1,
+                         np.arange(m) % 10 < 6],
+                        [0, 1, rng.integers(2, 33, m)],
+                        rng.integers(33, 301, m))
+        tot[[m // 3, m - 5]] = rng.integers(1030, 1401, 2)
+        per = np.stack([rng.multinomial(t, rng.dirichlet(np.ones(D)))
+                        for t in tot], axis=1)            # (D, m)
+        per[0, m - 2] += 60
+        # the capacity: every shard but 0 whole, shard 0 cut inside read
+        # m-2 (its earlier reads at least as many as any other shard's)
+        short = per[1:].sum(axis=1).max(initial=0) - per[0, : m - 2].sum()
+        per[0, m // 3] += max(0, short)
+        cands = int(per[0, : m - 2].sum()) + 30
+        per[:, m - 1] += 1 << 30
+        vcs, slots = [], []
+        for d in range(D):
+            cnt = np.zeros((m, NB), np.int64)
+            for b in range(m):
+                if per[d, b]:
+                    used = rng.choice(NB, size=rng.integers(1, NB + 1),
+                                      replace=False)
+                    cnt[b, used] = rng.multinomial(
+                        per[d, b], rng.dirichlet(np.ones(len(used))))
+            flat = cnt.reshape(-1)
+            starts = np.minimum(np.concatenate([[0], np.cumsum(flat)]),
+                                K.SATLIM)
+            n = min(int(starts[-1]), cands)     # the words K3 would store
+            # a slot's Watson entries first, then its Crick ones
+            q = np.searchsorted(starts[1:], np.arange(n), side="right")
+            crick = (np.arange(n) - starts[q]
+                     >= rng.binomial(flat, 0.5)[q]).astype(np.int64)
+            chrp = (rng.integers(0, 1 << 29, n) << 1) | crick
+            wloc = rng.integers(0, 1 << 31, n)
+            info = ((rng.random(n) < 0.6) * K.INFO_FIRST
+                    | (rng.random(n) < 0.004) * K.INFO_UNRESOLVED
+                    | (rng.random(n) < 0.003) * K.INFO_CORNER
+                    | K.INFO_ELIGIBLE
+                    | (rng.integers(0, MS + 3, n) << K.INFO_WMM_SHIFT)
+                    | (rng.integers(0, MS, n) << K.INFO_RANK_SHIFT)
+                    | (rng.integers(0, 2, n) << K.INFO_CHAIN_SHIFT))
+            rid = q // NB
+
+            def cap(x):
+                y = np.zeros(cands, np.int64)
+                y[:n] = x
+                return torch.from_numpy(y.astype(np.int32))
+
+            vcs.append(K.Cands(torch.from_numpy(starts.astype(np.int32)),
+                               cap(rid), cap(chrp), cap(wloc), cap(info)))
+            ft = np.sort(rng.integers(0, 1 << 27, (m, MS)), axis=1)
+            z = torch.zeros((m, NB), dtype=torch.int32)
+            slots.append(K.Slots(
+                z, z, z, z, torch.from_numpy(cnt.astype(np.int32)),
+                torch.from_numpy(rng.integers(-50, 50, m).astype(np.int32)),
+                torch.from_numpy(rng.integers(-50, 50, m).astype(np.int32)),
+                torch.from_numpy(ft.astype(np.int32))))
+        rows = rng.integers(-(1 << 31), 1 << 31, (m, 2 * nw + 4))
+        rows[:, 2 * nw] = rng.integers(20, 16 * nw + 1, m)       # len
+        rows[:, 2 * nw + 1] = rng.integers(0, MS + 2, m)         # budget
+        rows[:, 2 * nw + 3] = rng.choice([0, MS // 2, MS - 1, MS + 3], m)
+        rows = torch.from_numpy(rows.astype(np.int32))
+        name = (f"D={D} maxseg={MS} I={I} '{c.chains_mode}' K={hits_k} "
+                f"pe={pe} -r {rrh}")
+        for w in (c.max_num_hits, 2):
+            out.append((f"{name} -w {w}", c._replace(max_num_hits=w), cands,
+                        rows, vcs, slots))
+    return out
+
+
+def phase_k7_cases(K, cfg, dev, errs: dict, tag: str) -> int:
+    """K7 against its twin, bit for bit, on ``k7_synthetic_cases`` for
+    ``cfg``'s chains, every case's tensors moved to ``dev``; returns the
+    number of kernel calls."""
+    n_long = n_calls = 0
+    for name, c, cands, rows, vcs, slots in k7_synthetic_cases(K, cfg):
+        mv = lambda t: t.to(dev)     # noqa: E731
+        r = mv(rows)
+        v = [K.Cands(*map(mv, x)) for x in vcs]
+        s = [K.Slots(*map(mv, x)) for x in slots]
+        got = K.merge_shards(c, cands, r, v, s)
+        check(errs, "merge_shards", f"synthetic K7 case {name}", [got],
+              [K.merge_shards_plain(c, cands, r, v, s)])
+        n_calls += 1
+        n_long = max(n_long, k7_cands_per_read(c, cands, vcs, "cpu")[1])
+    log(f"[{tag}] K7 on synthetic shard candidates: {n_calls} cases "
+        f"(D 1-16, maxseg 3-16, K 0/16, pe, -r 0/1, -w as set and 2; up to "
+        f"{n_long} candidates a read) — kernels == twins")
+    return n_calls
 
 
 # K5's complement permutations: the default alphabet, -M GA (rc_n 2) and a
@@ -1891,6 +2018,17 @@ def phase_small_seed(root: str, dev: str = "cuda", phase: str = "24") -> dict:
     return {k: {"max_abs_err": v} for k, v in errs.items()}
 
 
+def k7_cands_per_read(c, cands: int, vcs, dev) -> list:
+    """[mean, max] of a window's in-capacity candidates a read, summed over
+    the shards."""
+    import torch
+    per = sum(torch.clamp(v.starts[c.NB::c.NB].to(dev, torch.int64),
+                          max=cands)
+              - torch.clamp(v.starts[:-1:c.NB].to(dev, torch.int64),
+                            max=cands) for v in vcs)
+    return [round(float(per.to(torch.float64).mean()), 2), int(per.max())]
+
+
 def shard_mesh(n: int) -> list:
     """n shards round-robin over the visible cards."""
     import torch
@@ -2027,13 +2165,13 @@ def phase_shard_kernels(o, genome, index, rpath: str, dev: str = "cuda",
                 f"{int((g[:, ex + K.X_FOUND] != 0).sum())} found, "
                 f"{int(corner.sum())} with a corner candidate — kernels == "
                 "twins" + msg)
-            if c.fixed:
-                keep = dict(c=c, cands=cands, vcs=vcs, slots=slots,
-                            rows=placed[mesh[0]])
-        c, cands, vcs, slots = (keep[k] for k in ("c", "cands", "vcs",
-                                                  "slots"))
-        r0, fwd, rc = keep["rows"]
+            keep["fixed" if c.fixed else "exact"] = dict(
+                c=c, cands=cands, vcs=vcs, slots=slots, rows=placed[mesh[0]])
+        c, cands, vcs, slots = (keep["fixed"][k] for k in ("c", "cands",
+                                                           "vcs", "slots"))
+        r0, fwd, rc = keep["fixed"]["rows"]
         t0_ = eng.shard_tables[0]
+        phase_k7_cases(K, cfg, mesh[0], errs, phase)
         phase_k2_cases(K, cfg, rows0.numpy(), t0_, mesh[0], errs, phase,
                        budgets=(2, 5), gcnt=t0_["gcnt"])
         phase_k1_cases(K, cfg._replace(fixed=True), rows0.to(mesh[0]),
@@ -2076,6 +2214,34 @@ def phase_shard_kernels(o, genome, index, rpath: str, dev: str = "cuda",
                     f"bound {res[name]['bound_ms']:.4f} ms"))
         if dev == "cuda":
             device_ms(res, timed, f"[{phase}] '{mode}' shard 0")
+        # K7 on both real cases: the fixed round's small tier (above) and
+        # the full-rank big tier, with their candidates per read
+        k7 = res["merge_shards"]
+        for case, kp in keep.items():
+            per = k7_cands_per_read(kp["c"], kp["cands"], kp["vcs"], mesh[0])
+            k7[f"{case}_cands_per_read"] = per
+            msg = f"[{phase}] '{mode}' K7 {case}: candidates a read {per}"
+            if case == "exact":
+                ce, cap, rr = kp["c"], kp["cands"], kp["rows"][0]
+                v, s = kp["vcs"], kp["slots"]
+                k7["exact_bound_ms"] = bound(
+                    "merge_shards", ce, m,
+                    sum(min(int(x.starts[-1]), cap) for x in v),
+                    cap)["bound_ms"]
+                if dev == "cuda":
+                    t = timed_pair(
+                        f"[{phase}] '{mode}' merge_shards {case}",
+                        lambda: K.merge_shards(ce, cap, rr, v, s),
+                        lambda: K.merge_shards_plain(ce, cap, rr, v, s),
+                        f"{m} reads, all shards; bound "
+                        f"{k7['exact_bound_ms']:.4f} ms")
+                    k7["exact_ms"], k7["exact_plain_ms"] = (t["ms"],
+                                                            t["plain_ms"])
+                    k7["exact_device_ms"] = queued_ms(
+                        lambda: K.merge_shards(ce, cap, rr, v, s))
+                    msg += (f"; {_ms(k7['exact_device_ms'])} a call on the "
+                            "card")
+            log(msg)
         return res
 
     out = [one_mode(mode) for mode in ("f", "b")]

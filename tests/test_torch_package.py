@@ -711,6 +711,31 @@ def test_cuda_rc_words_at_every_length(tmp_path):
 
 
 @pytest.mark.gpu
+def test_cuda_merge_shards_on_synthetic_cases():
+    """On a CUDA device: the redesigned K7 (a warp per read, the global
+    discovery order as a key, shards read in place) against its twin on
+    ``chip_smoke.k7_synthetic_cases`` (D = 1 to 16, maxseg up to 16, reads
+    with 0 to over 1,024 candidates, a read cut by the capacity on one
+    shard, saturated totals, K = 0 and 16, pe, -r 0, -w 2) on 'f', 'r'
+    and 'b'; exact equality, one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    from bsmap_tpu_torch.engine import kernels as K
+    from bsmap_tpu_torch.engine.device_engine import Cfg
+    from chip_smoke import K7_SHAPES, phase_k7_cases
+    base = Cfg(S=16, I=4, maxseg=3, chains_mode="f", P=40, max_num_hits=20,
+               report_repeat_hits=1, W=100, n_chr=1, nw=7)
+    errs = {}
+    K.reset_launch_counts()
+    n = sum(phase_k7_cases(K, base._replace(chains_mode=mode), "cuda", errs,
+                           "gpu test") for mode in ("f", "r", "b"))
+    torch.cuda.synchronize()
+    assert errs == {"merge_shards": 0}
+    assert K.launch_counts()["merge_shards"] == n == 3 * 2 * len(K7_SHAPES)
+
+
+@pytest.mark.gpu
 def test_cuda_bam_and_nprocs_on_one_card(tmp_path):
     """On a CUDA device: SE ``.bam`` output through the kernels (launches
     counted) and ``--nprocs 2`` with both processes on the one card; the

@@ -175,6 +175,139 @@ def test_index_sharded_program_matches_jax(world, case, D):
             assert (got[:, ex + K.N_EXTRAS + ct.hits_k:] < 0).any()
 
 
+def _write_fasta(path, chrs: dict) -> None:
+    path.write_text("".join(
+        f">{name}\n" + "\n".join(seq[i: i + 60]
+                                 for i in range(0, len(seq), 60)) + "\n"
+        for name, seq in chrs.items()))
+
+
+@pytest.fixture(scope="module")
+def repeat_world(tmp_path_factory):
+    """Three 7.2 kb chromosomes of random bases (numpy, seed 23) with one
+    120-base segment planted 25 times in each (75 copies, spread over
+    every region of the genome), and 50 fully converted 100 nt reads, half
+    from copies of the segment, half from elsewhere, on both strands."""
+    d = tmp_path_factory.mktemp("torch_sharded_repeat")
+    rng = np.random.default_rng(23)
+    bases = np.array(list("ACGT"))
+    seg = "".join(rng.choice(bases, 120))
+    chrs = {}
+    for c in range(3):
+        s = list("".join(rng.choice(bases, 7200)))
+        for k in range(25):
+            at = 40 + k * 270 + int(rng.integers(0, 100))
+            s[at: at + 120] = seg
+        chrs[f"chr{c + 1}"] = "".join(s)
+    _write_fasta(d / "rep.fa", chrs)
+    comp = str.maketrans("ACGT", "TGCA")
+    names = list(chrs)
+    reads = []
+    for k in range(50):
+        g = chrs[names[k % 3]]
+        if k % 2 == 0:                  # inside a copy of the segment
+            at = g.find(seg, int(rng.integers(0, 6500)))
+            at = (g.find(seg) if at < 0 else at) + int(rng.integers(0, 21))
+        else:
+            at = int(rng.integers(0, len(g) - 100))
+        s = g[at: at + 100]
+        if k % 4 >= 2:                  # the Crick strand
+            s = s.translate(comp)[::-1]
+        reads.append(s.replace("C", "T"))
+    (d / "rep.fq").write_text("".join(
+        f"@r{k}\n{s}\n+\n{'I' * 100}\n" for k, s in enumerate(reads)))
+    p = _param()
+    genome = load_genome(str(d / "rep.fa"), p)
+    return {"dir": d, "genome": genome, "index": build_index(genome, p),
+            "p": p, "jis": {}, "tis": {}}
+
+
+@pytest.mark.parametrize("D", [2, 4, 8])
+@pytest.mark.parametrize("case", ["fixed", "exact", "pe_hits"])
+def test_index_sharded_many_candidates_match_jax(repeat_world, monkeypatch,
+                                                 case, D):
+    """``index_sharded_program`` (twins) against ``_index_sharded_call`` on
+    reads with many candidates spread over the shards (the planted
+    repeat): the same full rows bit for bit.  The case must reach what it
+    is there for: a read with more than 64 candidates summed over the
+    shards, and picks on more than one shard."""
+    je, te = engines(repeat_world, D)
+    chains, rank, kw, mate2 = CASES[case]
+    rows = _rows(te, str(repeat_world["dir"] / "rep.fq"), repeat_world["p"])
+    cj = je._cfg(chains, nw=7)._replace(**kw)
+    ct = te._cfg(chains, nw=7)._replace(**kw)
+    if mate2:
+        rows = K.rc_words_plain(ct, torch.from_numpy(rows)).numpy()
+    rows[:, -1] = rank % ct.maxseg
+    seen = []
+    real = K.merge_shards
+
+    def merge(cfg, cands, r, vcs, slots):
+        seen.append(vcs)
+        return real(cfg, cands, r, vcs, slots)
+
+    monkeypatch.setattr(K, "merge_shards", merge)
+    want = np.asarray(je._dispatch(cj, rows, CANDS))
+    got = te._dispatch(ct, rows, CANDS).numpy()
+    assert_rows_equal(got, want, f"index-sharded {case}, D={D}, repeats")
+    (vcs,) = seen
+    NB, ex = ct.NB, 2 * ct.maxseg
+    per = sum(np.minimum(v.starts.numpy()[NB::NB], CANDS)
+              - np.minimum(v.starts.numpy()[:-1:NB], CANDS) for v in vcs)
+    assert per.max() > 64
+    shards = set()
+    for b in np.nonzero(got[:, ex + K.X_FOUND])[0]:
+        for d, v in enumerate(vcs):
+            lo, hi = (min(int(v.starts[(b + i) * NB]), CANDS)
+                      for i in (0, 1))
+            if ((v.chrp[lo:hi].numpy() == got[b, ex + K.X_CHRP])
+                    & (v.wloc[lo:hi].numpy() == got[b, ex + K.X_WLOC])).any():
+                shards.add(d)
+    assert len(shards) > 1
+
+
+def test_k7_synthetic_cases_reach_their_edges():
+    """``chip_smoke.k7_synthetic_cases``, which holds K7 against its twin on
+    the card, builds what it promises, on each chain mode: reads with no,
+    one and over 1,024 candidates summed over the shards, Watson entries
+    before Crick ones in every slot, a read cut by the capacity on shard 0
+    alone, a shard's total past the capacity, the totals' int32 wrap at D
+    >= 4, and picks, replays and first level-0 forward hits in the twin's
+    rows."""
+    from chip_smoke import K7_SHAPES, k7_cands_per_read, k7_synthetic_cases
+    base = T.Cfg(S=16, I=4, maxseg=3, chains_mode="f", P=40,
+                 max_num_hits=20, report_repeat_hits=1, W=100, n_chr=1, nw=7)
+    for mode in ("f", "r", "b"):
+        cases = k7_synthetic_cases(K, base._replace(chains_mode=mode))
+        assert len(cases) == 2 * len(K7_SHAPES)
+        for name, c, cands, rows, vcs, slots in cases:
+            NB, ex = c.NB, 2 * c.maxseg
+            assert len(vcs) == len(slots) == c.shards
+            per = [np.minimum(v.starts.numpy()[NB::NB], cands)
+                   - np.minimum(v.starts.numpy()[:-1:NB], cands)
+                   for v in vcs]
+            tot = sum(per)
+            assert (tot == 0).any() and (tot == 1).any(), name
+            assert k7_cands_per_read(c, cands, vcs, "cpu")[1] > 1024, name
+            for v in vcs:
+                st = v.starts.numpy().astype(np.int64)
+                n = min(int(st[-1]), cands)
+                q = np.searchsorted(st[1:], np.arange(n), side="right")
+                crick = v.chrp.numpy()[:n] & 1
+                assert (np.diff(crick)[q[1:] == q[:-1]] >= 0).all(), name
+            cut = [(v.starts.numpy()[(len(rows) - 2) * NB] < cands
+                    < v.starts.numpy()[(len(rows) - 1) * NB]) for v in vcs]
+            assert cut[0] and not any(cut[1:]), name
+            want = K.merge_shards_plain(c, cands, rows, vcs, slots)
+            x = want[:, ex:].numpy()
+            assert x[:, K.X_FOUND].sum() > len(rows) // 2, name
+            assert x[:, K.X_BIG].any() and not x[:, K.X_OK].all(), name
+            assert x[:, K.X_REPLAY].any() and x[:, K.X_H00F].any(), name
+            assert (x[:, K.X_SSUM] > 1).any(), name
+            if c.shards >= 4:
+                assert (x[:, K.X_TOTAL] < 0).any(), name
+
+
 def _boundary_read(world, D: int) -> str:
     """A fully converted 100 nt Watson read starting 10 bases before an
     interior region boundary: its dedup key lies left of the boundary,
