@@ -39,6 +39,7 @@ byte-identical to a one-process run.
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import sys
 import time
@@ -484,6 +485,18 @@ def _to_bam(path: str, stats: dict | None) -> None:
         stats["bam_s"] = time.perf_counter() - t0
 
 
+def whole_file(p: Param) -> Param:
+    """A copy of ``p`` that reads the whole input file, from read 1 to its
+    end.  ``count_reads`` counts what the stream it opens yields, so under
+    the user's ``-B``/``-E`` it would return the window's size, not the
+    number of its last read, and ``plan_range`` would cut the window's
+    last reads off; counted over the whole file, ``plan_range`` ends the
+    window where ``-E`` (or the file) does."""
+    q = copy.copy(p)
+    q.read_start, q.read_end = 1, Param().read_end
+    return q
+
+
 def run_multihost_se(o: Options, genome, index, stats: dict | None = None,
                      mesh=None) -> int:
     """Multi-process SE: a contiguous read range per process, the MateState
@@ -496,7 +509,7 @@ def run_multihost_se(o: Options, genome, index, stats: dict | None = None,
     p = o.param
     dist.initialize(o.coordinator, o.nprocs, o.proc_id)
     try:
-        total = dist.count_reads(o.query_a, p)
+        total = dist.count_reads(o.query_a, whole_file(p))
         s, e = dist.plan_range(total, o.nprocs, o.proc_id,
                                p.read_start, p.read_end)
         final_out = o.out_file
@@ -562,7 +575,7 @@ def run_multihost_pair(o: Options, genome, index, stats: dict | None = None,
     p = o.param
     dist.initialize(o.coordinator, o.nprocs, o.proc_id)
     try:
-        total = dist.count_reads(o.query_a, p)
+        total = dist.count_reads(o.query_a, whole_file(p))
         s, e = dist.plan_range(total, o.nprocs, o.proc_id,
                                p.read_start, p.read_end)
         engine = with_host_fallback(

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..encoding import unpack_u32
 from ..index import SeedIndex
 from ..params import (FIXELEMENT, FIXSIZE, MAXSNPS, Param, REG_ALPHABET,
                       REV_CHAR, SEGLEN)
@@ -44,7 +45,7 @@ from ..reference import PackedGenome
 from ..trim import filter_read
 from ..utils import myrand_hash
 from . import kernels
-from .host_engine import HostEngine, SEResult
+from .host_engine import HostEngine, MateState, SEResult
 # full result row layout: counts, then the X_* extras K4 writes
 from .kernels import (N_EXTRAS, X_CHAIN, X_CHRP, X_COFF, X_FOUND, X_FTOT,
                       X_H00C, X_H00F, X_H00W, X_II, X_OK, X_REPLAY,
@@ -197,11 +198,43 @@ def genome_tables(genome: PackedGenome, param: Param) -> dict:
     }
 
 
+# entries the strand and region splits take at a time: their temporaries
+# stay some hundred MB whatever the genome's size (at human scale the index
+# holds about 1.56G entries)
+SPLIT_CHUNK = 1 << 24
+
+
+def strand_chunks(index: SeedIndex):
+    """The WGBS index's entries in bucket order, ``SPLIT_CHUNK`` at a
+    time: yields (lo, locs, b0, nb, wend) for locs =
+    index.locs[lo: lo + len], where the chunk's entries fall in buckets
+    b0, b0 + 1, ... with nb[j] of them in bucket b0 + j, and wend[j] is
+    the index position where bucket b0 + j's Watson entries end (each
+    bucket's run holds its wcounts[b] Watson entries first, then its
+    Crick ones).  ``watson_mask`` marks the Watson entries of a chunk."""
+    offs, wc = index.offsets, index.wcounts
+    total = int(offs[-1])
+    for lo in range(0, total, SPLIT_CHUNK):
+        hi = min(lo + SPLIT_CHUNK, total)
+        b0 = int(np.searchsorted(offs, lo, side="right")) - 1
+        b1 = int(np.searchsorted(offs, hi - 1, side="right")) - 1
+        o = np.asarray(offs[b0: b1 + 2], dtype=np.int64)
+        nb = np.diff(np.clip(o, lo, hi))
+        wend = o[:-1] + np.asarray(wc[b0: b1 + 1], dtype=np.int64)
+        yield lo, np.asarray(index.locs[lo: hi]), b0, nb, wend
+
+
+def watson_mask(lo: int, nb: np.ndarray, wend: np.ndarray) -> np.ndarray:
+    """The Watson entries of a ``strand_chunks`` chunk starting at ``lo``."""
+    return np.arange(lo, lo + int(nb.sum()), dtype=np.int64) < np.repeat(
+        wend, nb)
+
+
 def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
-                      param: Param) -> dict[str, torch.Tensor]:
+                      param: Param, device="cpu") -> dict[str, torch.Tensor]:
     """The device tables of ``bsmap_tpu``'s DeviceEngine
-    (device_engine.py:1229-1331) as CPU int32 tensors; uint32 arrays keep
-    their bits.
+    (device_engine.py:1229-1331) as int32 tensors on ``device`` (default
+    the CPU); uint32 arrays keep their bits.
 
       catcat   (2W,)      refcat ++ crefcat, 2-bit packed, 16 bases/word
       anchors  (n_chr,)   global per-strand base offset of each chromosome
@@ -212,6 +245,11 @@ def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
       wlocs    (nw,)      Watson entries, bucket order
       clocs    (nc,)      Crick entries, bucket order
       prof_a   (16, I)    seed profile start positions
+
+    The entries are split by strand ``SPLIT_CHUNK`` at a time
+    (``strand_chunks``), each chunk on ``device``, straight into their
+    tensors there: the host holds no whole-index temporary beside the
+    index itself, and on a card the split runs there.
 
     Under RRBS (:1239-1286) the index is tag-partitioned instead:
 
@@ -224,12 +262,14 @@ def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
       site_off (n_chr+1,) each chromosome's range of ``sites``
       clocs    (1,)       unused
     """
-    base = genome_tables(genome, param)
+    dev = torch.device(device)
+    base = {k: v.to(dev) for k, v in genome_tables(genome, param).items()}
     t, one = _i32, np.zeros(1, dtype=np.uint32)
     tk = index.total_kmers
     counts = np.diff(index.offsets)
     if param.RRBS_flag:
-        return {**base, **_rrbs_tables(genome, index, param, t, one)}
+        return {**base, **{k: v.to(dev) for k, v in _rrbs_tables(
+            genome, index, param, t, one).items()}}
     wc = index.wcounts.astype(np.int64)
     cc = counts - wc
     kmer_tab = np.zeros((tk, 4), dtype=np.int32)
@@ -237,22 +277,23 @@ def tables_from_numpy(genome: PackedGenome, index: SeedIndex,
     kmer_tab[:, 2] = wc
     np.cumsum(wc[:-1], out=kmer_tab[1:, 0])
     np.cumsum(cc[:-1], out=kmer_tab[1:, 3])
-    # split locs by strand, preserving in-bucket order (interval mask via a
-    # +1/-1 diff array)
-    total = len(index.locs)
-    diff = np.zeros(total + 1, dtype=np.int8)
-    nz = wc > 0
-    np.add.at(diff, index.offsets[:-1][nz], 1)
-    np.add.at(diff, (index.offsets[:-1] + wc)[nz], -1)
-    is_w = np.cumsum(diff[:total], dtype=np.int8) > 0
-    wl = index.locs[is_w]
-    cl = index.locs[~is_w]
-    return {
-        **base,
-        "kmer_tab": torch.from_numpy(kmer_tab),
-        "wlocs": t(wl if len(wl) else one, np.uint32),
-        "clocs": t(cl if len(cl) else one, np.uint32),
-    }
+    # each strand's entries, in bucket order (an empty strand: one 0)
+    wl = torch.zeros(max(int(wc.sum()), 1), dtype=torch.int32, device=dev)
+    cl = torch.zeros(max(int(cc.sum()), 1), dtype=torch.int32, device=dev)
+    iw = ic = 0
+    for lo, locs, _b0, nb, wend in strand_chunks(index):
+        n = len(locs)
+        ent = torch.from_numpy(np.array(locs, dtype=np.uint32).view(
+            np.int32)).to(dev)
+        is_w = torch.arange(lo, lo + n, device=dev) < torch.repeat_interleave(
+            torch.from_numpy(wend).to(dev), torch.from_numpy(nb).to(dev),
+            output_size=n)
+        w, c = ent[is_w], ent[~is_w]
+        wl[iw: iw + len(w)] = w
+        cl[ic: ic + len(c)] = c
+        iw, ic = iw + len(w), ic + len(c)
+    return {**base, "kmer_tab": torch.from_numpy(kmer_tab).to(dev),
+            "wlocs": wl, "clocs": cl}
 
 
 def _rrbs_tables(genome: PackedGenome, index: SeedIndex, param: Param, t,
@@ -294,6 +335,35 @@ def _rrbs_tables(genome: PackedGenome, index: SeedIndex, param: Param, t,
     }
 
 
+class ReplayHost(HostEngine):
+    """The exact host engine the device engines replay reads on.  Its
+    unpacked genome codes (``refcodes``/``crefcodes``: a byte a base and
+    strand, 6.24 GB at human scale, made through some 25 GB of
+    temporaries) are made at the first replay that reads them, not when
+    the engine is built; a run that replays no read never makes them."""
+
+    def __init__(self, genome: PackedGenome, index: SeedIndex,
+                 param: Param):
+        # HostEngine.__init__ but the two unpack_u32 calls
+        self.genome = genome
+        self.index = index
+        self.param = param
+        if param.profile is None:
+            param.init_mapping()
+        self.anchors = genome.anchors
+        self.n_chr = genome.n_chr
+        self.mate_state = MateState()
+        self._chr_codes_cache = {}
+
+    def __getattr__(self, name: str):
+        if name not in ("refcodes", "crefcodes"):
+            raise AttributeError(name)
+        codes = unpack_u32(self.genome.refcat if name == "refcodes"
+                           else self.genome.crefcat)
+        setattr(self, name, codes)
+        return codes
+
+
 def pack_spans(demand, B: int, cands: int, cands_big: int):
     """Exact bin-packing of reads in order: (start, end, capacity) spans of
     at most B reads whose summed per-read candidate demand (each at least
@@ -329,7 +399,7 @@ class DeviceEngine:
         self.param = param
         if param.profile is None:
             param.init_mapping()
-        self.host = HostEngine(genome, index, param)  # exact replay path
+        self.host = ReplayHost(genome, index, param)  # exact replay path
         # per-strand uint32 coordinates (genomes up to ~4.2 Gb per strand)
         if int(genome.anchors[-1]) >= 2 ** 32 - (FIXSIZE + SEGLEN) \
                 or genome.n_chr >= 1 << 15:
@@ -344,6 +414,9 @@ class DeviceEngine:
         self.n_filtered = 0
         self.n_replayed = 0
         self.n_dispatched = 0
+        # full-rank candidate totals the kernels report (X_FTOT), over the
+        # reads aligned: their sum, count and maximum
+        self.cand_sum = self.cand_reads = self.cand_max = 0
         # wall-clock phase accumulators: enqueue = host side of dispatch,
         # collect = wait for device rows
         self.t_enqueue = 0.0
@@ -400,8 +473,8 @@ class DeviceEngine:
     def _place_tables(self) -> dict:
         """The tables of ``tables_from_numpy`` on the engine's device; the
         mesh engines place theirs on their devices instead."""
-        return {k: v.to(self.device) for k, v in tables_from_numpy(
-            self.genome, self.index, self.param).items()}
+        return tables_from_numpy(self.genome, self.index, self.param,
+                                 device=self.device)
 
     def _cfg(self, chains_mode: str, lean: bool = False,
              nw: int = FIXELEMENT) -> Cfg:
@@ -807,6 +880,10 @@ class DeviceEngine:
             if len(left):      # defensive: packed dispatches always fit
                 mark_replay(left)
                 done[left] = True
+
+            self.cand_sum += int(ftot.sum())
+            self.cand_reads += n
+            self.cand_max = max(self.cand_max, int(ftot.max(initial=0)))
 
             # --- in-order collection with exact MateState maintenance -------
             if cfg.lean:

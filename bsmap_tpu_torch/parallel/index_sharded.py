@@ -39,7 +39,8 @@ import torch
 
 from ..engine import kernels
 from ..engine.device_engine import (DeviceEngine, EngineUnsupported, _i32,
-                                    genome_tables)
+                                    genome_tables, strand_chunks,
+                                    watson_mask)
 from ..index import SeedIndex
 from ..params import FIXELEMENT, FIXSIZE
 from ..reference import PackedGenome
@@ -52,43 +53,59 @@ def region_shards(genome: PackedGenome, index: SeedIndex, ndev: int):
     Returns (bounds[ndev+1] uint32, counts[tk] int64 global bucket totals,
     [(lwc, lcc, wlocs uint32, clocs uint32) per shard]) where lwc/lcc are
     the shard's per-bucket Watson/Crick entry counts and the entries keep
-    their in-bucket order."""
+    their in-bucket order.  Two passes over the entries, ``SPLIT_CHUNK`` at
+    a time (``strand_chunks``): the first finds each entry's region (one
+    byte an entry) and counts the shards' buckets, the second fills each
+    shard's entry arrays; no temporary spans the whole index, which at
+    human scale holds some 1.56G entries."""
     tk = index.total_kmers
     counts = np.diff(index.offsets).astype(np.int64)
-    wc = index.wcounts.astype(np.int64)
-    cc = counts - wc
     anchors = genome.anchors[: genome.n_chr].astype(np.uint64)
     rcoff = genome.rc_offsets.astype(np.uint64)
     top = int(anchors[-1]) + int(rcoff[-1]) + FIXSIZE + 1
     bounds = np.linspace(0, top, ndev + 1).astype(np.uint64)
     bounds[0], bounds[-1] = 0, top
 
-    # split locs by strand preserving in-bucket order (same construction as
-    # DeviceEngine.__init__)
-    total = len(index.locs)
-    diff = np.zeros(total + 1, dtype=np.int8)
-    nz = wc > 0
-    np.add.at(diff, index.offsets[:-1][nz], 1)
-    np.add.at(diff, (index.offsets[:-1] + wc)[nz], -1)
-    is_w = np.cumsum(diff[:total], dtype=np.int8) > 0
-    wl = index.locs[is_w].astype(np.uint64)
-    cl = index.locs[~is_w].astype(np.uint64)
-    bid_w = np.repeat(np.arange(tk, dtype=np.int64), wc)
-    bid_c = np.repeat(np.arange(tk, dtype=np.int64), cc)
+    # pass 1: ownership regions -- Watson entries by their coordinate,
+    # Crick entries by their Watson-projected one -- and the shards'
+    # per-bucket counts
+    region = np.empty(int(index.offsets[-1]), dtype=np.uint8)
+    lwc = np.zeros((ndev, tk), dtype=np.int64)
+    lcc = np.zeros((ndev, tk), dtype=np.int64)
+    for lo, locs, b0, nb, wend in strand_chunks(index):
+        is_w = watson_mask(lo, nb, wend)
+        bucket = np.repeat(np.arange(len(nb), dtype=np.int64), nb)
+        wl = locs[is_w].astype(np.uint64)
+        cl = locs[~is_w].astype(np.uint64)
+        reg_w = np.searchsorted(bounds, wl, side="right") - 1
+        ci = np.searchsorted(anchors, cl, side="right") - 1
+        y = anchors[ci] + rcoff[ci] - (cl - anchors[ci])
+        reg_c = np.searchsorted(bounds, y, side="right") - 1
+        reg = region[lo: lo + len(locs)]
+        reg[is_w], reg[~is_w] = reg_w, reg_c
+        bw, bc = bucket[is_w], bucket[~is_w]
+        for d in range(ndev):
+            lwc[d, b0: b0 + len(nb)] += np.bincount(bw[reg_w == d],
+                                                    minlength=len(nb))
+            lcc[d, b0: b0 + len(nb)] += np.bincount(bc[reg_c == d],
+                                                    minlength=len(nb))
 
-    # ownership regions
-    reg_w = np.searchsorted(bounds, wl, side="right") - 1
-    ci = np.searchsorted(anchors, cl, side="right") - 1
-    y = anchors[ci] + rcoff[ci] - (cl - anchors[ci])
-    reg_c = np.searchsorted(bounds, y, side="right") - 1
-
-    shards = []
-    for d in range(ndev):
-        mw, mc = reg_w == d, reg_c == d
-        shards.append((np.bincount(bid_w[mw], minlength=tk),
-                       np.bincount(bid_c[mc], minlength=tk),
-                       wl[mw].astype(np.uint32), cl[mc].astype(np.uint32)))
-    return bounds.astype(np.uint32), counts, shards
+    # pass 2: each shard's entries, in index order within each strand
+    wls = [np.empty(int(lwc[d].sum()), dtype=np.uint32) for d in range(ndev)]
+    cls = [np.empty(int(lcc[d].sum()), dtype=np.uint32) for d in range(ndev)]
+    at = np.zeros((ndev, 2), dtype=np.int64)
+    for lo, locs, _b0, nb, wend in strand_chunks(index):
+        is_w = watson_mask(lo, nb, wend)
+        reg = region[lo: lo + len(locs)]
+        for d in range(ndev):
+            mine = reg == d
+            for k, (dst, sel) in enumerate(((wls[d], mine & is_w),
+                                            (cls[d], mine & ~is_w))):
+                part = locs[sel]
+                dst[at[d, k]: at[d, k] + len(part)] = part
+                at[d, k] += len(part)
+    return bounds.astype(np.uint32), counts, [
+        (lwc[d], lcc[d], wls[d], cls[d]) for d in range(ndev)]
 
 
 def shard_kmer_tab(lwc: np.ndarray, lcc: np.ndarray) -> np.ndarray:

@@ -157,6 +157,26 @@ Phases (each raises on failure; any failure exits non-zero):
      --query-compute-apps`` is sampled while they run; each run's rate
      from launch to the merged file beside the one-process rate.  Every
      process has a time limit and is killed with its workers past it.
+ 28. human-genome scale (``bsmap_tpu_torch.genome_scale``): the 3.12 Gb
+     hg38-class genome (13 x 239,999,970 uniform random bases, seed 38)
+     written, packed and indexed (the native two-pass build, saved and
+     memory-mapped back equal) by a process of its own that the script
+     starts after the kernel build and phase 28 waits for (some eight
+     minutes of one host core, beside the earlier phases, whose rates are
+     then taken with that load on the host), and its tables
+     placed on the card; K1-K4
+     against their twins on the first 65,536 reads (round 1 at the small
+     tier, the probe pass, the first exactly packed span) and K2-K6 on the
+     first 65,536 pairs at rank 0, each with its card time and its bound
+     (the tables now lie in DRAM: a random gather is one 32-byte
+     sector); the device's idle share over an align pass of 100,000
+     reads; 1,000,000 headline-config reads through the CLI (K1-K4 must
+     launch), every read past coordinate 2^31 counted at its true place on
+     each strand (at least 500 each), the first 2,000 byte-identical to
+     the host engine; 200,000 pairs through the block path (K2-K6), the
+     first 2,000 byte-identical to the host engine.  Prints the card
+     memory, reads/s, idle share, probe passes, replays and the phase's
+     seconds.  A genome or table that cannot be placed fails the run.
 
 The CLI's default -p 8 would start worker processes on the per-read paths
 (RRBS, trimming, pair-end BSP or -R); every phase but 27 runs in this
@@ -170,12 +190,12 @@ phase 17 (-n 1: K1-K5), each GPU run of phase 18 (K2-K6) and phase 19 and
 each GPU run of its set (K2-K5, never K1), phase 21's runs (K2, K3, K7,
 never K4), phase 22 (K1-K4, never K7), each run of phase 23 (K2, K3,
 K5, K6 and, index-sharded, K7 in place of K4), phase 25's .bam runs (the
-SE and PE paths) and its -a in.bam run (K3, K4), and every process of
+SE and PE paths) and its -a in.bam run (K3, K4), every process of
 phase 27 (what phase 4 launched, K2-K6, the RRBS path), counted in the
-worker processes themselves.  Every kernel's JSON row has its
-launches summed over those runs, its error against the twin, its time and
-the twin's at the single-end headline window (the pair-end one for K5 and
-K6), and its bound there: the bytes it must move over the card's memory
+worker processes themselves, and phase 28's two runs (K1-K4, K2-K6).
+Every kernel's JSON row has its launches summed over those runs, its
+error against the twin, its time and the twin's at the single-end
+headline window (the pair-end one for K5 and K6), and its bound there: the bytes it must move over the card's memory
 rate, or its int32 operations over the card's non-tensor peak, whichever
 is larger (K6's on the window's live combos).  No single PyTorch call
 computes any of these functions, so ``library_ms`` is null.  Every row
@@ -186,8 +206,10 @@ function of its source, also printed at the build); K3's ``parts_ms``
 the other one's times, K1's both widths by card time (``card_group``),
 K4's and K5's card time on 32 reads
 (``card_floor_ms``: launch and one warp's chain of loads), and K3's
-``scan_cumsum_ms``.  The last lines are the per-kernel JSON, the
-card's name and power limit, and the result line.  Exits non-zero without
+``scan_cumsum_ms``, and ``hg38``: phase 28's card time, bound and
+launches for the kernel on the hg38-class windows (``se``, ``pe``).  The
+last lines are the per-kernel JSON, the card's name and power limit, and
+the result line.  Exits non-zero without
 printing a result when torch sees no CUDA device.
 """
 
@@ -250,6 +272,8 @@ PE_PATH = ("exact_schedule", "verify_candidates", "reduce_reads", "rc_words",
            "pair_join")
 RRBS_PATH = ("exact_schedule", "verify_candidates", "reduce_reads")
 N_SHARDS = 4                     # phases 20, 21 and 23's D = 4 runs
+N_SCALE_PAIRS = 200_000          # phase 28's pairs on the hg38-class genome
+PREP_TIMEOUT = 1100              # seconds: phase 28's genome and index build
 INDEX_SHARDED_PATH = ("exact_schedule", "verify_candidates", "merge_shards")
 RRBS_ADAPTER = "AGATCGGAAGAGC"
 N_NPROCS = 2                     # phase 27's processes on the one card
@@ -2751,6 +2775,265 @@ def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
     return res, counts
 
 
+def scale_se_kernels(K, eng, rpath: str, errs: dict) -> dict:
+    """Phase 28's single-end kernels against their twins on the first
+    window of the hg38-class reads, on the tables step's engine: round 1
+    (K1 fixed lean at the small tier, K3, K4: the main path's first
+    dispatch), the probe pass (K2 at full rank, totals only) and the
+    first exactly packed span at rank 0 (K2 exact lean, K3, K4 at the
+    span's capacity: what probe mode dispatches after).  Returns per
+    kernel its card time (``queued_ms``) and bound on the main path's
+    shape (K1: round 1; K2: the packed span; K3, K4: round 1 and the
+    span), with the window's candidates a read."""
+    import torch
+    from bsmap_tpu_torch import native
+    from bsmap_tpu_torch.blockio import BlockReadStream
+    from bsmap_tpu_torch.engine.device_engine import pack_spans
+    stream = BlockReadStream(rpath, eng.param, readset=0,
+                             lib=native.get_lib())
+    blk = stream.next_block(eng.B)
+    stream.close()
+    nw, _live, rows_np, _b = eng.block_rows(blk)
+    MS = eng._maxseg
+    rows0 = torch.from_numpy(rows_np).cuda()
+    rows_np = rows_np.copy()
+    rows_np[:, -1] = MS - 1
+    rowsF = torch.from_numpy(rows_np).cuda()
+    tabs, kt, pa = eng.tables, eng.tables["kmer_tab"], eng.tables["prof_a"]
+    cfg = eng._cfg("f", lean=True, nw=nw)
+    cfg_f, cfg_p = cfg._replace(fixed=True), cfg._replace(probe=True,
+                                                          lean=False)
+    s_f = K.fixed_schedule(cfg_f, rows0, kt)
+    check(errs, "fixed_schedule", "hg38 round 1", s_f,
+          K.fixed_schedule_plain(cfg_f, rows0, kt))
+    vc_f = K.verify_candidates(cfg_f, eng.CANDS, rows0, s_f, tabs)
+    check(errs, "verify_candidates", "hg38 round 1", vc_f,
+          K.verify_candidates_plain(cfg_f, eng.CANDS, rows0, s_f, tabs))
+    check(errs, "reduce_reads", "hg38 round 1",
+          [K.reduce_reads(cfg_f, eng.CANDS, rows0, vc_f, s_f)],
+          [K.reduce_reads_plain(cfg_f, eng.CANDS, rows0, vc_f, s_f)])
+    pr = K.exact_schedule(cfg_p, rowsF, kt, pa, probe=True)
+    check(errs, "exact_schedule", "hg38 probe", [pr.ftot_rank],
+          [K.exact_schedule_plain(cfg_p, rowsF, kt, pa, probe=True)
+           .ftot_rank])
+    ftr = pr.ftot_rank.cpu().numpy().astype("int64")
+    a0, b0, cap = pack_spans(ftr[:, 0], eng.B, eng.CANDS, eng.CANDS_BIG)[0]
+    rowsP = rows0[a0: b0]
+    s_p = K.exact_schedule(cfg, rowsP, kt, pa)
+    check(errs, "exact_schedule", "hg38 packed span", s_p,
+          K.exact_schedule_plain(cfg, rowsP, kt, pa))
+    vc_p = K.verify_candidates(cfg, cap, rowsP, s_p, tabs)
+    check(errs, "verify_candidates", "hg38 packed span", vc_p,
+          K.verify_candidates_plain(cfg, cap, rowsP, s_p, tabs))
+    check(errs, "reduce_reads", "hg38 packed span",
+          [K.reduce_reads(cfg, cap, rowsP, vc_p, s_p)],
+          [K.reduce_reads_plain(cfg, cap, rowsP, vc_p, s_p)])
+    m, mp = rows0.shape[0], rowsP.shape[0]
+    nc_f = min(int(vc_f.starts[-1]), eng.CANDS)
+    nc_p = min(int(vc_p.starts[-1]), cap)
+    log(f"[28] hg38 window: {m} reads, full-rank candidates a read "
+        f"{ftr[:, -1].mean():.1f} mean, {int(ftr[:, -1].max())} most; rank 0 "
+        f"{ftr[:, 0].mean():.1f}; round 1 {int(vc_f.starts[-1])} candidates "
+        f"for a capacity of {eng.CANDS}; first packed span {mp} reads, "
+        f"{nc_p} candidates, capacity {cap} — kernels == twins")
+    timed = {
+        "fixed_schedule": (lambda: K.fixed_schedule(cfg_f, rows0, kt),
+                           bound("fixed_schedule", cfg_f, m)),
+        "exact_schedule": (lambda: K.exact_schedule(cfg, rowsP, kt, pa),
+                           bound("exact_schedule", cfg, mp)),
+        "verify_candidates": (
+            lambda: K.verify_candidates(cfg, cap, rowsP, s_p, tabs),
+            bound("verify_candidates", cfg, mp, nc_p, cap)),
+        "reduce_reads": (lambda: K.reduce_reads(cfg, cap, rowsP, vc_p, s_p),
+                         bound("reduce_reads", cfg, mp, nc_p, cap)),
+    }
+    res = {name: {"device_ms": queued_ms(fn), **b}
+           for name, (fn, b) in timed.items()}
+    extra = {
+        "exact_schedule": ("probe", lambda: K.exact_schedule(
+            cfg_p, rowsF, kt, pa, probe=True), bound("exact_schedule",
+                                                     cfg_p, m)),
+        "verify_candidates": ("round1", lambda: K.verify_candidates(
+            cfg_f, eng.CANDS, rows0, s_f, tabs), bound(
+                "verify_candidates", cfg_f, m, nc_f, eng.CANDS)),
+        "reduce_reads": ("round1", lambda: K.reduce_reads(
+            cfg_f, eng.CANDS, rows0, vc_f, s_f), bound(
+                "reduce_reads", cfg_f, m, nc_f, eng.CANDS)),
+    }
+    for name, (tag, fn, b) in extra.items():
+        res[name][f"{tag}_device_ms"] = queued_ms(fn)
+        res[name][f"{tag}_bound_ms"] = b["bound_ms"]
+    for name, r in res.items():
+        log(f"    [28] hg38 {name}: {_ms(r['device_ms'])} a call on the card, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            + "".join(f"; {t} {_ms(r[t + '_device_ms'])}, bound "
+                      f"{r[t + '_bound_ms']:.4f} ms" for t in
+                      ("probe", "round1") if t + "_device_ms" in r))
+    res["verify_candidates"].update(
+        cands_per_read_mean=float(ftr[:, -1].mean()),
+        cands_per_read_max=int(ftr[:, -1].max()), span_reads=mp,
+        span_cands=nc_p, span_capacity=cap)
+    return res
+
+
+def scale_pe_kernels(K, genome, index, param, r1: str, r2: str,
+                     errs: dict) -> dict:
+    """Phase 28's pair-end kernels against their twins on the first window
+    of the hg38-class pairs at rank 0 on the small tier (the main path's
+    phase 1): K5 (mate 2's rc rows), each mate's K2, K3 and K4 with cfg.pe
+    and 16 hits, then K6; card times on mate 2 and the join, with bounds."""
+    import torch
+    from bsmap_tpu_torch import native
+    from bsmap_tpu_torch.blockio import BlockReadStream
+    from bsmap_tpu_torch.engine.pair_device import PairDeviceEngine
+    eng = PairDeviceEngine(genome, index, param, device="cuda")
+    se = eng.se
+    blks = []
+    for readset, path in ((1, r1), (2, r2)):
+        stream = BlockReadStream(path, param, readset=readset,
+                                 lib=native.get_lib())
+        blks.append(stream.next_block(se.B))
+        stream.close()
+    nw, _live, _pos, ra_np, rb_np = eng.block_pair_rows(*blks)
+    cfg_a, cfg_b = eng._cfg(1, nw), eng._cfg(2, nw)
+    tabs, cap = se.tables, se.CANDS
+    kt, pa = tabs["kmer_tab"], tabs["prof_a"]
+    da, db = (torch.from_numpy(x).cuda() for x in (ra_np, rb_np))
+    full, ncand = [], 0
+    for cfg, rows in ((cfg_a, da), (cfg_b, db)):
+        fwd, rc = K.chain_inputs(cfg, rows)
+        if cfg.chains_mode != "f":
+            check(errs, "rc_words", "hg38 mate 2",
+                  [rc if rc is not None else fwd],
+                  [K.rc_words_plain(cfg, rows)])
+        slots = K.exact_schedule(cfg, fwd, kt, pa, rows_rc=rc)
+        check(errs, "exact_schedule", "hg38 pairs", slots,
+              K.exact_schedule_plain(cfg, fwd, kt, pa, rows_rc=rc))
+        vc = K.verify_candidates(cfg, cap, fwd, slots, tabs, rc)
+        check(errs, "verify_candidates", "hg38 pairs", vc,
+              K.verify_candidates_plain(cfg, cap, fwd, slots, tabs, rc))
+        out = K.reduce_reads(cfg, cap, fwd, vc, slots)
+        check(errs, "reduce_reads", "hg38 pairs", [out],
+              [K.reduce_reads_plain(cfg, cap, fwd, vc, slots)])
+        full.append(out)
+        ncand = min(int(vc.starts[-1]), cap)
+    j = K.pair_join(cfg_a, full[0], full[1], da, db)
+    check(errs, "pair_join", "hg38 pairs", [j],
+          [K.pair_join_plain(cfg_a, full[0], full[1], da, db)])
+    m = da.shape[0]
+    log(f"[28] hg38 pairs: {m} pairs at rank 0, mate 2 {ncand} candidates "
+        f"for a capacity of {cap}, {int(((j[:, 6] & 31) > 0).sum())} paired "
+        "in phase 1 — kernels == twins")
+    timed = {
+        "rc_words": (lambda: K.rc_words(cfg_b, db), bound("rc_words", cfg_b,
+                                                          m)),
+        "exact_schedule": (lambda: K.exact_schedule(cfg_b, fwd, kt, pa,
+                                                    rows_rc=rc),
+                           bound("exact_schedule", cfg_b, m)),
+        "verify_candidates": (
+            lambda: K.verify_candidates(cfg_b, cap, fwd, slots, tabs, rc),
+            bound("verify_candidates", cfg_b, m, ncand, cap)),
+        "reduce_reads": (lambda: K.reduce_reads(cfg_b, cap, fwd, vc, slots),
+                         bound("reduce_reads", cfg_b, m, ncand, cap)),
+        "pair_join": (lambda: K.pair_join(cfg_a, full[0], full[1], da, db),
+                      bound("pair_join", cfg_a, m,
+                            live=live_combos(cfg_a, *full))),
+    }
+    res = {}
+    for name, (fn, b) in timed.items():
+        res[name] = {"device_ms": queued_ms(fn), **b}
+        log(f"    [28] hg38 pairs {name}: {_ms(res[name]['device_ms'])} a "
+            f"call on the card, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    del eng, se, tabs, full, da, db
+    torch.cuda.empty_cache()
+    return res
+
+
+def start_genome_scale_prep(root: str) -> subprocess.Popen:
+    """Phase 28's genome and index (``genome_scale --steps genome,index``:
+    the 3.12 Gb FASTA, its packed genome and the native index build, with
+    their caches in ``root``/hg38), in a process of its own: some eight
+    minutes of one host core, run while the earlier phases go on."""
+    d = os.path.join(root, "hg38")
+    os.makedirs(d, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return spawn([sys.executable, "-m", "bsmap_tpu_torch.genome_scale",
+                  "--steps", "genome,index", "--dir", d], env,
+                 os.path.join(root, "hg38_prep.log"))
+
+
+def phase_genome_scale(root: str, main_runs: list, prep) -> dict:
+    """Phase 28: ``bsmap_tpu_torch.genome_scale``'s steps 1-4, and step 5
+    at ``N_SCALE_PAIRS`` pairs without methratio, on the full 3.12 Gb
+    hg38-class genome built here from seed 38: the kernels against their
+    twins on its first windows (``scale_se_kernels``,
+    ``scale_pe_kernels``), the device's idle share, then both main paths
+    with their launches counted; the steps themselves hold the reads past
+    2^31 at their true places and the first reads and pairs byte-identical
+    to the host engine.  ``prep`` (``start_genome_scale_prep``) writes the
+    FASTA and builds the genome and index caches; the steps here wait for
+    it and map them."""
+    import torch
+    from bsmap_tpu_torch import genome_scale as gs
+    from bsmap_tpu_torch.engine import kernels as K
+    t0 = time.time()
+    waited = finish([prep], timeout=PREP_TIMEOUT)[0]
+    with open(os.path.join(root, "hg38_prep.log")) as f:
+        built = json.loads(f.read().strip().splitlines()[-1])
+    log(f"[28] genome and index built in a process of their own while the "
+        f"earlier phases ran (waited {waited:.1f} s for it): genome "
+        f"{json.dumps(built['genome'])}; index {json.dumps(built['index'])}")
+    a = gs.parse(["--dir", os.path.join(root, "hg38"), "--pe-pairs",
+                  str(N_SCALE_PAIRS), "--no-methratio"])
+    s = gs.Scale(a)
+    genome, rec = gs.step_genome(s)
+    log(f"[28] genome: {json.dumps(rec)}")
+    index, rec = gs.step_index(s, genome)
+    log(f"[28] index: {json.dumps(rec)}")
+    eng, tables = gs.step_tables(s, genome, index)
+    log(f"[28] tables: {json.dumps(tables)}")
+    chrs = gs.chr_arrays(s.gpath, a.n_chr, a.chr_len)
+    rpath = gs.se_reads(s, chrs)[0]
+    r1, r2 = gs.pe_reads(s, chrs, a.pe_pairs)
+    errs = {k: 0 for k in SE_PATH + PE_PATH}
+    kres = scale_se_kernels(K, eng, rpath, errs)
+    prof = gs.idle_share(s, eng, rpath, gs.PROFILE_READS)
+    log(f"[28] idle share over an align pass of {gs.PROFILE_READS} "
+        f"reads: {json.dumps(prof)}")
+    del eng
+    K.reset_launch_counts()
+    se = gs.step_se(s, genome, chrs)
+    main_runs.append(K.launch_counts())
+    need_launches("[28] hg38-class SE run", main_runs[-1], SE_PATH)
+    log(f"[28] se: {json.dumps(se)}")
+    pres = scale_pe_kernels(K, genome, index, s.param(["-b", "x"]
+                                                      + gs.PE_FLAGS),
+                            r1, r2, errs)
+    K.reset_launch_counts()
+    pe = gs.step_pe(s, chrs, methratio=False)
+    main_runs.append(K.launch_counts())
+    need_launches("[28] hg38-class PE run", main_runs[-1], PE_PATH)
+    log(f"[28] pe: {json.dumps(pe)}")
+    for k, r in kres.items():
+        r["launches"] = main_runs[-2][k]
+    for k, r in pres.items():
+        r["launches"] = main_runs[-1][k]
+    card = max(se["card_max_allocated"], pe["card_max_allocated"],
+               tables["card_max_allocated"])
+    log(f"[28] summary: card memory {card / 2 ** 30:.2f} GiB (tables "
+        f"{tables['tables_total_bytes'] / 2 ** 30:.2f} GiB), SE "
+        f"{se['reads_per_s']:.1f} reads/s, idle share "
+        f"{prof['idle_share']:.4f}, n_probe {se['n_probe']}, n_replayed "
+        f"{se['n_replayed']}, n_dispatched {se['n_dispatched']}, candidates "
+        f"a read {se['cands_mean']:.1f} mean {se['cands_max']} most; PE "
+        f"{pe['pairs_per_s']:.1f} pairs/s, n_replayed {pe['n_replayed']}; "
+        f"reads past 2^31 at their true places {json.dumps(se['high'])}; "
+        f"{time.time() - t0:.1f} s")
+    del genome, index, chrs
+    torch.cuda.empty_cache()
+    return {"se": kres, "pe": pres, "errs": errs, "card_bytes": card}
+
+
 def need_launches(what: str, counts: dict, need, never=()) -> None:
     """A main path's launch counts: every kernel of ``need`` launched, none
     of ``never``."""
@@ -2780,6 +3063,7 @@ def main() -> int:
         f"{sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
     ptxas = phase_build()
     root = tempfile.mkdtemp(prefix="bsmap_smoke_")
+    prep = start_genome_scale_prep(root)
     # every index below is built once and memory-mapped by each later run
     os.environ["BSMAP_TPU_INDEX_CACHE"] = os.path.join(root, "cache")
     # the CLI's default -p 8 starts worker processes on the per-read paths
@@ -2936,7 +3220,11 @@ def main() -> int:
                         os.path.join(root, "pe.sam"), PE_PATH, PE_PATH, (),
                         N_PAIRS, pe["pairs_per_s"])})
         main_runs.extend(c27)
+        scale = phase_genome_scale(root, main_runs, prep)
     finally:
+        if prep.poll() is None:          # a phase before 28 failed
+            with contextlib.suppress(TimeoutError):
+                finish([prep], timeout=0)
         shutil.rmtree(root, ignore_errors=True)
 
     log(f"[summary] headline {head['reads_per_s']:.1f} reads/s, "
@@ -2959,7 +3247,8 @@ def main() -> int:
                     f"{v['one_process_per_s']:.1f}" for k, v in mp.items()))
     log("[summary] seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in _PHASE_S.items()}))
-    results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1, sres24)
+    results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1, sres24,
+               {k: {"max_abs_err": v} for k, v in scale["errs"].items()})
     rows = []
     for k, (src, rep_) in KERNEL_SOURCES.items():
         # the main path's shapes: the SE headline window, else the PE one,
@@ -2974,7 +3263,10 @@ def main() -> int:
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": None,
                      **{x: t[x] for x in FORM_KEYS if x in t},
-                     "ptxas": ptxas.get(os.path.basename(src))})
+                     "ptxas": ptxas.get(os.path.basename(src)),
+                     # phase 28: the hg38-class genome's first windows
+                     "hg38": {tag: scale[tag][k] for tag in ("se", "pe")
+                              if k in scale[tag]} or None})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

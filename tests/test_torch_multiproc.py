@@ -12,7 +12,8 @@ import sys
 import pytest
 
 from .conftest import REPO, simulate
-from .test_torch_distributed import nprocs, one_and_host, run, same
+from .test_torch_distributed import (nprocs, one_and_host, run, same,
+                                     start, wait_all)
 
 PE = ["-a", "ra.fq", "-b", "rb.fq", "-d", "gp.fa", "-S", "1", "-v", "2",
       "-u"]
@@ -71,6 +72,61 @@ def test_torch_p_flag_rrbs_trim_spawns_workers(tmp_path):
     same(tmp_path, "one.sam", "p2.sam", "host.sam")
     assert not [x for x in os.listdir(tmp_path) if ".shard" in x]
 
+
+
+# ROADMAP C1's inputs: 500 simulated reads (pairs) with errors and an
+# adapter; -B/-E windows cut from the middle and the end of the file
+C1_SIM = dict(seed=5, n_chr=2, chr_len=30000, n_reads=500, read_len=60,
+              error_rate=0.03, adapter="AGATCGGAAGAGC")
+C1_RRBS = ["-a", "r.fq", "-d", "g.fa", "-D", "C-CGG", "-S", "1", "-u",
+           "-A", "AGATCGGAAGAGC", "-q", "2"]
+C1_PE = ["-a", "pa.fq", "-b", "pb.fq", "-d", "gp.fa", "-S", "1", "-u"]
+C1_CASES = {
+    "rrbs_trim_B": (C1_RRBS + ["-B", "20"], "sam"),
+    "rrbs_trim_B_E": (C1_RRBS + ["-B", "20", "-E", "200"], "sam"),
+    "pe_bsp_B": (C1_PE + ["-B", "50"], "bsp"),
+    "pe_bsp_B_E": (C1_PE + ["-B", "50", "-E", "300"], "bsp"),
+}
+
+
+@pytest.fixture(scope="module")
+def c1_data(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_c1")
+    simulate(d, genome_out="g.fa", reads_out="r.fq", **C1_SIM)
+    simulate(d, genome_out="gp.fa", reads_out="pa.fq", reads2_out="pb.fq",
+             pe=True, **C1_SIM)
+    return d
+
+
+@pytest.mark.parametrize("case", sorted(C1_CASES))
+def test_torch_multiproc_keeps_the_read_window(c1_data, case):
+    """ROADMAP C1: -p 3 workers and --nprocs 2 under -B (and -B/-E) write
+    every read (pair) of the window, byte for byte what bsmap_tpu's host
+    engine writes in one process.  Each range is planned inside the window
+    over the whole file's read count; counting under -B/-E gave the
+    window's size, so the last B - 1 reads (pairs) went missing."""
+    args, suffix = C1_CASES[case]
+    pe = "-b" in args
+
+    def out(tag):
+        return ["-o", f"{case}_{tag}.{suffix}"] + (
+            ["-2", f"{case}_{tag}_u.{suffix}"] if pe else [])
+
+    engine = ["--device", "cpu"]
+    procs = [start(c1_data, "bsmap_tpu.cli",
+                   args + out("host") + ["-p", "1", "--engine", "host"]),
+             start(c1_data, "bsmap_tpu_torch.cli",
+                   args + engine + out("p3") + ["-p", "3"])]
+    procs += [start(c1_data, "bsmap_tpu_torch.cli",
+                    args + engine + out("n2") + ["--nprocs", "2",
+                                                 "--proc-id", str(k)])
+              for k in (1, 0)]
+    wait_all(procs)
+    same(c1_data, *(f"{case}_{t}.{suffix}" for t in ("host", "p3", "n2")))
+    if pe:
+        same(c1_data, *(f"{case}_{t}_u.{suffix}"
+                        for t in ("host", "p3", "n2")))
+    assert not [x for x in os.listdir(c1_data) if ".shard" in x]
 
 
 class _Worker:

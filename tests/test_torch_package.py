@@ -43,7 +43,8 @@ def test_port_imports_without_jax():
             "bsmap_tpu_torch.parallel.index_sharded",
             "bsmap_tpu_torch.bamio", "bsmap_tpu_torch.methratio",
             "bsmap_tpu_torch.bsp2sam",
-            "bsmap_tpu_torch.parallel.distributed"]
+            "bsmap_tpu_torch.parallel.distributed",
+            "bsmap_tpu_torch.genome_scale"]
     code = ("import sys; sys.modules['jax'] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
