@@ -19,12 +19,19 @@ explicitly also raises on a configuration it does not support.
 
 A ``.bam`` output is written as SAM and converted after the run to a
 sorted, indexed BAM (``output/bam.py``); ``-a`` reads FASTA, FASTQ, SAM or
-BAM.  ``-p N`` spawns N worker processes over contiguous read ranges where
-the per-read paths need them (RRBS, trimming, pair-end BSP or ``-R``) and
-is a no-op on the block paths; ``--nprocs``/``--proc-id`` run one range of
-a multi-process job by hand, ``--coordinator`` joins a torch.distributed
-gloo group (``parallel/distributed.py``).  Process 0 merges the shards
-byte-identical to a one-process run.
+BAM.  ``-p N`` is BSMAP's thread count (main.cpp:45-131): a single-end
+run on the native block path encodes its blocks on N threads in one
+process (``run_single_end_blocks``), on the card for RRBS, trimming, BSP
+and ``-R`` too.  Where one process cannot use the threads, ``-p N`` starts
+N worker processes over contiguous read ranges (``_wants_local_mp``):
+single-end RRBS or trimming under ``--device cpu``, ``--engine host``,
+SAM/BAM input or an ``auto`` run that gives way to the host engine, and
+the pair-end per-pair path (trimming, BSP or ``-R``).  ``bsmap_tpu``
+starts the workers on every per-read path (bsmap_tpu/cli.py:320-333).
+The pair-end block path takes no ``-p``.  ``--nprocs``/``--proc-id`` run
+one range of a multi-process job by hand, ``--coordinator`` joins a
+torch.distributed gloo group (``parallel/distributed.py``).  Process 0
+merges the shards byte-identical to a one-process run.
 
     python -m bsmap_tpu_torch.cli -a reads.fq -d ref.fa -o out.sam --device cuda
     python -m bsmap_tpu_torch.cli -a r1.fq -b r2.fq -d ref.fa -o out.bam
@@ -65,10 +72,12 @@ USAGE = """Usage: bsmap_tpu_torch [options]
        -B  <int>   start from the Nth read
        -E  <int>   end at the Nth read
        -I  <int>   index interval, default=4 (WGBS), 1 (RRBS)
-       -p  <int>   processes, default 8: workers over read ranges on
-                   the per-read paths (RRBS, trimming, pair-end BSP or
-                   -R; BSMAP_TPU_LOCAL_MP=0 keeps one process); a no-op
-                   on the block paths
+       -p  <int>   threads, default 8: a single-end block-path run
+                   encodes on -p threads in one process; single-end RRBS
+                   or trimming under --device cpu, --engine host or
+                   SAM/BAM input, and pair-end trimming, BSP or -R, start
+                   -p worker processes over read ranges instead
+                   (BSMAP_TPU_LOCAL_MP=0 keeps one process)
        -S  <int>   random seed for multi-hit selection (0 = clock)
        -M  <str>   alignment transition, default TC
        -q  <int>   quality trim threshold, default 0
@@ -244,12 +253,17 @@ def parse_args(argv: list[str]) -> Options:
     return o
 
 
+def index_cache_path(o: Options) -> str:
+    """Where ``get_index`` keeps the index in ``o.index_cache``."""
+    os.makedirs(o.index_cache, exist_ok=True)
+    return os.path.join(o.index_cache,
+                        f"idx_{index_cache_key(o.ref_file, o.param)}.npz")
+
+
 def get_index(o: Options, genome, log=print):
     p = o.param
     if o.index_cache:
-        os.makedirs(o.index_cache, exist_ok=True)
-        key = index_cache_key(o.ref_file, p)
-        path = os.path.join(o.index_cache, f"idx_{key}.npz")
+        path = index_cache_path(o)
         if os.path.exists(path):
             log(f"loading cached index {path}")
             try:
@@ -344,19 +358,12 @@ def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
     if not o.ref_file:
         sys.exit("fatal error: failed to open ref file")
     with contextlib.ExitStack() as stack:
-        if o.nprocs == 1 and _wants_local_mp(o) and not o.index_cache:
-            # -p workers would each pack the genome and build the index
-            # again: this parent builds and saves them once into a cache
-            # directory, and the workers memory-map the shared copy
-            import tempfile
-            o.index_cache = stack.enter_context(tempfile.TemporaryDirectory(
-                prefix="bsmap_tpu_idx_", ignore_cleanup_errors=True))
-            argv = list(argv) + ["--index-cache", o.index_cache]
         if o.index_cache:
             from .reference import load_genome_cached
             genome = load_genome_cached(o.ref_file, p, o.index_cache)
         else:
             genome = load_genome(o.ref_file, p)
+        local_mp = o.nprocs == 1 and _wants_local_mp(o, genome)
         p.total_ref_seq = genome.n_chr
         print(f"Load in {genome.n_chr} db seqs, total size "
               f"{genome.sum_length} bp. {timer.total():.1f} secs passed")
@@ -367,8 +374,21 @@ def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
                 run_multihost_pair(o, genome, index, stats=stats, mesh=mesh)
             else:
                 run_multihost_se(o, genome, index, stats=stats, mesh=mesh)
-        elif _wants_local_mp(o):
-            run_local_multiprocess(o, argv)
+        elif local_mp and (k := _worker_cap(o, genome, index)) > 1:
+            if not o.index_cache:
+                # the workers would each pack the genome and build the
+                # index again: this parent saves them once into a cache
+                # directory, and the workers memory-map the shared copy
+                import tempfile
+                from .reference import genome_cache_path, save_genome
+                o.index_cache = stack.enter_context(
+                    tempfile.TemporaryDirectory(prefix="bsmap_tpu_idx_",
+                                                ignore_cleanup_errors=True))
+                argv = list(argv) + ["--index-cache", o.index_cache]
+                if path := genome_cache_path(o.ref_file, p, o.index_cache):
+                    save_genome(path, genome)
+                save_index(index_cache_path(o), index)
+            run_local_multiprocess(o, argv, k)
         elif o.query_a and o.query_b:
             from .engine.pair_pipeline import run_pair_end
             run_pair_end(o, genome, index, stats=stats, mesh=mesh)
@@ -378,13 +398,21 @@ def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
     return 0
 
 
-def _wants_local_mp(o: Options) -> bool:
-    """-p N (>1) parallelizes the per-read paths (RRBS, trimming, PE
-    formatting) by local process sharding, ``bsmap_tpu``'s rule
-    (bsmap_tpu/cli.py:320-333): the reference's thread pool recast as the
-    byte-exact --nprocs range machinery.  On the block paths (SE SAM, BSP
-    and -R, PE SAM without -R) -p is a no-op, as there.
-    ``BSMAP_TPU_LOCAL_MP=0`` turns the workers off."""
+def _wants_local_mp(o: Options, genome) -> bool:
+    """Whether ``-p N`` (N > 1) starts N worker processes over contiguous
+    read ranges (the byte-exact ``--nprocs`` range machinery).  The block
+    paths never do: single-end without RRBS or trimming, and pair-end SAM
+    without ``-R``.  Nor does a single-end FASTA/FASTQ run whose engine is
+    a PyTorch engine on the card (``device``, ``sharded``,
+    ``index-sharded``, or ``auto`` where ``genome`` fits the device
+    engines): one process on the native block path, RRBS, trimming, BSP
+    and ``-R`` included, encodes on N threads (``run_single_end_blocks``).
+    The rest keep the workers: RRBS or trimming under ``--device cpu``
+    (where the twins are the compute), ``--engine host``, SAM/BAM input,
+    ``auto`` giving way to the host engine, and the pair-end per-pair path
+    (trimming, BSP or ``-R``).  ``bsmap_tpu`` starts workers on every
+    per-read path (bsmap_tpu/cli.py:320-333).  ``BSMAP_TPU_LOCAL_MP=0``
+    turns the workers off."""
     p = o.param
     if p.num_procs <= 1 or os.environ.get("BSMAP_TPU_LOCAL_MP") == "0":
         return False
@@ -392,20 +420,107 @@ def _wants_local_mp(o: Options) -> bool:
     block_path = (not p.RRBS_flag and not p.adapters
                   and p.qual_threshold == 0
                   and (not pe or (p.out_sam >= 1 and not p.out_ref)))
-    return not block_path
+    if block_path:
+        return False
+    if pe or o.device != "cuda" or o.engine == "host":
+        return True
+    from .engine.device_engine import genome_fits
+    from .readio import detect_format
+    return (detect_format(o.query_a) >= 2
+            or (o.engine == "auto" and not genome_fits(genome)))
 
 
-def run_local_multiprocess(o: Options, argv: list[str]) -> int:
-    """Spawn -p worker processes over contiguous read ranges (each takes
-    the o.nprocs > 1 branch with this run's own argv, ``--device`` and
-    ``--engine`` included); process 0 merges the output byte-identical.
-    Read-range shards are idempotent, so a failed worker is started again
-    at once, one time; a second failure stops the other workers (worker 0
-    would otherwise wait in ``merge_shards`` for a shard that never
-    comes), removes the shards and fails the run."""
+# a -p worker's peak card memory over the bytes of its device tables: 1.11
+# measured on the single-end path at hg38 class (9.41 GB reserved over
+# 8.49 GB of tables, on an H100 80GB HBM3 at 700 W), and room for the
+# pair-end per-pair path's working set and the table build's chunks, which
+# eight workers building at once did not find on that 85 GB card
+CARD_PER_TABLE_BYTE = 1.25
+CUDA_CONTEXT_BYTES = 600_000_000       # 0.55 GB measured there
+# host bytes a -p worker's replay engine takes a packed genome byte to
+# unpack it (measured at hg38 class, see _worker_cap)
+UNPACK_BYTES = 16
+
+
+def _host_available() -> int:
+    """The host memory this process may still take, bytes: MemAvailable,
+    or less where its cgroup's limit (memory.max less memory.current)
+    leaves less."""
+    with open("/proc/meminfo") as f:
+        avail = next(int(line.split()[1]) * 1024 for line in f
+                     if line.startswith("MemAvailable:"))
+    try:
+        with open("/sys/fs/cgroup/memory.max") as f:
+            limit = f.read().strip()
+        with open("/sys/fs/cgroup/memory.current") as f:
+            used = int(f.read())
+    except (OSError, ValueError):
+        return avail
+    return avail if limit == "max" else min(avail, int(limit) - used)
+
+
+def _card_free() -> int:
+    """The first visible card's free memory, bytes, from nvidia-smi, so
+    that this process opens no CUDA context of its own while its workers
+    run (torch's count where nvidia-smi gives none)."""
+    import subprocess
+    dev = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=memory.free",
+                            "--format=csv,noheader,nounits", "-i",
+                            dev or "0"], capture_output=True, text=True,
+                           timeout=60, check=True)
+        return int(r.stdout.split()[0]) << 20
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        import torch
+        return torch.cuda.mem_get_info()[0]
+
+
+def _worker_cap(o: Options, genome, index) -> int:
+    """How many ``-p`` workers to start: ``p.num_procs``, or as many as
+    the host's available memory (``_host_available``) and, on the card,
+    its free memory hold.  On the host a worker holds the cached genome
+    and index it memory-maps, private memory of about their size again,
+    and, once it replays a read or pair on the exact host engine, the
+    genome unpacked a byte a base through temporaries: at hg38 class a
+    worker's peak RSS was 15.2 GB with 8.1 GB of mapped pages in it, and
+    40.2 GB once it replayed (16 bytes a packed genome byte more), on the
+    96 GiB host of an H100 80GB HBM3 (700 W), whose /proc counts the
+    mapped pages in every worker.  On the card it builds its own tables
+    (packed genome, index entries, k-mer table) and a CUDA context.
+    Prints one stderr line when it starts fewer; the read ranges are
+    byte-exact for any count."""
+    n = o.param.num_procs
+    packed = genome.refcat.nbytes + genome.crefcat.nbytes
+    mapped = packed + index.locs.nbytes + index.offsets.nbytes
+    fits = {"host": int(_host_available() // max(
+        2 * mapped + UNPACK_BYTES * packed, 1))}
+    if o.device == "cuda" and o.engine != "host":
+        tables = packed + index.locs.nbytes + 16 * index.total_kmers
+        fits["card"] = int(_card_free() // (
+            CARD_PER_TABLE_BYTE * tables + CUDA_CONTEXT_BYTES))
+    k = max(1, min(n, *fits.values()))
+    if k < n:
+        what = f"{k} worker processes" if k > 1 else "this process alone"
+        print(f"-p {n}: {what}, what this host's available memory and the "
+              "card's free memory hold "
+              f"({', '.join(f'{w} {v}' for w, v in fits.items())})",
+              file=sys.stderr)
+    return k
+
+
+def run_local_multiprocess(o: Options, argv: list[str],
+                           n: int | None = None) -> int:
+    """Spawn ``n`` (default -p) worker processes over contiguous read
+    ranges (each takes the o.nprocs > 1 branch with this run's own argv,
+    ``--device`` and ``--engine`` included); process 0 merges the output
+    byte-identical.  Read-range shards are idempotent, so a failed worker
+    is started again at once, one time; a second failure stops the other
+    workers (worker 0 would otherwise wait in ``merge_shards`` for a shard
+    that never comes), removes the shards and fails the run."""
     import subprocess
 
-    n = o.param.num_procs
+    n = n or o.param.num_procs
 
     def spawn(k: int):
         cmd = [sys.executable, "-m", "bsmap_tpu_torch.cli"] + argv + [
@@ -657,7 +772,8 @@ def run_single_end(o: Options, genome, index, stats: dict | None = None,
     from .readio import detect_format
     if (getattr(engine, "supports_blocks", lambda: False)()
             and detect_format(o.query_a) < 2):
-        total = run_single_end_blocks(o, engine, fmt, genome, timer)
+        total = run_single_end_blocks(o, engine, fmt, genome, timer,
+                                      threads=p.num_procs)
     else:
         total = run_single_end_reads(o, engine, fmt, genome, timer)
     dt = time.perf_counter() - t0
@@ -695,12 +811,16 @@ def run_single_end_reads(o: Options, engine, fmt, genome, timer,
 
 
 def run_single_end_blocks(o: Options, engine, fmt, genome, timer,
-                          header: bool = True) -> int:
-    """Native block pipeline: chunked parse -> device align -> native SAM
-    format, with parse-ahead and write-behind threads (the native calls
-    release the GIL)."""
+                          header: bool = True, threads: int = 1) -> int:
+    """Native block pipeline: a reader thread parses blocks in file order,
+    ``threads`` encode threads run ``engine.encode_block`` on them (native
+    FilterReads and encode, which release the GIL), the align loop takes
+    the encoded blocks strictly in file order and a writer thread formats
+    them natively.  An error in the reader or in an encode thread ends the
+    run with that error."""
     import queue
     import threading
+    from concurrent.futures import ThreadPoolExecutor
 
     from . import native
     from .blockio import BlockReadStream
@@ -709,30 +829,37 @@ def run_single_end_blocks(o: Options, engine, fmt, genome, timer,
     lib = native.get_lib()
     stream = BlockReadStream(o.query_a, p, readset=0, lib=lib)
     # dispatch windows per block: windows within a block queue on the
-    # device while the producer thread parses the next block and the writer
-    # thread formats the previous one
+    # device while the encode threads work on the next blocks and the
+    # writer thread formats the previous one
     blk_win = int(os.environ.get("BSMAP_TPU_BLOCK_WINDOWS", 8))
     blk_n = blk_win * getattr(engine, "B", BATCH_NUM)
-    q_in: "queue.Queue" = queue.Queue(maxsize=2)
+    threads = max(threads, 1)
+    pool = ThreadPoolExecutor(threads, thread_name_prefix="bsmap_encode")
+    # the blocks' encode futures in file order: one ahead of each thread
+    q_in: "queue.Queue" = queue.Queue(maxsize=threads + 1)
     q_out: "queue.Queue" = queue.Queue(maxsize=4)
     errors: list[BaseException] = []
+    done = threading.Event()
 
-    def producer():
+    def encode(blk):
+        if hasattr(engine, "encode_block"):
+            engine.encode_block(blk)
+        return blk
+
+    def reader():
         # geometric ramp (1, 2, 4, ... windows): the device starts on the
         # first window after ~1/blk_win of the full-block parse time
         try:
             size = getattr(engine, "B", BATCH_NUM)
-            while True:
+            while not done.is_set():
                 blk = stream.next_block(min(size, blk_n))
                 size *= 2
-                if blk is not None and hasattr(engine, "encode_block"):
-                    engine.encode_block(blk)
-                q_in.put(blk)
                 if blk is None:
                     break
+                q_in.put(pool.submit(encode, blk))
         except BaseException as e:   # surfaced by the align loop
             errors.append(e)
-            q_in.put(None)
+        q_in.put(None)
 
     def writer():
         try:
@@ -750,28 +877,35 @@ def run_single_end_blocks(o: Options, engine, fmt, genome, timer,
             while q_out.get() is not None:   # keep the align loop moving
                 pass
 
-    t_prod = threading.Thread(target=producer, daemon=True)
+    t_rd = threading.Thread(target=reader, daemon=True)
     t_wr = threading.Thread(target=writer, daemon=True)
-    t_prod.start()
+    t_rd.start()
     t_wr.start()
     total = 0
     try:
         while True:
-            blk = q_in.get()
-            if blk is None:
+            fut = q_in.get()
+            if fut is None:
+                break
+            try:
+                blk = fut.result()
+            except BaseException as e:   # an encode thread's error
+                errors.append(e)
                 break
             q_out.put((blk, engine.align_block(blk)))
             total += len(blk)
             print(f"{total} reads finished. {timer.total():.1f} secs passed")
     finally:
+        done.set()
         q_out.put(None)
         t_wr.join()
-        while t_prod.is_alive():     # unblock a producer parked on q_in
+        while t_rd.is_alive():       # unblock a reader parked on q_in
             try:
                 q_in.get(timeout=0.1)
             except queue.Empty:
                 pass
-        t_prod.join()
+        t_rd.join()
+        pool.shutdown(wait=True, cancel_futures=True)
         stream.close()
     if errors:
         raise errors[0]

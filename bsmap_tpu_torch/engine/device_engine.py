@@ -64,6 +64,14 @@ class EngineUnsupported(RuntimeError):
     ported yet; there is no fallback to another engine."""
 
 
+def genome_fits(genome) -> bool:
+    """Whether the device engines hold ``genome``: per-strand uint32
+    coordinates (genomes up to ~4.2 Gb per strand) and fewer than 2^15
+    chromosomes."""
+    return (int(genome.anchors[-1]) < 2 ** 32 - (FIXSIZE + SEGLEN)
+            and genome.n_chr < 1 << 15)
+
+
 def rc_tuple_of(param) -> tuple:
     """Static 2-bit complement permutation + RC 'N' code for a Param."""
     rc = tuple(int(param.alphabet[REV_CHAR[ord(param.useful_nt[c])]])
@@ -400,9 +408,7 @@ class DeviceEngine:
         if param.profile is None:
             param.init_mapping()
         self.host = ReplayHost(genome, index, param)  # exact replay path
-        # per-strand uint32 coordinates (genomes up to ~4.2 Gb per strand)
-        if int(genome.anchors[-1]) >= 2 ** 32 - (FIXSIZE + SEGLEN) \
-                or genome.n_chr >= 1 << 15:
+        if not genome_fits(genome):
             raise EngineUnsupported("genome exceeds 32-bit per-strand "
                                     "coordinates")
         self.W = len(genome.refcat)

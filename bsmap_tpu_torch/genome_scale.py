@@ -4,7 +4,7 @@ synthetic hg38-class genome, on one card.
     python3 -m bsmap_tpu_torch.genome_scale                    # the card
     python3 -m bsmap_tpu_torch.genome_scale --device cpu --n-chr 2 \\
         --chr-len 1050000 --se-reads 3000 --pe-pairs 1500 --parity 500 \\
-        --sharded-reads 1000 --workers-reads 1000 -s 12   # the CPU twins
+        --sharded-reads 1000 --workers-reads 1000 --procs 2 -s 12  # twins
 
 The genome is ``tools/hg38_scale.py``'s: 13 chromosomes of 239,999,970
 uniform random bases from seed 38 (3.12 Gb; no repeats, no N runs), written
@@ -34,10 +34,17 @@ from the caches a step before left in ``--dir``):
   sharded  the index-sharded engine at D = 2 and 4 region shards on
            one device (the mesh list repeats it) over the first
            ``--sharded-reads`` SE reads; card memory and reads/s, output
-           byte-identical to the se step's
+           byte-identical to the se step's; K7 on the first window (round
+           1's shapes) against its twin, its card time and bound, and its
+           launches in the run
   workers  ``--nprocs 2`` over the first ``--workers-reads`` SE reads:
            each process's card and host memory, launch to merged file,
-           and from them how many workers one card and the host hold
+           and from them how many workers one card and the host hold;
+           those reads with trimming at ``-p --procs`` (one process on the
+           card) and as many pe pairs as BSP with -2 at ``-p --procs``
+           (the CLI's workers: each one's private and shared host memory
+           from /proc/<pid>/smaps, the cached genome and index it maps,
+           its card memory), each byte-identical to its -p 1 run
 
 Prints the card's name and power limit, then one JSON line with every
 number, each step's under its name with that card line beside it.  Runs
@@ -50,6 +57,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -66,6 +74,7 @@ N_CHR = 13                      # the hg38-class genome (--n-chr, --chr-len)
 CHR_LEN = 239_999_970
 HIGH = 1 << 31                  # the coordinate past which int32 wraps
 SE_FLAGS = ["-v", "2", "-S", "17"]
+SE_TRIM = ["-A", "AGATCGGAAGAGC", "-q", "2"]     # the workers step's trimming
 PE_FLAGS = ["-S", "17", "-v", "2", "-u"]
 STEPS = ("genome", "index", "tables", "se", "pe", "sharded", "workers")
 MIN_HIGH = 500                  # reads past 2^31 on each strand, at least
@@ -194,32 +203,105 @@ def card_line(device: str) -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-class RssPeak:
-    """The most resident host memory of each of ``pids`` (default this
-    process) while entered, and the most of it outside the file-backed
-    pages that processes share (the memory-mapped genome and index), GB:
-    /proc/<pid>/statm sampled every 0.25 s in a thread.  (ru_maxrss will
-    not do: a child keeps its forking parent's peak across the exec, and
-    it never falls back for a step.)"""
+def smaps(pid: int, under: str = "") -> dict | None:
+    """Resident host memory of process ``pid`` from /proc/<pid>/smaps, GB:
+    ``rss``, ``private`` (Private_Clean + Private_Dirty), ``shared``
+    (Shared_Clean + Shared_Dirty), ``anonymous``, and with ``under`` the
+    resident pages of files mapped from that directory (``mapped``) and
+    their names (``files``).  None once the process is gone."""
+    tot = dict.fromkeys(("Rss", "Private_Clean", "Private_Dirty",
+                         "Shared_Clean", "Shared_Dirty", "Anonymous"), 0)
+    mapped, files, name = 0, set(), ""
+    try:
+        with open(f"/proc/{pid}/smaps") as f:
+            for line in f:
+                key, _, rest = line.partition(":")
+                if key in tot:
+                    kb = int(rest.split()[0])
+                    tot[key] += kb
+                    if key == "Rss" and name:
+                        mapped += kb
+                elif " " in key:             # a mapping's header line
+                    path = (line.split(None, 5) + [""] * 6)[5].strip()
+                    name = path if under and path.startswith(under) else ""
+                    if name:
+                        files.add(os.path.basename(name))
+    except (OSError, ValueError, IndexError):
+        return None
+    return {"rss": tot["Rss"] / 1e6,
+            "private": (tot["Private_Clean"] + tot["Private_Dirty"]) / 1e6,
+            "shared": (tot["Shared_Clean"] + tot["Shared_Dirty"]) / 1e6,
+            "anonymous": tot["Anonymous"] / 1e6, "mapped": mapped / 1e6,
+            "files": sorted(files)}
 
-    def __init__(self, pids=None):
+
+def descendants(pids) -> list:
+    """Every live process below ``pids`` (from each /proc/<pid>/stat's
+    parent field)."""
+    parent = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parent[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                pass
+    out, todo = [], list(pids)
+    while todo:
+        pid = todo.pop()
+        kids = [c for c, pp in parent.items() if pp == pid]
+        out += kids
+        todo += kids
+    return out
+
+
+def host_used_gb() -> float:
+    """The host's memory in use: MemTotal - MemAvailable, GB."""
+    m = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":")
+            m[k] = int(v.split()[0])
+    return (m["MemTotal"] - m["MemAvailable"]) * 1024 / 1e9
+
+
+class RssPeak:
+    """Peak host memory while entered, from /proc/<pid>/smaps every 0.25 s
+    in a thread: per process of ``pids`` (default this process) and, with
+    ``tree``, of every process they start, the peak of each of ``smaps``'
+    numbers (``peak[pid]`` the resident total; pages of files mapped from
+    ``under`` counted apart), and the host's peak memory in use
+    (``host_used``).  (ru_maxrss will not do: a child keeps its forking
+    parent's peak across the exec, and it never falls back for a step;
+    statm's shared count reads 0 on some kernels.)"""
+
+    def __init__(self, pids=None, tree: bool = False, under: str = ""):
         self.pids = list(pids) if pids is not None else [os.getpid()]
-        self.peak: dict = {}
-        self.private: dict = {}
+        self.tree, self.under = tree, under
+        self.seen: dict = {}                 # pid -> {number: peak}
+        self.host_used = 0.0
         self.stop = threading.Event()
         self.thread = threading.Thread(target=self._run, daemon=True)
 
+    @property
+    def peak(self) -> dict:
+        return {pid: r["rss"] for pid, r in self.seen.items()}
+
+    @property
+    def private(self) -> dict:
+        return {pid: r["private"] for pid, r in self.seen.items()}
+
     def sample(self) -> None:
-        page = os.sysconf("SC_PAGE_SIZE")
-        for pid in self.pids:
-            try:
-                with open(f"/proc/{pid}/statm") as f:
-                    res, shared = (int(x) for x in f.read().split()[1:3])
-            except (OSError, ValueError):
+        self.host_used = max(self.host_used, host_used_gb())
+        pids = self.pids + (descendants(self.pids) if self.tree else [])
+        for pid in pids:
+            r = smaps(pid, self.under)
+            if r is None:
                 continue
-            self.peak[pid] = max(self.peak.get(pid, 0.0), res * page / 1e9)
-            self.private[pid] = max(self.private.get(pid, 0.0),
-                                    (res - shared) * page / 1e9)
+            old = self.seen.setdefault(pid, {"files": []})
+            for k, v in r.items():
+                old[k] = (sorted(set(old[k]) | set(v)) if k == "files"
+                          else max(old.get(k, 0.0), v))
 
     def _run(self) -> None:
         while not self.stop.wait(0.25):
@@ -281,9 +363,9 @@ class Scale:
         self.seed_flags = ["-s", str(a.seed_size)]
         os.makedirs(self.cache, exist_ok=True)
 
-    def argv(self, *args) -> list:
+    def argv(self, *args, procs: int = 1) -> list:
         return (list(args) + ["-d", self.gpath, "--index-cache", self.cache,
-                              "--device", self.dev, "-p", "1"]
+                              "--device", self.dev, "-p", str(procs)]
                 + self.seed_flags)
 
     def param(self, flags):
@@ -619,20 +701,24 @@ def step_sharded(s: Scale) -> dict:
     n = a.sharded_reads
     path = os.path.join(s.dir, f"se_{a.se_reads}.fq")
     want = records_before(os.path.join(s.dir, "se.sam"), n)
+    from .engine import kernels as K
     rec = {"reads": n}
     for D in SHARDS:
         out = os.path.join(s.dir, f"se_is{D}.sam")
         s.card_peak(reset=True)
         t0 = time.perf_counter()
+        K.reset_launch_counts()
         with RssPeak() as rp:
             st = s.cli(s.argv("-a", path, "-o", out, "--engine",
                               "index-sharded", "-E", str(n)) + SE_FLAGS,
                        mesh=[torch.device(s.dev)] * D)
+        launches = K.launch_counts()["merge_shards"]
         eng = st.pop("engine")
         r = {"run_s": time.perf_counter() - t0, "align_s": st["align_s"],
              "reads_per_s": st["reads"] / st["align_s"],
              "card_max_allocated": s.card_peak(), "peak_rss_gb": rp.gb(),
-             **engine_counts(eng)}
+             **engine_counts(eng),
+             "k7": {**k7_window(s, eng, path), "launches": launches}}
         del eng
         with open(out, "rb") as f:
             r["bytes"] = same_bytes(f"index-sharded D = {D} against the se "
@@ -641,10 +727,132 @@ def step_sharded(s: Scale) -> dict:
     return rec
 
 
+def k7_window(s: Scale, eng, path: str) -> dict:
+    """K7 ``merge_shards`` on the first window of ``path``'s reads at round
+    1's shapes (rank 0, the small tier; K1 and K3 on every shard before
+    it), as PERF.md section 6 times it: equal to its twin, the card's time
+    for a call (``queued_ms``), the wrapper's event time and the twin's,
+    and the bound (bytes over the memory rate: one sector of each row,
+    every shard's slot starts and totals, the output, 12 bytes a live
+    candidate)."""
+    import torch
+    from . import native
+    from .blockio import BlockReadStream
+    from .engine import kernels as K
+    stream = BlockReadStream(path, eng.param, readset=0, lib=native.get_lib())
+    blk = stream.next_block(eng.B)
+    stream.close()
+    nw, _live, rows_np, _b = eng.block_rows(blk)
+    c = eng._cfg("f", nw=nw)._replace(fixed=True)
+    cands = eng.CANDS
+    rows = torch.from_numpy(rows_np).to(eng.shard_tables[0]["kmer_tab"].device)
+    vcs, slots = [], []
+    for d, tabs in enumerate(eng.shard_tables):
+        slots.append(K.fixed_schedule(c, rows, tabs["kmer_tab"]))
+        vcs.append(K.verify_candidates(c, cands, rows, slots[-1], tabs,
+                                       None, d))
+    def kern():
+        return K.merge_shards(c, cands, rows, vcs, slots)
+
+    def plain():
+        return K.merge_shards_plain(c, cands, rows, vcs, slots)
+
+    if not torch.equal(kern(), plain()):
+        raise AssertionError("K7 differs from its twin on the first window")
+    live = sum(min(int(v.starts[-1]), cands) for v in vcs)
+    rec = {"reads": int(rows.shape[0]), "live_candidates": live,
+           "capacity_per_shard": cands, "max_abs_err": 0}
+    if s.dev == "cuda":
+        from . import measure as sm
+        rec.update(sm.bound("merge_shards", c, rec["reads"], live, cands),
+                   card_ms=sm.queued_ms(kern), event_ms=sm.cuda_ms(kern),
+                   plain_ms=sm.cuda_ms(plain))
+    return rec
+
+
+def watched(s: Scale, argv: list, tag: str) -> dict:
+    """The CLI on ``argv`` in a process of its own (``WORKER``), with
+    ``measure``'s LAUNCH_DUMP on its path: its seconds from launch to
+    exit, its own record (card memory, stats), the record of every worker
+    process it starts (launches, card memory), the host memory of it and
+    of every process below it (pages of the cache files apart), and
+    nvidia-smi's peak of processes and MiB on the card."""
+    import signal
+    from . import measure as sm
+    s.card_peak(reset=True)         # what this process keeps on the card
+    env = sm.launch_dump_env(os.path.join(s.dir, f"dump_{tag}"))
+    me = os.path.join(s.dir, f"{tag}.json")
+    err = os.path.join(s.dir, f"{tag}.err")
+    t0 = time.perf_counter()
+    with open(err, "wb") as f:
+        q = subprocess.Popen([sys.executable, "-c", WORKER, me] + argv,
+                             cwd=REPO, env=env, stdout=subprocess.DEVNULL,
+                             stderr=f, start_new_session=True)
+    try:
+        with RssPeak([q.pid], tree=True, under=s.cache) as host, \
+                sm.CardMemory(s.dev == "cuda") as card:
+            q.wait()
+    finally:
+        if q.poll() is None:
+            os.killpg(q.pid, signal.SIGKILL)
+            q.wait()
+    with open(err, "rb") as f:
+        stderr = f.read().decode("latin1")
+    if q.returncode:
+        raise RuntimeError(f"{tag}: the CLI exited {q.returncode}:\n"
+                           + stderr[-4000:])
+    with open(me) as f:
+        top = json.load(f)
+    return {"wall_s": time.perf_counter() - t0, "top": top, "host": host,
+            "workers": sm.launch_dumps(os.path.join(s.dir, f"dump_{tag}")),
+            "card": dict(card.peak), "pid": q.pid, "stderr": stderr}
+
+
+def worker_memory(s: Scale, w: dict, ctx: dict) -> list:
+    """Each worker process's card memory (the caching allocator's peak
+    reserve, and that plus a CUDA context) and host memory (peak resident,
+    private and shared pages, anonymous pages, pages of the cache files
+    and which files it maps) from ``watched``'s record."""
+    out = []
+    for r in sorted(w["workers"], key=lambda r: int(
+            r["argv"][r["argv"].index("--proc-id") + 1])):
+        h = w["host"].seen.get(r["pid"], {})
+        rec = {"proc_id": int(r["argv"][r["argv"].index("--proc-id") + 1]),
+               **{f"{k}_gb": h.get(k) for k in (
+                   "rss", "private", "shared", "anonymous", "mapped")},
+               "mapped_files": h.get("files", []),
+               "launches": {k: v for k, v in r["launches"].items() if v}}
+        if s.dev == "cuda":
+            rec.update(max_allocated=r["max_allocated"],
+                       max_reserved=r["max_reserved"],
+                       card_bytes=r["max_reserved"] + ctx["context_bytes"])
+        out.append(rec)
+    return out
+
+
 def step_workers(s: Scale, ctx: dict) -> dict:
-    """``--nprocs 2`` over the first SE reads, each process on the device;
-    each one's card and host memory, launch to merged file, and the
-    workers one card and this host hold at that footprint."""
+    """Three multi-process runs, each byte-identical to its one-process
+    run: ``--nprocs 2`` over the first ``--workers-reads`` SE reads (each
+    process's card and host memory, launch to merged file, and the
+    workers one card and this host hold at that footprint); those reads
+    with trimming (-A, -q 2) at ``-p --procs``, which the CLI runs as one
+    process on the card; and as many of the pe step's pairs as pair-end
+    BSP with -2 at ``-p --procs``, the CLI's own worker processes (each
+    one's private and shared host memory, its pages of the memory-mapped
+    genome and index, its card memory, and the host's peak in use)."""
+    s.card_peak(reset=True)         # what this process keeps on the card
+    gc.collect()
+    rec = nprocs_two(s, ctx)
+    print(f"# workers nprocs2: {json.dumps(rec)}", file=sys.stderr,
+          flush=True)
+    for name, run in (("pe_bsp", pe_bsp_procs), ("se_trim", se_trim_procs)):
+        rec[name] = run(s, ctx)
+        print(f"# workers {name}: {json.dumps(rec[name])}", file=sys.stderr,
+              flush=True)
+    return rec
+
+
+def nprocs_two(s: Scale, ctx: dict) -> dict:
     a = s.a
     n, k = a.workers_reads, 2
     path = os.path.join(s.dir, f"se_{a.se_reads}.fq")
@@ -660,7 +868,7 @@ def step_workers(s: Scale, ctx: dict) -> dict:
         cwd=REPO, env=env, stdout=subprocess.DEVNULL)
         for i in reversed(range(k))]
     try:
-        with RssPeak([q.pid for q in procs]) as host:
+        with RssPeak([q.pid for q in procs], under=s.cache) as host:
             for q in procs:
                 q.wait()
     finally:
@@ -678,8 +886,11 @@ def step_workers(s: Scale, ctx: dict) -> dict:
     recs = []
     for p, q in zip(dumps, reversed(procs)):
         with open(p) as f:
-            recs.append({**json.load(f), "peak_rss_gb": host.gb(q.pid),
-                         "peak_private_gb": host.private.get(q.pid)})
+            h = host.seen.get(q.pid, {})
+            recs.append({**json.load(f), "peak_rss_gb": h.get("rss"),
+                         "peak_private_gb": h.get("private"),
+                         "peak_shared_gb": h.get("shared"),
+                         "mapped_gb": h.get("mapped")})
     rec = {"reads": n, "processes": k, "launch_to_merged_s": wall,
            "bytes": nbytes, "per_process": recs,
            "host_ram_gb": host_ram_gb()}
@@ -695,6 +906,111 @@ def step_workers(s: Scale, ctx: dict) -> dict:
         rec["card_workers"] = int(ctx["card_bytes"] // per)
         rec["p8_fits_card"] = 8 * per <= ctx["card_bytes"]
     rec["p8_fits_host"] = rec["host_workers"] >= 8
+    return rec
+
+
+def se_trim_procs(s: Scale, ctx: dict) -> dict:
+    """The first ``--workers-reads`` SE reads with trimming at ``-p
+    --procs`` (the CLI's default engine and rule): on the card one process
+    with no worker below it and one process's card memory, under ``--device
+    cpu`` the CLI's workers; byte-identical to the same run at -p 1."""
+    a = s.a
+    n, k = a.workers_reads, a.procs
+    path = os.path.join(s.dir, f"se_{a.se_reads}.fq")
+    flags = SE_FLAGS + SE_TRIM + ["-E", str(n)]
+    out = os.path.join(s.dir, "se_trim_p.sam")
+    w = watched(s, s.argv("-a", path, "-o", out, procs=k) + flags,
+                "se_trim")
+    one = os.path.join(s.dir, "se_trim_p1.sam")
+    st = s.cli(s.argv("-a", path, "-o", one) + flags)
+    with open(out, "rb") as f, open(one, "rb") as g:
+        nbytes = same_bytes(f"SE trimming -p {k} against -p 1", f.read(),
+                            g.read())
+    procs = 1 + len(w["workers"])
+    rec = {"reads": n, "procs": k, "processes": procs,
+           "launch_to_exit_s": w["wall_s"], "bytes": nbytes,
+           "one_process_align_s": st["align_s"],
+           "one_process_reads_per_s": st["reads"] / st["align_s"],
+           "host_peak_rss_gb": w["host"].seen[w["pid"]]["rss"],
+           "nvidia_smi_peak": w["card"]}
+    if s.dev == "cuda":
+        rec.update(max_allocated=w["top"]["max_allocated"],
+                   max_reserved=w["top"]["max_reserved"],
+                   card_bytes=w["top"]["max_reserved"]
+                   + ctx["context_bytes"])
+        if procs != 1:
+            raise AssertionError(f"SE trimming -p {k} on the card started "
+                                 f"{procs - 1} workers")
+    elif procs != 1 + k:
+        raise AssertionError(f"SE trimming -p {k} on the CPU ran {procs} "
+                             "processes")
+    return rec
+
+
+def pe_bsp_procs(s: Scale, ctx: dict) -> dict:
+    """The first ``--workers-reads`` of the pe step's pairs as pair-end BSP
+    with -2 at ``-p --procs``, the CLI's own workers (the per-pair path):
+    each worker's host and card memory, the cache files each maps, the
+    host's peak in use; both files byte-identical to the one-process
+    run's."""
+    a = s.a
+    n, k = a.workers_reads, a.procs
+    r1 = os.path.join(s.dir, f"pe_{a.pe_pairs}_1.fq")
+    chrs = (None if os.path.exists(r1 + ".ok")
+            else chr_arrays(s.gpath, a.n_chr, a.chr_len))
+    r1, r2 = pe_reads(s, chrs, a.pe_pairs)
+    del chrs
+    flags = PE_FLAGS + ["-E", str(n)]
+    out, up = (os.path.join(s.dir, f"pe_bsp_p{x}.bsp") for x in ("", "_u"))
+    base = host_used_gb()
+    w = watched(s, s.argv("-a", r1, "-b", r2, "-o", out, "-2", up, procs=k)
+                + flags, "pe_bsp")
+    one, one_up = (os.path.join(s.dir, f"pe_bsp_p1{x}.bsp")
+                   for x in ("", "_u"))
+    t0 = time.perf_counter()
+    st = s.cli(s.argv("-a", r1, "-b", r2, "-o", one, "-2", one_up) + flags)
+    one_s = time.perf_counter() - t0
+    nbytes = 0
+    for got, want in ((out, one), (up, one_up)):
+        with open(got, "rb") as f, open(want, "rb") as g:
+            nbytes += same_bytes(f"PE BSP -p {k} against -p 1 "
+                                 f"({os.path.basename(got)})", f.read(),
+                                 g.read())
+    per = worker_memory(s, w, ctx)
+    # the CLI's cap names the count it starts on a stderr line (at one,
+    # the run stays in its own process)
+    cap = re.search(r"-p \d+: (?:(\d+) worker processes|this process "
+                    r"alone), .*", w["stderr"])
+    want = int(cap.group(1) or 0) if cap else k
+    if len(per) != want:
+        raise AssertionError(f"PE BSP -p {k}: {len(per)} worker records; "
+                             f"{cap.group(0) if cap else 'no cap'}")
+    for r in per:
+        kinds = {f.split("_", 1)[0] for f in r["mapped_files"]}
+        if not {"gen", "idx"} <= kinds:
+            raise AssertionError(f"PE BSP worker {r['proc_id']} maps "
+                                 f"{r['mapped_files']}: not the cached "
+                                 "genome and index")
+    top = w["host"].seen.get(w["pid"], {})
+    rec = {"pairs": n, "procs": k, "workers": len(per),
+           "cap": cap.group(0) if cap else None,
+           "cli_rss_gb": top.get("rss"), "cli_mapped_gb": top.get("mapped"),
+           "cli_mapped_files": top.get("files"),
+           "launch_to_merged_s": w["wall_s"], "bytes": nbytes,
+           "one_process_s": one_s,
+           "one_process_pairs_per_s": st["pairs"] / st["align_s"],
+           "per_worker": per, "host_ram_gb": host_ram_gb(),
+           "host_used_before_gb": base,
+           "host_used_peak_gb": w["host"].host_used,
+           "private_sum_gb": sum(r["private_gb"] or 0 for r in per),
+           "anonymous_sum_gb": sum(r["anonymous_gb"] or 0 for r in per),
+           "nvidia_smi_peak": w["card"]}
+    if rec["host_used_peak_gb"] > rec["host_ram_gb"]:
+        raise AssertionError("PE BSP workers held more than the host")
+    if s.dev == "cuda":
+        rec["card_sum_bytes"] = sum(r["card_bytes"] for r in per)
+        if rec["card_sum_bytes"] > ctx["card_bytes"]:
+            raise AssertionError("PE BSP workers hold more than the card")
     return rec
 
 
@@ -715,6 +1031,9 @@ def parse(argv) -> argparse.Namespace:
     ap.add_argument("--no-methratio", action="store_true")
     ap.add_argument("--sharded-reads", type=int, default=100_000)
     ap.add_argument("--workers-reads", type=int, default=200_000)
+    ap.add_argument("--procs", type=int, default=8,
+                    help="-p of the workers step's SE trimming and PE BSP "
+                    "runs")
     a = ap.parse_args(argv)
     a.steps = [x for x in a.steps.split(",") if x]
     bad = set(a.steps) - set(STEPS)

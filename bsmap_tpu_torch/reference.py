@@ -305,16 +305,26 @@ def load_genome_npz(path: str, mmap: bool = True) -> PackedGenome:
         ccgg_sites=None, ccgg_index=None)
 
 
+def genome_cache_path(fasta_path: str, param: Param,
+                      cache_dir: str) -> str | None:
+    """Where ``load_genome_cached`` keeps the packed genome of
+    ``fasta_path`` in ``cache_dir`` (made if missing); None under RRBS,
+    whose runs rebuild their digestion tables from FASTA."""
+    if param.RRBS_flag:
+        return None
+    os.makedirs(cache_dir, exist_ok=True)
+    return os.path.join(cache_dir,
+                        f"gen_{genome_cache_key(fasta_path, param)}.npz")
+
+
 def load_genome_cached(fasta_path: str, param: Param,
                        cache_dir: str, log=print) -> PackedGenome:
     """load_genome through an on-disk packed cache (the reference re-packs
     the FASTA on every run, main.cpp:457-464; at human scale that is
     minutes of wall per process)."""
-    if param.RRBS_flag:
+    path = genome_cache_path(fasta_path, param, cache_dir)
+    if path is None:
         return load_genome(fasta_path, param)
-    os.makedirs(cache_dir, exist_ok=True)
-    path = os.path.join(cache_dir,
-                        f"gen_{genome_cache_key(fasta_path, param)}.npz")
     if os.path.exists(path):
         try:
             return load_genome_npz(path)

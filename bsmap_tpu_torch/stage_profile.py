@@ -6,6 +6,7 @@
                                              [--chains]
                                              [--engine index-sharded
                                               [--shards D]]
+    python3 -m bsmap_tpu_torch.stage_profile [--rrbs] --launch N1,N2,...
 
 Generates the headline data (2 x 5 Mb genome, fully converted 100 nt reads,
 tools/genreads.generate), with --repeat the chr21-class data (46.7 Mb, 8%
@@ -23,8 +24,10 @@ round-robin over the visible cards, and then once more on the
 single-device engine in the same process, for the comparison; the JSON
 line then holds both, each with K7's share of the kernel time.
 
-  parse    native parse + filter (trimming under --rrbs) + encode of every
-           block (one thread)
+  parse    native parse of every block (``BlockReadStream.next_block``,
+           one thread: the CLI's reader thread)
+  encode   native filter (trimming under --rrbs) + encode of every block
+           (``encode_block``, one thread; the CLI runs it on -p threads)
   align    SE: DeviceEngine.align_block + finish (rounds 1 and 2,
            collection, host replays); PE: PairDeviceEngine.align_block_pair
            + collect (phase 1, phase 2, J rows, replay flags); with the
@@ -34,7 +37,17 @@ line then holds both, each with K7's share of the kernel time.
   format   native SAM formatting (ZP/ZL tags under --rrbs) + file write of
            the aligned blocks (PE: emit_block, which also runs the exact
            host replays)
-  pipeline the whole CLI (cli.run: the three stages overlapped in threads)
+  pipeline the whole CLI (cli.run: the stages overlapped in threads) at
+           -p 1, and for SE again at -p 8 (eight encode threads)
+
+With --launch it times, in place of the stages, whole CLI runs from
+launch to the finished file, each a process of its own, at -p 8 with
+trimming (-A AGATCGGAAGAGC -q 2; the headline reads with -v 2 -S 17, or
+--rrbs): as one process with eight encode threads (BSMAP_TPU_LOCAL_MP=0)
+and as eight worker processes over read ranges (``cli._wants_local_mp``
+forced true), on the first N1, N2, ... reads of one generated file (the
+largest first, in the order workers, one, one, workers; each other
+count workers, one).  Both ways must write the same bytes.
 
 Prints one JSON object as the last line, after the card's name and power
 limit.  Exits non-zero without a CUDA device.
@@ -96,10 +109,13 @@ def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
     stream = BlockReadStream(rpath, p, readset=0, lib=native.get_lib())
     blocks = []
     while (blk := stream.next_block(8 * eng.B)) is not None:
-        eng.encode_block(blk)
         blocks.append(blk)
     stream.close()
     t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for blk in blocks:
+        eng.encode_block(blk)
+    t_encode = time.perf_counter() - t0
 
     def align_all():
         out = []
@@ -117,7 +133,7 @@ def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
             for blk, al in aligned:
                 f.write(eng.format_aligned_block(blk, al, fmt))
 
-    return flags, eng, eng, t_parse, align_all, fmt_all
+    return flags, eng, eng, (t_parse, t_encode), align_all, fmt_all
 
 
 def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
@@ -143,12 +159,14 @@ def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
     sb = BlockReadStream(r2, p, readset=2, lib=lib)
     blocks = []
     while (ba := sa.next_block(PE_BLOCK_WINDOWS * eng.se.B)) is not None:
-        bb = sb.next_block(len(ba))
-        eng.encode_block_pair(ba, bb)
-        blocks.append((ba, bb))
+        blocks.append((ba, sb.next_block(len(ba))))
     sa.close()
     sb.close()
     t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for ba, bb in blocks:
+        eng.encode_block_pair(ba, bb)
+    t_encode = time.perf_counter() - t0
 
     def align_all():
         out = [eng.align_block_pair(ba, bb)() for ba, bb in blocks]
@@ -162,16 +180,17 @@ def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
             for al in aligned:
                 f.write(eng.emit_block(fmt, al))
 
-    return flags, eng, eng.se, t_parse, align_all, fmt_all
+    return flags, eng, eng.se, (t_parse, t_encode), align_all, fmt_all
 
 
 def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
     """Time the stages of one engine (``stages`` = _se_stages' or
-    _pe_stages' result) and one whole CLI run of the same flags (on
-    ``mesh``'s index-sharded engine when given); returns the JSON fields."""
+    _pe_stages' result) and whole CLI runs of the same flags at -p 1 and,
+    single-end, -p 8 (on ``mesh``'s index-sharded engine when given);
+    returns the JSON fields."""
     import torch
     from . import cli
-    flags, eng, se, t_parse, align_all, fmt_all = stages
+    flags, eng, se, (t_parse, t_encode), align_all, fmt_all = stages
     timer_keys = ("t_h2d", "t_call", "t_collect", "t_enqueue")
 
     align_all()                                  # warm-up pass
@@ -203,17 +222,23 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
     del eng, se, aligned, align_all, fmt_all, stages
     torch.cuda.empty_cache()
 
-    # one process (-p 1): the pipeline whose stages are timed above, not
-    # the -p workers the CLI starts by default on RRBS
-    st: dict = {}
+    # -p 1: the stages as timed above, one encode thread; single-end
+    # again at -p 8, the default: one process, eight encode threads
     extra = [] if mesh is None else ["--engine", "index-sharded"]
-    rc = cli.run(flags + ["-o", os.path.join(root, "run.sam"), "--device",
-                          "cuda", "-p", "1"] + extra, stats=st, mesh=mesh)
-    if rc != 0:
-        raise RuntimeError(f"cli.run returned {rc}")
+    pipe = {}
+    for n_p in ((1,) if unit == "pairs" else (1, 8)):
+        st: dict = {}
+        rc = cli.run(flags + ["-o", os.path.join(root, "run.sam"),
+                              "--device", "cuda", "-p", str(n_p)] + extra,
+                     stats=st, mesh=mesh)
+        if rc != 0:
+            raise RuntimeError(f"cli.run returned {rc}")
+        pipe[n_p] = st
+    st = pipe[1]
     k7 = sum(v for k, v in kms.items() if "merge_shards" in k)
     return {
-        "parse_s": t_parse, "align_s": t_align, "format_s": t_fmt,
+        "parse_s": t_parse, "encode_s": t_encode, "align_s": t_align,
+        "format_s": t_fmt,
         "align_timers_s": timers, "engine_counts": counts,
         "profiled_align_s": t_prof, "kernel_ms_total": k_total,
         "device_idle_share": 1.0 - k_total / 1000.0 / t_prof,
@@ -221,8 +246,75 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
         "k7_ms": k7, "k7_share": k7 / k_total if k_total else 0.0,
         "pipeline_align_s": st["align_s"],
         f"pipeline_{unit}_per_s": st[unit] / st["align_s"],
+        **({f"pipeline_p8_{unit}_per_s": pipe[8][unit] / pipe[8]["align_s"]}
+           if 8 in pipe else {}),
         "engine": st["engine_name"],
     }
+
+
+TRIM_FLAGS = ["-A", "AGATCGGAAGAGC", "-q", "2"]
+# a CLI process that starts -p workers wherever the run allows them
+WORKERS = ("import sys; from bsmap_tpu_torch import cli; "
+           "cli._wants_local_mp = lambda o, genome: True; "
+           "sys.exit(cli.run(sys.argv[1:]))")
+
+
+def _head_fastq(src: str, dst: str, n: int) -> None:
+    """The first ``n`` records of FASTQ ``src`` into ``dst``."""
+    import itertools
+    with open(src, "rb") as fi, open(dst, "wb") as fo:
+        fo.writelines(itertools.islice(fi, 4 * n))
+
+
+def _launch(root: str, gpath: str, rpath: str, flags: list[str],
+            sizes: list[int], procs: int = 8,
+            device: str = "cuda") -> list[dict]:
+    """Launch-to-file seconds of the CLI at ``-p procs`` as one process
+    and as ``procs`` workers (module docstring), one row a run; raises
+    when the two ways' outputs differ."""
+    import hashlib
+    rows = []
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for i, n in enumerate(sorted(sizes, reverse=True)):
+        path = os.path.join(root, f"head_{n}.fq")
+        _head_fastq(rpath, path, n)
+        digests = set()
+        for mode in (("workers", "one", "one", "workers") if i == 0
+                     else ("workers", "one")):
+            out = os.path.join(root, "launch.sam")
+            cmd = ([sys.executable, "-m", "bsmap_tpu_torch.cli"]
+                   if mode == "one" else [sys.executable, "-c", WORKERS])
+            cmd += ["-a", path, "-d", gpath, "-o", out, "-p", str(procs),
+                    "--device", device] + flags
+            run_env = dict(env)
+            if mode == "one":
+                run_env["BSMAP_TPU_LOCAL_MP"] = "0"
+            else:
+                run_env.pop("BSMAP_TPU_LOCAL_MP", None)
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, env=run_env, cwd=root, text=True,
+                               stdout=subprocess.DEVNULL,
+                               stderr=subprocess.PIPE)
+            dt = time.perf_counter() - t0
+            if r.returncode:
+                raise RuntimeError(f"{mode} at {n} reads: rc "
+                                   f"{r.returncode}\n{r.stderr[-2000:]}")
+            h = hashlib.sha1()
+            with open(out, "rb") as f:
+                while chunk := f.read(1 << 24):
+                    h.update(chunk)
+            size = os.path.getsize(out)
+            os.remove(out)
+            digests.add(h.hexdigest())
+            rows.append({"reads": n, "mode": mode, "s": dt,
+                         "reads_per_s": n / dt, "out_bytes": size,
+                         "stderr": [ln for ln in r.stderr.splitlines()
+                                    if ln.startswith(("-p ", "engine:"))]})
+            print(json.dumps(rows[-1]), flush=True)
+        if len(digests) != 1:
+            raise RuntimeError(f"{n} reads: the outputs differ")
+        os.remove(path)
+    return rows
 
 
 def main() -> int:
@@ -247,6 +339,10 @@ def main() -> int:
     ap.add_argument("--shards", type=int, default=4,
                     help="region shards of --engine index-sharded, round "
                     "robin over the visible cards (default 4)")
+    ap.add_argument("--launch", default=None,
+                    help="comma-separated read counts: launch-to-file "
+                    "times at -p 8 with trimming, one process against "
+                    "workers (module docstring)")
     args = ap.parse_args()
     sharded = args.engine == "index-sharded"
     if sharded and (args.pe or args.rrbs):
@@ -257,13 +353,23 @@ def main() -> int:
                                 generate_rrbs)
     from .engine import _build
 
-    n = args.reads or (200_000 if args.pe or args.rrbs else 1_000_000)
+    sizes = [int(x) for x in args.launch.split(",")] if args.launch else []
+    if sizes and (args.pe or args.repeat or args.chains or sharded):
+        ap.error("--launch runs the headline or --rrbs reads on one card")
+    n = max(sizes) if sizes else args.reads or (
+        200_000 if args.pe or args.rrbs else 1_000_000)
     unit = "pairs" if args.pe else "reads"
     _build.lib()
     root = tempfile.mkdtemp(prefix="bsmap_prof_")
     try:
         n1 = ["-n", "1"] if args.chains else []
-        if args.pe:
+        if sizes:
+            gpath, rpath = (generate_rrbs if args.rrbs else generate)(
+                root, n_reads=n)
+            res = {"launch": _launch(
+                root, gpath, rpath, RRBS_FLAGS if args.rrbs
+                else SE_FLAGS + TRIM_FLAGS, sizes)}
+        elif args.pe:
             gpath, r1, r2 = generate_pe(root, n_pairs=n)
             if args.chains:
                 r1, r2 = swap_mates(r1, r2, os.path.join(root, "sw_1.fq"),
@@ -299,7 +405,8 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
 
     res = {"data": ("pe_76nt" if args.pe else "rrbs_mspi_trim" if args.rrbs
-                    else "chr21_class" if args.repeat else "headline")
+                    else "chr21_class" if args.repeat else "headline"
+                    + (" with -A/-q trimming" if sizes else ""))
            + (", -n 1 non-directional" if args.chains else ""), unit: n,
            **res}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

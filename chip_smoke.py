@@ -147,15 +147,19 @@ Phases (each raises on failure; any failure exits non-zero):
      and on phase 9's SAM, the two processes at once, outputs identical;
      ``bsp2sam`` on the card's BSP of the first 5,000 headline reads equal
      to ``bsp2sam`` on the host engine's;
- 27. multi-process runs on the one card, each byte-identical to its
+ 27. -p and --nprocs on the one card, each byte-identical to its
      one-process run: --nprocs 2 on the headline reads (phase 4) and on
      the pairs (phase 9), process 0 in this process through ``cli.run``
-     and process 1 a process of its own; -p 2 on the RRBS reads (phase
-     14: the CLI's own two workers).  Every worker process reports its
-     kernel launches and its peak of allocated card memory at exit
-     (``LAUNCH_DUMP``, a sitecustomize on its path); ``nvidia-smi
+     and process 1 a process of its own; -p 8 on the RRBS reads (phase
+     14's output), which the CLI runs as one process with eight encode
+     threads (exactly one process reports: K2-K4, never K1), its rate
+     beside phase 14's at -p 1; and -p 2 on the first 20,000 pairs as
+     pair-end BSP with -2 (the per-pair path: the CLI's own two workers,
+     both files against a one-process run here).  Every process reports
+     its kernel launches and its peak of allocated card memory at exit
+     (``measure.LAUNCH_DUMP``, a sitecustomize on its path); ``nvidia-smi
      --query-compute-apps`` is sampled while they run; each run's rate
-     from launch to the merged file beside the one-process rate.  Every
+     from launch to the (merged) file beside the one-process rate.  Every
      process has a time limit and is killed with its workers past it.
  28. human-genome scale (``bsmap_tpu_torch.genome_scale``): the 3.12 Gb
      hg38-class genome (13 x 239,999,970 uniform random bases, seed 38)
@@ -178,9 +182,10 @@ Phases (each raises on failure; any failure exits non-zero):
      memory, reads/s, idle share, probe passes, replays and the phase's
      seconds.  A genome or table that cannot be placed fails the run.
 
-The CLI's default -p 8 would start worker processes on the per-read paths
-(RRBS, trimming, pair-end BSP or -R); every phase but 27 runs in this
-process (``BSMAP_TPU_LOCAL_MP=0``).
+The CLI's default -p 8 starts worker processes on the pair-end per-pair
+path (BSP, -R, trimming); every phase but 27 runs in this process
+(``BSMAP_TPU_LOCAL_MP=0``), single-end runs with the default -p 8 encode
+threads but phase 14 (-p 1).
 
 The kernels' launch counters are zeroed right before each run of a main
 path and read right after it: phase 4 to 5 (the single-end path: K1-K4
@@ -191,8 +196,9 @@ each GPU run of its set (K2-K5, never K1), phase 21's runs (K2, K3, K7,
 never K4), phase 22 (K1-K4, never K7), each run of phase 23 (K2, K3,
 K5, K6 and, index-sharded, K7 in place of K4), phase 25's .bam runs (the
 SE and PE paths) and its -a in.bam run (K3, K4), every process of
-phase 27 (what phase 4 launched, K2-K6, the RRBS path), counted in the
-worker processes themselves, and phase 28's two runs (K1-K4, K2-K6).
+phase 27 (what phase 4 launched, K2-K6, the RRBS path) and its
+one-process pair-end BSP run (K2-K6), counted in the processes
+themselves, and phase 28's two runs (K1-K4, K2-K6).
 Every kernel's JSON row has its launches summed over those runs, its
 error against the twin, its time and the twin's at the single-end
 headline window (the pair-end one for K5 and K6), and its bound there: the bytes it must move over the card's memory
@@ -222,11 +228,14 @@ import os
 import random
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
+
+from bsmap_tpu_torch.measure import (CardMemory, bound, cuda_ms,
+                                     launch_dump_env, launch_dumps,
+                                     queued_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 N_HEADLINE = 1_000_000
@@ -277,6 +286,7 @@ PREP_TIMEOUT = 1100              # seconds: phase 28's genome and index build
 INDEX_SHARDED_PATH = ("exact_schedule", "verify_candidates", "merge_shards")
 RRBS_ADAPTER = "AGATCGGAAGAGC"
 N_NPROCS = 2                     # phase 27's processes on the one card
+N_PE_BSP = 20_000                # phase 27's pair-end BSP pairs (-E)
 PROC_TIMEOUT = 900               # seconds: phases 25-27's other processes
 # per-kernel extras of the JSON line: the launch form or group width in use
 # and the other one's time, K3's parts by kernel name, the library scan
@@ -288,8 +298,6 @@ FORM_KEYS = ("device_ms", "parts_ms", "variant", "variant_ms",
              "card_by_valid_hits_ms", "scan_cumsum_ms",
              "fixed_cands_per_read", "exact_cands_per_read", "exact_ms",
              "exact_plain_ms", "exact_device_ms", "exact_bound_ms")
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM memory rate (NVIDIA data sheet)
-OPS_PER_S = 67e12                # its non-tensor (float32) peak, for int32 ops
 _COMP = bytes.maketrans(b"ACGTN", b"TGCAN")
 
 
@@ -1000,78 +1008,6 @@ def live_combos(cfg, rows_a, rows_b) -> int:
     return int((na * nb).sum())
 
 
-def _sector_bytes(first, width: int) -> int:
-    """The bytes of the distinct 32-byte sectors that spans of ``width``
-    bytes (at most 32) at the byte offsets ``first`` touch."""
-    import numpy as np
-    return 32 * len(np.union1d(first // 32, (first + width - 1) // 32))
-
-
-def bound(name: str, cfg, m: int, ncand: int = 0, cands: int = 0,
-          live: int = 0) -> dict:
-    """The least time the card could take for one call of kernel ``name``
-    on this window (m reads or pairs; ncand live candidates of a capacity
-    of cands; for K6 ``live`` = the sum over pairs of valid hits of mate 1
-    times valid hits of mate 2): the bytes it must move (each input read
-    once, each output written once, a random 16-byte or smaller gather as
-    one 32-byte sector) over the memory rate, or an estimate of its int32
-    lane operations over the non-tensor peak, whichever is larger."""
-    row = 4 * (2 * cfg.nw + 4)
-    nch, NB, MS, S = cfg.nch, cfg.NB, cfg.maxseg, cfg.S
-    seed_ops = 6 * S + 20                       # one base-3 seed value
-    full_w = 4 * (2 * MS + 17 + 2 * cfg.hits_k)
-    out_w = 12 if cfg.lean else full_w
-    if name == "fixed_schedule":
-        nbytes = m * (nch * row + 32 * NB + 20 * NB + 8 + 4 * MS)
-        ops = 2 * m * NB * seed_ops
-    elif name == "exact_schedule":
-        # cost gathers: every schedule position (the slot rows are among
-        # them), or under RRBS one probe per segment plus the slots'
-        # tag_off pairs
-        gathers = nch * MS + NB if cfg.rrbs else nch * cfg.P
-        nbytes = m * (nch * row + 32 * gathers + 20 * NB + 8 + 4 * MS)
-        ops = m * ((gathers + NB) * seed_ops
-                   + (0 if cfg.rrbs else 4 * nch * MS * S * MS))
-    elif name == "verify_candidates":
-        nbytes = (m * (nch * row + 20 * NB) + 4 * (m * NB + 1)
-                  + 64 * ncand + 16 * cands)
-        ops = 10 * m * NB + ncand * (12 * cfg.nw + 130)
-    elif name == "reduce_reads":
-        # the sectors that the reads' row scalars (len, budget, hash, rank:
-        # 16 bytes, across a sector boundary in some rows), their slot
-        # starts (word b * NB) and their totals (word b * MS + MS - 1,
-        # 4 * MS bytes apart) fall in; soff/coff for full rows, the output,
-        # and three words (chrp, wloc, info) per candidate
-        import numpy as np
-        b = np.arange(m, dtype=np.int64)
-        nbytes = (_sector_bytes(b * row + 8 * cfg.nw, 16)
-                  + _sector_bytes(4 * NB * np.arange(m + 1), 4)
-                  + _sector_bytes(4 * (b * MS + MS - 1), 4)
-                  + m * ((0 if cfg.lean else 8) + out_w) + 12 * ncand)
-        ops = 45 * ncand + 10 * m * MS
-    elif name == "rc_words":
-        nbytes = 2 * m * row
-        ops = 80 * m * cfg.nw
-    elif name == "merge_shards":
-        # one sector of the row (len, budget, hash, rank), every shard's
-        # NB + 1 slot starts and ftot of a read, soff/coff, the output, and
-        # three words (chrp, wloc, info) per candidate
-        D = cfg.shards
-        nbytes = (m * (32 + 4 * D * (NB + 1) + 4 * D + 8 + full_w)
-                  + 12 * ncand)
-        ops = 45 * ncand + 10 * m * NB * D
-    else:                                       # pair_join
-        # per mate the 2K hit words, six extras and three dispatch words
-        # (len, budget, hash), the 11-word output; 40 operations per live
-        # combo, 12 per step of the two K-step loops of each of 2K hits
-        K = cfg.hits_k
-        nbytes = m * (2 * 4 * (2 * K + 6 + 3) + 44)
-        ops = 40 * live + 12 * m * 2 * K * K
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
-    return {"bound_ms": 1e3 * max(t_b, t_o),
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
-
-
 _PHASE_S: dict = {}
 _LAST_LOG = [time.time()]
 
@@ -1094,22 +1030,6 @@ def card_line() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median CUDA-event time of fn() in ms, after one warm-up call."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def run_cli(argv: list[str], mesh=None) -> dict:
@@ -1150,36 +1070,6 @@ def timed_pair(name: str, kern, plain, what: str) -> dict:
     log(f"    {name}: kernel {k1:.3f}/{k2:.3f} ms, plain {p1:.3f}/{p2:.3f} "
         f"ms ({what})")
     return {"ms": min(k1, k2), "plain_ms": min(p1, p2)}
-
-
-def queued_ms(fn, reps: int = 20, holds=(40.0, 120.0, 360.0)):
-    """The card's own time for one call of ``fn``, ms: ``reps`` calls are
-    enqueued behind a spin kernel that holds the stream for a while, so
-    the host has enqueued them all before the first one starts and the
-    CUDA-event interval around them holds no wait for the host (which the
-    event time of a single call does when the host is the slower side).
-    A try in which the host needed longer than 0.8 of the hold (a stalled
-    host) is repeated with a longer hold; None when every try was."""
-    import torch
-    fn()
-    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 1_755_000)
-    for hold_ms in holds:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        torch.cuda._sleep(int(hold_ms * khz))
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        host_ms = 1e3 * (time.perf_counter() - t0)
-        torch.cuda.synchronize()
-        if host_ms <= 0.8 * hold_ms:
-            return a.elapsed_time(b) / reps
-        log(f"    queued_ms: the host took {host_ms:.1f} ms to enqueue {reps} "
-            f"calls behind a {hold_ms:.0f} ms hold")
-    return None
 
 
 def _ms(t) -> str:
@@ -2407,65 +2297,6 @@ def phase_mesh_pe(root: str, dev: str = "cuda") -> dict:
     return total
 
 
-# a sitecustomize module that makes every Python process started with it
-# on its path write, at exit, its kernel launch counts (a fresh process
-# starts with every count at 0) and the caching allocator's peak card
-# memory: phase 27's worker processes report their launches through it
-LAUNCH_DUMP = '''import atexit, json, os, sys
-
-
-def _bsmap_launch_dump():
-    k = sys.modules.get("bsmap_tpu_torch.engine.kernels")
-    if k is None:
-        return
-    rec = {"pid": os.getpid(), "argv": sys.argv[1:],
-           "launches": k.launch_counts()}
-    torch = sys.modules.get("torch")
-    if torch is not None and torch.cuda.is_initialized():
-        rec["max_allocated"] = torch.cuda.max_memory_allocated()
-        rec["max_reserved"] = torch.cuda.max_memory_reserved()
-    with open(os.path.join(%r, "launches.%%d.json" %% os.getpid()), "w") as f:
-        json.dump(rec, f)
-
-
-atexit.register(_bsmap_launch_dump)
-'''
-
-
-def launch_dump_env(d: str) -> dict:
-    """The environment of phase 27's processes: ``d`` (holding the
-    ``LAUNCH_DUMP`` sitecustomize, which runs an existing one after it) and
-    the repository ahead of the path, and -p's workers on."""
-    import importlib.util
-    os.makedirs(d, exist_ok=True)
-    src = LAUNCH_DUMP % d
-    spec = importlib.util.find_spec("sitecustomize")
-    if spec is not None and spec.origin and os.path.exists(spec.origin):
-        src += (f"\nexec(compile(open({spec.origin!r}).read(), "
-                f"{spec.origin!r}, 'exec'))\n")
-    with open(os.path.join(d, "sitecustomize.py"), "w") as f:
-        f.write(src)
-    path = [d, REPO] + [x for x in os.environ.get("PYTHONPATH", "").split(
-        os.pathsep) if x]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(path))
-    env.pop("BSMAP_TPU_LOCAL_MP", None)
-    return env
-
-
-def launch_dumps(d: str) -> list:
-    """The records the processes of ``launch_dump_env(d)`` wrote (removed
-    once read), those of worker processes (``--proc-id``) only."""
-    recs = []
-    for name in sorted(os.listdir(d)):
-        if name.startswith("launches."):
-            with open(os.path.join(d, name)) as f:
-                rec = json.load(f)
-            os.remove(os.path.join(d, name))
-            if "--proc-id" in rec["argv"]:
-                recs.append(rec)
-    return recs
-
-
 def spawn(cmd: list, env: dict, log_path: str) -> subprocess.Popen:
     """``cmd`` in a session of its own (so a kill reaches the workers it
     starts), stdout and stderr to ``log_path``."""
@@ -2500,40 +2331,6 @@ def finish(procs: list, timeout: float = PROC_TIMEOUT) -> list:
                     os.killpg(q.pid, signal.SIGKILL)
                 q.wait()
     return took
-
-
-class CardMemory:
-    """Samples ``nvidia-smi --query-compute-apps=pid,used_memory`` every
-    0.5 s in a thread while it is entered; ``peak`` is the most processes
-    listed at once and the most MiB they held together (a sandbox may list
-    every process under one pid, so the processes are not told apart)."""
-
-    def __init__(self, on: bool = True):
-        import threading
-        self.on, self.peak, self.stop = on, {}, threading.Event()
-        self.thread = threading.Thread(target=self._sample, daemon=True)
-
-    def _sample(self) -> None:
-        while not self.stop.wait(0.5):
-            r = subprocess.run(["nvidia-smi",
-                                "--query-compute-apps=pid,used_memory",
-                                "--format=csv,noheader,nounits"],
-                               capture_output=True, text=True, timeout=60)
-            mib = [int(x) for ln in r.stdout.splitlines()
-                   for x in ln.split(",")[1:] if x.strip().isdigit()]
-            self.peak["processes"] = max(self.peak.get("processes", 0),
-                                         len(mib))
-            self.peak["MiB"] = max(self.peak.get("MiB", 0), sum(mib))
-
-    def __enter__(self):
-        if self.on:
-            self.thread.start()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.stop.set()
-        if self.on:
-            self.thread.join()
 
 
 def sorted_digest(lines) -> tuple:
@@ -2688,19 +2485,34 @@ def _proc_id(rec: dict) -> str:
     return rec["argv"][rec["argv"].index("--proc-id") + 1]
 
 
+# the CLI in a process of its own that writes its alignment phase's stats
+# to the JSON file named by its first argument: phase 27's one-process run
+CLI_STATS = """import json, sys
+from bsmap_tpu_torch import cli
+st = {}
+rc = cli.run(sys.argv[2:], stats=st)
+with open(sys.argv[1], "w") as f:
+    json.dump({k: st[k] for k in ("reads", "pairs", "align_s") if k in st}, f)
+sys.exit(rc)
+"""
+
+
 def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
     """Phase 27: multi-process runs on the one card.  For each of
-    ``runs`` (tag -> (argv without -o, the file of its one-process run,
-    the kernels each process must launch, those the processes together
-    must launch, those none may, its reads or pairs, the one-process
-    run's rate)):
-    ``--nprocs 2`` with process 0 in this process through ``cli.run``
-    (launches zeroed before it and read after) and process 1 a process of
-    its own, or ``-p 2`` (argv holds it) with the CLI's own two workers;
-    each worker's launches and card memory from ``LAUNCH_DUMP``, the
-    card's per-process memory from ``CardMemory``; the merged output
-    byte-identical to the one-process run's.  Returns (per-run numbers,
-    the launch counts of every process)."""
+    ``runs`` (tag -> (how, argv without -o, the files of its one-process
+    run, the kernels each process must launch, those the processes
+    together must launch, those none may, its reads or pairs, the
+    one-process run's rate)), by ``how``:
+    ``nprocs``: ``--nprocs 2`` with process 0 in this process through
+    ``cli.run`` (launches zeroed before it and read after) and process 1 a
+    process of its own; ``workers``: -p 2 in argv, the CLI's own two
+    worker processes; ``one``: -p in argv where the CLI keeps one process
+    (single-end on the card): exactly one process reports, no worker, and
+    its alignment phase's rate.  Each process's launches and card memory
+    come from ``LAUNCH_DUMP``, the card's per-process memory from
+    ``CardMemory``; the (merged) output, and a -2 file where the run
+    writes one, byte-identical to the one-process run's.  Returns
+    (per-run numbers, the launch counts of every process)."""
     import torch
     from bsmap_tpu_torch.engine import kernels as K
     d = os.path.join(root, "mp")
@@ -2708,66 +2520,89 @@ def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
     env = launch_dump_env(dump)
     cli = [sys.executable, "-m", "bsmap_tpu_torch.cli"]
     res, counts = {}, []
-    for tag, (argv, want, need, need_all, never, n, one_rate) in \
+    for tag, (how, argv, want, need, need_all, never, n, one_rate) in \
             runs.items():
-        out = os.path.join(d, f"{tag}.sam")
-        local = "-p" in argv
+        suffix = want[0].rsplit(".", 1)[1]
+        outs = [os.path.join(d, f"{tag}{x}.{suffix}")
+                for x in ("", "_u")[: len(want)]]
+        oargv = ["-o", outs[0]] + (["-2", outs[1]] if len(outs) > 1 else [])
         if dev == "cuda":
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+        stats_path = os.path.join(d, f"{tag}.stats.json")
         t0 = time.time()
         with CardMemory(dev == "cuda") as mem:
-            if local:          # the CLI starts and merges its workers
-                procs = [spawn(cli + argv + ["-o", out, "--device", dev],
-                               env, out + ".log")]
+            if how == "one":     # one CLI process, its stats to a file
+                procs = [spawn([sys.executable, "-c", CLI_STATS, stats_path]
+                               + argv + oargv + ["--device", dev], env,
+                               outs[0] + ".log")]
+            elif how == "workers":   # the CLI starts and merges them
+                procs = [spawn(cli + argv + oargv + ["--device", dev], env,
+                               outs[0] + ".log")]
             else:              # processes 1.. here, process 0 in-process
-                procs = [spawn(cli + argv + ["-o", out, "--device", dev,
-                                             "--nprocs", str(N_NPROCS),
-                                             "--proc-id", str(k)],
-                               env, out + f".{k}.log")
-                         for k in range(1, N_NPROCS)]
+                procs = [spawn(cli + argv + oargv + [
+                    "--device", dev, "--nprocs", str(N_NPROCS), "--proc-id",
+                    str(k)], env, outs[0] + f".{k}.log")
+                    for k in range(1, N_NPROCS)]
             try:
-                if not local:
+                if how == "nprocs":
                     K.reset_launch_counts()
-                    st = run_cli(argv + ["-o", out, "--device", dev,
-                                         "--nprocs", str(N_NPROCS),
-                                         "--proc-id", "0"])
+                    st = run_cli(argv + oargv + ["--device", dev, "--nprocs",
+                                                 str(N_NPROCS), "--proc-id",
+                                                 "0"])
                     c0 = K.launch_counts()
             finally:
                 finish(procs)
         wall = time.time() - t0
-        recs = launch_dumps(dump)
-        if len(recs) != (N_NPROCS if local else N_NPROCS - 1):
-            raise AssertionError(f"[27] {tag}: {len(recs)} worker records")
-        per_proc = ([] if local else [("0", c0)]) + [
-            (_proc_id(r), r["launches"]) for r in recs]
+        recs = launch_dumps(dump, workers=False)
+        workers = [r for r in recs if "--proc-id" in r["argv"]]
+        want_n = {"one": 0, "workers": N_NPROCS,
+                  "nprocs": N_NPROCS - 1}[how]
+        if len(workers) != want_n or (how == "one" and len(recs) != 1):
+            raise AssertionError(f"[27] {tag}: {len(workers)} worker "
+                                 f"records of {len(recs)}")
+        if how == "one":
+            per_proc = [("the one", recs[0]["launches"])]
+        else:
+            per_proc = ([("0", c0)] if how == "nprocs" else []) + [
+                (_proc_id(r), r["launches"]) for r in workers]
         for k, c in per_proc:
             need_launches(f"[27] {tag}, process {k}", c, need, never)
             counts.append(c)
         need_launches(f"[27] {tag}, the processes together",
                       {k: sum(c[k] for _, c in per_proc) for k in need_all},
                       need_all)
-        size = assert_same_file(f"[27] {tag} vs its one-process run", out,
-                                want)
+        size = sum(assert_same_file(f"[27] {tag} vs its one-process run",
+                                    got, w) for got, w in zip(outs, want))
         mib = {}
         if dev == "cuda":
-            if not local:
+            if how == "nprocs":
                 mib["0"] = torch.cuda.max_memory_allocated() / 2**20
-            mib.update((_proc_id(r), r["max_allocated"] / 2**20)
-                       for r in recs)
-        res[tag] = {"wall_s": wall, "per_s_wall": n / wall,
+            mib.update(((_proc_id(r) if r in workers else "the one"),
+                        r["max_allocated"] / 2**20) for r in recs
+                       if "max_allocated" in r)
+        res[tag] = {"how": how, "wall_s": wall, "per_s_wall": n / wall,
                     "one_process_per_s": one_rate, "alloc_mib": mib,
                     "smi_mib": dict(mem.peak)}
-        if not local:
+        if how == "nprocs":
             res[tag]["proc0_per_s"] = st.get("reads", st.get("pairs")) \
                 / st["align_s"]
-        log(f"[27] {tag}: {'-p' if local else '--nprocs'} {N_NPROCS} on "
-            f"{dev}, {n} in {wall:.1f} s from launch to the merged file "
+        if how == "one":
+            with open(stats_path) as f:
+                one = json.load(f)
+            res[tag]["align_per_s"] = one["reads"] / one["align_s"]
+        what = (f"-p {argv[argv.index('-p') + 1]}, one process"
+                if how == "one" else f"-p {N_NPROCS}, the CLI's workers"
+                if how == "workers" else f"--nprocs {N_NPROCS}")
+        log(f"[27] {tag}: {what} on {dev}, {n} in {wall:.1f} s from launch "
+            f"to the {'file' if how == 'one' else 'merged file'} "
             f"({n / wall:.1f}/s; one process, alignment phase: "
             f"{one_rate:.1f}/s)"
-            + ("" if local else ", process 0's range aligned at "
+            + ("" if how != "nprocs" else ", process 0's range aligned at "
                f"{res[tag]['proc0_per_s']:.1f}/s")
+            + ("" if how != "one" else ", its own alignment phase at "
+               f"{res[tag]['align_per_s']:.1f}/s")
             + f"; peak allocated MiB by process {mib or 'not on a card'} "
             "(process 0 here: with what this process still holds); "
             f"nvidia-smi, all processes on the card {mem.peak or 'not read'}; "
@@ -3066,10 +2901,12 @@ def main() -> int:
     prep = start_genome_scale_prep(root)
     # every index below is built once and memory-mapped by each later run
     os.environ["BSMAP_TPU_INDEX_CACHE"] = os.path.join(root, "cache")
-    # the CLI's default -p 8 starts worker processes on the per-read paths
-    # (RRBS, trimming, pair-end BSP or -R); the phases below run each path
-    # in this process, where its launches are counted, and phase 27 runs
-    # the workers
+    # the CLI's default -p 8 starts worker processes on the pair-end
+    # per-pair path (BSP, -R, trimming); single-end runs on the card stay
+    # one process with -p encode threads.  The phases below run every path
+    # in this process, where its launches are counted; phase 27 takes the
+    # CLI's own rule: RRBS at -p 8 as one process, pair-end BSP at -p 2
+    # with two workers
     os.environ["BSMAP_TPU_LOCAL_MP"] = "0"
     main_runs = []                  # launch counts of every main-path run
 
@@ -3121,9 +2958,10 @@ def main() -> int:
             root, generate_rrbs, "rrbs", flags=RRBS_FLAGS, phase="12")
         rres = phase_rrbs_kernels(orr, genome, index, rr)
         del genome, index
+        # -p 1: one encode thread, the rate phase 27's -p 8 is held beside
         rrbs, c14 = counted(phase_align, "14", gr, rr,
                             os.path.join(root, "rrbs.sam"), N_RRBS, 0.9,
-                            flags=RRBS_FLAGS)
+                            flags=RRBS_FLAGS + ["-p", "1"])
         need_launches("[14] RRBS run", c14, RRBS_PATH, ("fixed_schedule",))
         phase_parity("rrbs", gr, rr, os.path.join(root, "rrbs"),
                      flags=RRBS_FLAGS, phase="15")
@@ -3207,18 +3045,30 @@ def main() -> int:
         bam, c25 = phase_bam(root, g1, r1, gp, p1, p2, se_need)
         main_runs.extend(c25)
         meth = phase_methratio(root, g1, r1, gp)
+        # pair-end BSP with -2 (the per-pair path) in one process: the
+        # bytes phase 27's -p 2 workers must merge to
+        bsp = ["-a", p1, "-b", p2, "-d", gp] + PE_FLAGS + ["-E",
+                                                           str(N_PE_BSP)]
+        bsp_one = [os.path.join(root, f"pe_bsp{x}.bsp") for x in ("", "_u")]
+        st_bsp, c_bsp = counted(run_cli, bsp + [
+            "-o", bsp_one[0], "-2", bsp_one[1], "--device", "cuda", "-p",
+            "1"])
+        need_launches("[27] pair-end BSP, one process", c_bsp, PE_PATH)
         mp, c27 = phase_multiprocess(root, {
-            "headline": (["-a", r1, "-d", g1] + ALIGN_FLAGS,
-                         os.path.join(root, "head.sam"),
+            "headline": ("nprocs", ["-a", r1, "-d", g1] + ALIGN_FLAGS,
+                         [os.path.join(root, "head.sam")],
                          tuple(k for k in se_need if k != "exact_schedule"),
                          se_need, (), N_HEADLINE, head["reads_per_s"]),
-            "rrbs_mspi_trim": (["-a", rr, "-d", gr, "-p", str(N_NPROCS)]
-                               + RRBS_FLAGS, os.path.join(root, "rrbs.sam"),
+            "rrbs_mspi_trim": ("one", ["-a", rr, "-d", gr, "-p", "8"]
+                               + RRBS_FLAGS, [os.path.join(root, "rrbs.sam")],
                                RRBS_PATH, RRBS_PATH, ("fixed_schedule",),
                                N_RRBS, rrbs["reads_per_s"]),
-            "pe_76nt": (["-a", p1, "-b", p2, "-d", gp] + PE_FLAGS,
-                        os.path.join(root, "pe.sam"), PE_PATH, PE_PATH, (),
-                        N_PAIRS, pe["pairs_per_s"])})
+            "pe_76nt": ("nprocs", ["-a", p1, "-b", p2, "-d", gp] + PE_FLAGS,
+                        [os.path.join(root, "pe.sam")], PE_PATH, PE_PATH, (),
+                        N_PAIRS, pe["pairs_per_s"]),
+            "pe_76nt_bsp": ("workers", bsp + ["-p", str(N_NPROCS)], bsp_one,
+                            PE_PATH, PE_PATH, (), N_PE_BSP,
+                            st_bsp["pairs"] / st_bsp["align_s"])})
         main_runs.extend(c27)
         scale = phase_genome_scale(root, main_runs, prep)
     finally:
@@ -3242,9 +3092,10 @@ def main() -> int:
         f"{k} aligned at {v['per_s']:.1f}/s, SAM -> BAM {v['bam_s']:.3f} s"
         for k, v in bam.items()) + f"; methratio on {N_PAIRS} pairs: BAM "
         f"{meth['methratio_bam_s']:.1f} s, SAM {meth['methratio_sam_s']:.1f} "
-        "s; two processes (launch to merged file) / one (alignment phase): "
-        + ", ".join(f"{k} {v['per_s_wall']:.1f} / "
-                    f"{v['one_process_per_s']:.1f}" for k, v in mp.items()))
+        "s; [27] launch to the (merged) file / one process's alignment "
+        "phase: " + ", ".join(f"{k} ({v['how']}) {v['per_s_wall']:.1f} / "
+                              f"{v['one_process_per_s']:.1f}"
+                              for k, v in mp.items()))
     log("[summary] seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in _PHASE_S.items()}))
     results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1, sres24,

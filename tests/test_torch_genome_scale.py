@@ -24,7 +24,8 @@ from .test_torch_sharded import jax_layout
 
 SMALL = ["--device", "cpu", "--n-chr", "2", "--chr-len", "1050000",
          "--se-reads", "3000", "--pe-pairs", "1500", "--parity", "600",
-         "--sharded-reads", "1000", "--workers-reads", "1000", "-s", "12"]
+         "--sharded-reads", "1000", "--workers-reads", "1000", "--procs",
+         "2", "-s", "12"]
 
 
 def test_gen_genome_matches_hg38_scale(tmp_path, monkeypatch):
@@ -104,9 +105,18 @@ def test_genome_scale_steps_end_to_end_on_the_cpu(tmp_path):
     assert "valid mappings" in pe["methratio"]["summary"]
     for D in (2, 4):
         assert out["sharded"][f"D{D}"]["bytes"] > 0
+        k7 = out["sharded"][f"D{D}"]["k7"]
+        assert k7["max_abs_err"] == 0 and k7["live_candidates"] > 0
     wk = out["workers"]
     assert wk["bytes"] == out["sharded"]["D2"]["bytes"]
     assert len(wk["per_process"]) == 2 and wk["host_workers"] >= 1
+    # --procs 2 on the CPU: trimming starts the CLI's two workers there
+    assert wk["se_trim"]["processes"] == 3 and wk["se_trim"]["bytes"] > 0
+    pb = wk["pe_bsp"]
+    assert pb["workers"] == 2 and pb["bytes"] > 0
+    for r in pb["per_worker"]:
+        assert any(f.startswith("gen_") for f in r["mapped_files"])
+        assert any(f.startswith("idx_") for f in r["mapped_files"])
     for name in gs.STEPS:
         assert out[name]["card"] == "cpu" and out[name]["step_s"] >= 0
     # a second run takes the genome and index from the caches

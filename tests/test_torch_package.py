@@ -24,10 +24,12 @@ COPIED = ["params.py", "encoding.py", "utils.py", "readio.py", "blockio.py",
           "engine/pair_host.py", "bamio.py", "output/bam.py",
           "methratio.py", "bsp2sam.py", "parallel/distributed.py"]
 PORT = REPO / "bsmap_tpu_torch"
-# declared differences of copied modules: (file, top-level function)
-DIFFERS = {"index.py": "_mmap_npz",   # numpy 2.3+ header API
-           "native/__init__.py": "_build",   # a build file per process
-           "parallel/distributed.py": "initialize"}   # torch.distributed
+# declared differences of copied modules: (file, top-level functions)
+DIFFERS = {"index.py": ("_mmap_npz",),   # numpy 2.3+ header API
+           "native/__init__.py": ("_build",),   # a build file per process
+           "parallel/distributed.py": ("initialize",),   # torch.distributed
+           # the cache's file name, shared with cli.run's -p workers
+           "reference.py": ("genome_cache_path", "load_genome_cached")}
 
 
 def test_port_imports_without_jax():
@@ -44,7 +46,7 @@ def test_port_imports_without_jax():
             "bsmap_tpu_torch.bamio", "bsmap_tpu_torch.methratio",
             "bsmap_tpu_torch.bsp2sam",
             "bsmap_tpu_torch.parallel.distributed",
-            "bsmap_tpu_torch.genome_scale"]
+            "bsmap_tpu_torch.genome_scale", "bsmap_tpu_torch.measure"]
     code = ("import sys; sys.modules['jax'] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -55,12 +57,20 @@ def test_port_imports_without_jax():
     assert r.returncode == 0, r.stderr
 
 
-def _without_function(src: bytes, name: str) -> bytes:
-    """``src`` with the source lines of top-level function ``name`` cut."""
-    fn = next(n for n in ast.parse(src).body
-              if isinstance(n, ast.FunctionDef) and n.name == name)
+def _without_function(src: bytes, name: str,
+                      missing_ok: bool = False) -> bytes:
+    """``src`` with the source lines of top-level function ``name`` and
+    the blank lines after it cut (``src`` itself where it has none and
+    ``missing_ok``)."""
+    fn = next((n for n in ast.parse(src).body
+               if isinstance(n, ast.FunctionDef) and n.name == name), None)
+    if fn is None and missing_ok:
+        return src
     lines = src.splitlines(keepends=True)
-    return b"".join(lines[: fn.lineno - 1] + lines[fn.end_lineno:])
+    end = fn.end_lineno
+    while end < len(lines) and not lines[end].strip():
+        end += 1
+    return b"".join(lines[: fn.lineno - 1] + lines[end:])
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -72,8 +82,9 @@ def test_host_module_is_identical_copy(rel):
     ref = (REPO / "bsmap_tpu" / rel).read_bytes()
     if rel in DIFFERS:
         assert port != ref
-        port = _without_function(port, DIFFERS[rel])
-        ref = _without_function(ref, DIFFERS[rel])
+        for name in DIFFERS[rel]:
+            port = _without_function(port, name)
+            ref = _without_function(ref, name, missing_ok=True)
     assert port == ref
 
 
@@ -776,3 +787,35 @@ def test_cuda_bam_and_nprocs_on_one_card(tmp_path):
                 q.wait()
     assert (tmp_path / "two.sam").read_bytes() == \
         (tmp_path / "host.sam").read_bytes()
+
+
+@pytest.mark.gpu
+def test_cuda_p8_rrbs_trim_is_one_process(tmp_path, monkeypatch):
+    """On a CUDA device: -p 8 on single-end RRBS with trimming runs as one
+    process (no child process is started) with eight encode threads,
+    launches K2-K4 and never K1, and writes the bytes of -p 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run: python3 chip_smoke.py, or "
+                    "pytest -m gpu on the GPU machine)")
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+    from bsmap_tpu_torch import cli
+    from bsmap_tpu_torch.engine import kernels as K
+    chip_smoke.make_rrbs_set(tmp_path, n_reads=20000)
+    base = ["-a", str(tmp_path / "se.fq"), "-d", str(tmp_path / "rrbs.fa"),
+            "-D", "C-CGG", "-A", "AGATCGGAAGAGC", "-q", "2", "-S", "1", "-u"]
+    assert cli.run(base + ["-o", str(tmp_path / "p1.sam"), "-p", "1"]) == 0
+    monkeypatch.delenv("BSMAP_TPU_LOCAL_MP", raising=False)
+
+    def no_child(*a, **kw):
+        raise AssertionError(f"-p 8 started a process: {a}")
+
+    monkeypatch.setattr(subprocess, "Popen", no_child)
+    K.reset_launch_counts()
+    assert cli.run(base + ["-o", str(tmp_path / "p8.sam"), "-p", "8"]) == 0
+    counts = K.launch_counts()
+    assert all(counts[k] for k in ("exact_schedule", "verify_candidates",
+                                   "reduce_reads")), counts
+    assert counts["fixed_schedule"] == 0, counts
+    assert (tmp_path / "p8.sam").read_bytes() == \
+        (tmp_path / "p1.sam").read_bytes()
