@@ -1438,16 +1438,22 @@ def align_program(cfg, cands: int, tables, rows) -> torch.Tensor:
     return reduce_reads(cfg, cands, rows, vc, slots)
 
 
-def pair_program(cfg_a, cfg_b, cands: int, tables, rows_a,
-                 rows_b) -> torch.Tensor:
+def pair_program(cfg_a, cfg_b, cands: int, tables, rows_a, rows_b,
+                 counts: bool = False) -> torch.Tensor:
     """The port of ``_pair_fused_kernel`` (pair_device.py:258): both mates'
     programs (mate 2 on the rc chain, both mates on both chains under -n 1;
     ``cfg.pe`` with ``hits_k`` hits, full rows), then K6 on their rows;
-    returns the (n, 11) J_* rows.  All
-    launches go to the current stream with no host sync between them."""
+    returns the (n, 11) J_* rows.  With ``counts`` (BSP output, whose lines
+    print each mate's per-level hit histogram) each mate's 2*maxseg count
+    columns follow, mate 1's then mate 2's.  All launches go to the current
+    stream with no host sync between them."""
     full = [align_program(cfg, cands, tables, rows)
             for cfg, rows in ((cfg_a, rows_a), (cfg_b, rows_b))]
-    return pair_join(cfg_a, full[0], full[1], rows_a, rows_b)
+    j = pair_join(cfg_a, full[0], full[1], rows_a, rows_b)
+    if not counts:
+        return j
+    w = 2 * cfg_a.maxseg
+    return torch.cat([j, full[0][:, :w], full[1][:, :w]], dim=1)
 
 
 def index_sharded_program(cfg, cands: int, shard_tables: list,

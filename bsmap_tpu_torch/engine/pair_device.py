@@ -13,22 +13,27 @@ segment, no early exit, no -r 0 abort) and ``hits_k`` compacted hits per
 read; mate 2 runs on the reverse-complement chain.  The pairing is a K x K
 join.
 
-  * Block path (SAM without trimming or -R): ``kernels.pair_program`` runs
-    both mates and the join on the device (K5, K2, K3, K4, K6) and only the
-    (n, 11) J_* rows come back.  Phase 1 enumerates rank 0 for every pair
-    and commits the pairs with i* == 0 (the reference stops at step 0 with
-    exactly the rank-0 hits); phase 2 re-dispatches the rest at full rank,
-    bin-packed by the per-pair candidate totals of phase 1.
-  * Per-pair path (BSP with -2, -R, trimming, and every run over the mesh
-    engines of ``parallel``): two SE dispatches per window (K5, K2, K3, K4,
-    or the SE engine's own program) whose full rows come back to the host
-    for the Python formatter, then K6 on those rows.
+  * Block path (the single-device engine on FASTA/FASTQ: SAM or BSP with
+    -2, -R, trimming): native FilterReads and encode, then
+    ``kernels.pair_program`` runs both mates and the join on the device
+    (K5, K2, K3, K4, K6) and only the (n, 11) J_* rows come back, with
+    each mate's per-level counts under BSP.  Phase 1 enumerates rank 0 for
+    every pair and commits the pairs with i* == 0 (the reference stops at
+    step 0 with exactly the rank-0 hits); phase 2 re-dispatches the rest
+    at full rank, bin-packed by the per-pair candidate totals of phase 1.
+    One native formatter call writes every pair of a block.
+  * Per-pair path (the mesh engines of ``parallel``, SAM/BAM input): two
+    SE dispatches per window (K5, K2, K3, K4, or the SE engine's own
+    program) whose full rows come back to the host for the Python
+    formatter, then K6 on those rows.
 
 Sequential corners replay the PAIR on the exact host engine
 (PairHostEngine) with the per-mate MateState kept bit-exact: per-mate
 bucket-cap tightening and more than K hits (the K4 replay bit), a pairhits
-bucket reaching max_num_hits, stale seed-schedule reads, -S 0 draws, and
-pairs with a filtered mate.
+bucket reaching max_num_hits, stale seed-schedule reads and -S 0 draws
+(``n_replayed``).  A pair with a filtered mate runs there too: its
+surviving mate aligns single-end (pairs.cpp:206-212) with the reads as
+the one FilterReads pass left them (``n_mate_filtered``).
 """
 
 from __future__ import annotations
@@ -43,10 +48,10 @@ from ..params import FIXELEMENT, MAXSNPS, Param, REG_ALPHABET, REV_CHAR
 from ..readio import Read
 from ..reference import PackedGenome
 from ..trim import filter_read
-from ..utils import myrand_hash
+from ..utils import myrand, myrand_hash
 from . import kernels
 from .device_engine import (DeviceEngine, EngineUnsupported, _pack_inputs,
-                            pack_spans)
+                            filter_block, pack_spans)
 from .host_engine import SEResult
 from .kernels import (JN_COLS, N_EXTRAS, X_COFF, X_FTOT, X_OK, X_REPLAY,
                       X_SOFF)
@@ -62,6 +67,10 @@ PAIR_HITS_K = 16
 # J_CHRS: a_chr | b_chr<<16
 # J_MATE_*: found | sch<<1 | ii<<2 (4b) | min(ssum,1023)<<6 | chrp<<16
 # J_FLAGS: replay_a | replay_b<<1 | ok_both<<2 | cap_join<<3
+# the native pair formatter's row (native/pe_format.cpp P_*): the 22
+# columns of _prow_from_jrows (the pair's 10, then each mate's 6 from
+# P_FND_A and P_FND_B), then each mate's FilterReads verdict
+P_FND_A, P_FND_B, P_FLT_A, P_FLT_B, P_NCOL = 10, 16, 22, 23, 24
 
 
 class _SelList:
@@ -117,6 +126,15 @@ class PairSEView:
         return self._chits
 
 
+def pair_block_runtime() -> bool:
+    """Whether the pair-end block path's host code loads: the native
+    runtime and the pair formatter (``native/pe_format.py``, compiled at
+    first use; a failed build says so on stderr)."""
+    from .. import native
+    from ..native import pe_format
+    return native.get_lib() is not None and pe_format.get_lib() is not None
+
+
 class PairDeviceEngine:
     """Batch PE aligner: one ``pair_program`` per window on the block path
     (the single-device engine), two SE dispatches + K6 per window on the
@@ -140,6 +158,13 @@ class PairDeviceEngine:
         self.K = PAIR_HITS_K
         self.MS = self.se._maxseg
         self.n_replayed = 0
+        self.n_mate_filtered = 0      # pairs with a filtered mate
+        # block path: seconds in the replays, the filtered-mate pairs and
+        # the MateState syncs between them (emit_block)
+        self.t_host = 0.0
+        # the persistent context buffers of each mate's SingleAlign (the
+        # reference's _mapseq, align.h:132) for the native formatter
+        self._mapseq = (np.zeros(256, np.uint8), np.zeros(256, np.uint8))
 
     def _chains(self) -> tuple[str, str]:
         """Each mate's chains: both under -n 1, else forward for mate 1
@@ -152,16 +177,13 @@ class PairDeviceEngine:
             max_ins=self.param.max_insert)
 
     def supports_pair_blocks(self) -> bool:
-        """SAM PE output without trimming/-R on the single-device engine
-        runs on the native block path; everything else, the mesh engines
-        (which override ``_dispatch``) included, uses the per-pair path,
+        """Every output of this engine (SAM or BSP, -R, trimming) runs on
+        the native block path on the single-device engine, when the native
+        runtime and the pair formatter load (``pair_block_runtime``); the
+        mesh engines (which override ``_dispatch``) use the per-pair path,
         each mate dispatching through the SE engine."""
-        from .. import native
-        p = self.param
-        return (native.get_lib() is not None and not p.adapters
-                and p.qual_threshold == 0 and p.out_sam >= 1
-                and not p.out_ref
-                and type(self.se)._dispatch is DeviceEngine._dispatch)
+        return (type(self.se)._dispatch is DeviceEngine._dispatch
+                and pair_block_runtime())
 
     # -- dispatch core ---------------------------------------------------------
 
@@ -247,34 +269,41 @@ class PairDeviceEngine:
             jrows[redo] = join(redo)
         return rows_a, rows_b, jrows
 
-    def _dispatch_pair(self, cfg_a, cfg_b, rows_a, rows_b, cap: int):
+    def _dispatch_pair(self, cfg_a, cfg_b, rows_a, rows_b, cap: int,
+                       counts: bool = False):
         """Enqueue ``pair_program`` on two (m <= B, 2nw+4) windows; returns
-        the device (m, 11) J_* rows."""
+        the device (m, 11) J_* rows, with both mates' (m, 2*maxseg) count
+        columns after them under ``counts``."""
         se = self.se
         t0 = _time.time()
         da = torch.from_numpy(rows_a).to(se.device)
         db = torch.from_numpy(rows_b).to(se.device)
         se.t_h2d += _time.time() - t0
         t0 = _time.time()
-        out = kernels.pair_program(cfg_a, cfg_b, cap, se.tables, da, db)
+        out = kernels.pair_program(cfg_a, cfg_b, cap, se.tables, da, db,
+                                   counts=counts)
         se.t_call += _time.time() - t0
         se.n_dispatched += 1
         return out
 
-    def _align_join_fused(self, rows_in_a, rows_in_b, cfg_a, cfg_b):
+    def _align_join_fused(self, rows_in_a, rows_in_b, cfg_a, cfg_b,
+                          counts: bool = False):
         """Two-phase dispatch of ``pair_program``: phase 1 at rank 0
         (enqueued here; commits every i*==0 pair), phase 2 full-rank
-        bin-packed for the rest.  Returns finish() -> (n, 11) J_* rows."""
+        bin-packed for the rest.  Returns finish() -> (n, 11) J_* rows,
+        under ``counts`` followed by each mate's per-level counts from the
+        phase that decided the pair (phase 1's for an i* == 0 commit)."""
         se = self.se
         MS = self.MS
         n = rows_in_a.shape[0]
-        jrows = np.zeros((n, JN_COLS), dtype=np.int32)
+        jrows = np.zeros((n, JN_COLS + (4 * MS if counts else 0)),
+                         dtype=np.int32)
 
         def dispatch(sel, cap, rank):
             ranks = np.full(n, rank, dtype=np.int32)
             return sel, self._dispatch_pair(
                 cfg_a, cfg_b, se._window_rows(rows_in_a, sel, ranks),
-                se._window_rows(rows_in_b, sel, ranks), cap)
+                se._window_rows(rows_in_b, sel, ranks), cap, counts)
 
         t0 = _time.time()
         pend1 = [dispatch(np.arange(i, min(i + se.B, n), dtype=np.int64),
@@ -464,6 +493,7 @@ class PairDeviceEngine:
                 # filtered-mate pair: the surviving mate's run_align may
                 # read schedule state -> sync the preceding device span
                 cursor = sync_to(cursor, next_live)
+                self.n_mate_filtered += 1
             results[i] = self._host_pair(batch_a[i], batch_b[i], filt_a[i],
                                          filt_b[i], int(buds_a0[i]),
                                          int(buds_b0[i]))
@@ -511,49 +541,61 @@ class PairDeviceEngine:
     # -- native block path ----------------------------------------------------
 
     def encode_block_pair(self, blk_a, blk_b):
-        """Native name-fix + encode for one block pair; runs in the
-        parse-ahead thread (native calls release the GIL).  Caches
-        (nw, rows_a, rows_b) on blk_a."""
+        """Native FilterReads (under -A/-q), name fix (SAM) and encode of
+        one block pair; runs in an encode thread of the block pipeline (the
+        native calls release the GIL).  Caches on blk_a and returns (nw,
+        rows_a, rows_b, filt_a, filt_b, buds_a, buds_b): each mate's
+        dispatch rows, FilterReads verdict and post-trim mismatch budget,
+        one row a pair."""
         if blk_a.enc is not None:
             return blk_a.enc
         from .. import native
         p = self.param
         lib = native.get_lib()
-        bad = native.fix_pair_names(lib, blk_a.buf, blk_a.rec,
-                                    blk_b.buf, blk_b.rec)
-        if bad >= 0:
-            raise ValueError("Paired reads name not match:\n"
-                             f"{blk_a.name(bad)}\n{blk_b.name(bad)}")
+        if len(blk_b) != len(blk_a):
+            raise ValueError("PE block length mismatch")
+        if p.out_sam:                       # FixPairReadName: SAM only
+            bad = native.fix_pair_names(lib, blk_a.buf, blk_a.rec,
+                                        blk_b.buf, blk_b.rec)
+            if bad >= 0:
+                raise ValueError("Paired reads name not match:\n"
+                                 f"{blk_a.name(bad)}\n{blk_b.name(bad)}")
+        infos = [filter_block(p, blk) for blk in (blk_a, blk_b)]
         max_len = max(int(blk_a.rec[:, 3].max()),
                       int(blk_b.rec[:, 3].max())) if len(blk_a) else 0
         nw = 7 if min(max_len, p.max_readlen) <= 112 else FIXELEMENT
-        rows_a = native.encode_block_words(
-            lib, blk_a.buf, blk_a.rec, p.alphabet, REG_ALPHABET, nw)
-        rows_b = native.encode_block_words(
-            lib, blk_b.buf, blk_b.rec, p.alphabet, REG_ALPHABET, nw)
-        blk_a.enc = (nw, rows_a, rows_b)
+        rows, filt, buds = [], [], []
+        for blk, info in zip((blk_a, blk_b), infos):
+            r = native.encode_block_words(lib, blk.buf, blk.rec, p.alphabet,
+                                          REG_ALPHABET, nw)
+            if info is None:        # FilterReads' length and N checks
+                ln = r[:, 2 * nw].astype(np.int64)
+                filt.append((ln < p.min_read_size)
+                            | (r[:, 2 * nw + 3] > p.max_ns))
+                buds.append(((p.max_snp_num + 1) * (ln - 1)
+                             // np.maximum(ln, 1)).astype(np.int32))
+            else:
+                filt.append(info[:, 0] != 0)
+                buds.append(info[:, 1].copy())
+            rows.append(r)
+        blk_a.enc = (nw, *rows, *filt, *buds)
         return blk_a.enc
 
     def block_pair_rows(self, blk_a, blk_b):
-        """Dispatch rows of one block pair's live pairs (both mates
-        encodable and unfiltered): (nw, live, live_pos, rows_a, rows_b),
-        each (n, 2nw+4) int32 with budgets and selection hashes filled in
+        """Dispatch rows of one block pair's live pairs (neither mate
+        filtered): (nw, live, live_pos, rows_a, rows_b), each (n, 2nw+4)
+        int32 with the post-trim budgets and selection hashes filled in
         and the maxrank column 0."""
         p = self.param
-        if len(blk_b) != len(blk_a):
-            raise ValueError("PE block length mismatch")
-        nw, rows_in_a0, rows_in_b0 = self.encode_block_pair(blk_a, blk_b)
-        live = np.ones(len(blk_a), dtype=bool)
-        for r in (rows_in_a0, rows_in_b0):
-            live &= ((r[:, 2 * nw] >= p.min_read_size)
-                     & (r[:, 2 * nw + 3] <= p.max_ns))
+        nw, rows_a0, rows_b0, fa, fb, buds_a, buds_b = \
+            self.encode_block_pair(blk_a, blk_b)
+        live = ~(fa | fb)
         live_pos = np.nonzero(live)[0]
         rows = []
-        for r, blk in ((rows_in_a0, blk_a), (rows_in_b0, blk_b)):
+        for r, buds, blk in ((rows_a0, buds_a, blk_a),
+                             (rows_b0, buds_b, blk_b)):
             r = r[live_pos]
-            ln = r[:, 2 * nw].astype(np.int64)
-            r[:, 2 * nw + 1] = (p.max_snp_num + 1) * (ln - 1) // np.maximum(
-                ln, 1)
+            r[:, 2 * nw + 1] = buds[live_pos]
             r[:, 2 * nw + 2] = (0 if p.randseed == 0 else myrand_hash(
                 blk.indices[live_pos].astype(np.uint64), p.randseed).astype(
                 np.uint32).view(np.int32))
@@ -566,8 +608,10 @@ class PairDeviceEngine:
         dispatches; returns collect() -> the aligned block for
         ``emit_block``.  The block pipeline calls collect() for block N
         only after block N+1's phase 1 is on the device, so phase 2, the
-        replay flags and the formatting overlap kernel time."""
+        replay flags and the formatting overlap kernel time.  Under BSP
+        the mates' per-level counts come back with the J rows."""
         se = self.se
+        counts = not self.param.out_sam
         nw, live, live_pos, rows_in_a, rows_in_b = self.block_pair_rows(
             blk_a, blk_b)
         n = len(live_pos)
@@ -576,32 +620,82 @@ class PairDeviceEngine:
         risk = (se._stale_risk(la, rows_in_a[:, 2 * nw + 1])
                 | se._stale_risk(lb, rows_in_b[:, 2 * nw + 1]))
         fin = (self._align_join_fused(rows_in_a, rows_in_b, self._cfg(1, nw),
-                                      self._cfg(2, nw)) if n else None)
+                                      self._cfg(2, nw), counts)
+               if n else None)
 
         def collect():
             if n:
                 jr = fin()
                 replay_flag = self._replay_flag(jr, risk)
                 prow_live = self._prow_from_jrows(jr)
+                counts_live = jr[:, JN_COLS:]
             else:
                 replay_flag = np.zeros(0, dtype=bool)
                 prow_live = np.zeros((0, 22), dtype=np.int32)
+                counts_live = np.zeros((0, 4 * self.MS), dtype=np.int32)
             return (blk_a, blk_b, live, live_pos, la, lb, risk, replay_flag,
-                    prow_live)
+                    prow_live, counts_live)
 
         return collect
 
-    def emit_block(self, fmt, aligned) -> bytes:
-        """SAM bytes of one collected block: exact host replays in pair
-        order with MateState sync (the J_* rows carry no start offsets: the
-        sync recomputes them), prow scatter, native pair formatting +
-        splicing."""
+    def _host_row(self, ra: Read, rb: Read, pres: PairResult, fmt, row,
+                  counts) -> None:
+        """Fill the formatter row (and, under BSP, each mate's per-level
+        counts) of a pair the host engine aligned: string_align_pair's and
+        string_align_unpair's selections (output/pair_sam.py), whose rand_r
+        draws (-S 0) are taken here in pair order."""
+        p = self.param
+        MS = self.MS
+        if counts is not None:
+            for k, res in enumerate((pres.res_a, pres.res_b)):
+                if not res.filtered:
+                    base = 2 * MS * k
+                    counts[base: base + 2 * MS: 2] = res.n_hit[:MS]
+                    counts[base + 1: base + 2 * MS: 2] = res.n_chit[:MS]
+        if pres.paired:
+            for t in range(2 * p.max_snp_num + 1):   # pairs.cpp:229
+                cnt = len(pres.pairhits[t])
+                if cnt == 0:
+                    continue
+                if cnt == 1 or p.report_repeat_hits == 1:
+                    j = (0 if cnt == 1 else
+                         myrand(ra.index, p.randseed, fmt.rand_r) % cnt)
+                    ph = pres.pairhits[t][j]
+                    row[:P_FND_A] = (pres.paired, cnt, ph.chain, ph.na,
+                                     ph.nb, ph.insert, *ph.a, *ph.b)
+                    return
+                break                 # more than one pair under -r 0
+        for k, (rd, res) in enumerate(((ra, pres.res_a), (rb, pres.res_b))):
+            if res.filtered:
+                continue
+            m = lev = 0
+            for lev in range(res.read_max_snp_num + 1):
+                m = int(res.n_hit[lev] + res.n_chit[lev])
+                if m > 0:
+                    break
+            if m == 0:
+                continue
+            idx = myrand(rd.index, p.randseed, fmt.rand_r) % m if m > 1 else 0
+            nh = int(res.n_hit[lev])
+            hit = res.hits[lev][idx] if idx < nh else res.chits[lev][idx - nh]
+            base = P_FND_A if k == 0 else P_FND_B
+            row[base: base + 6] = (1, lev, m, int(idx >= nh), *hit)
+
+    def emit_block(self, fmt, aligned) -> tuple[bytes, bytes]:
+        """The output of one collected block: (main bytes, BSP's -2 bytes,
+        empty under SAM).  The pairs the host engine runs (replays, and
+        pairs with a filtered mate, aligned with the native filter's reads
+        and verdicts) go in pair order with MateState sync (the J_* rows
+        carry no start offsets: the sync recomputes them), each synthesized
+        into a formatter row; then one native call formats every pair, so
+        the context buffers advance in one place and in pair order."""
         (blk_a, blk_b, live, live_pos, la, lb, risk, replay_flag,
-         prow_live) = aligned
-        from .. import native
+         prow_live, counts_live) = aligned
+        from ..native import pe_format
         p = self.param
         se = self.se
-        lib = native.get_lib()
+        MS = self.MS
+        _nw, _ra, _rb, filt_a, filt_b, buds_a, buds_b = blk_a.enc
         n_all = len(blk_a)
         n = len(live_pos)
         st_a, st_b = self.pair_host.state_a, self.pair_host.state_b
@@ -617,54 +711,48 @@ class PairDeviceEngine:
                                 replay_flag, mode_b, state=st_b)
             return t
 
-        status = np.full(n_all, 2, dtype=np.int32)
-        status[~live] = 0
-        rflag_pos = live_pos[replay_flag] if n else live_pos[:0]
-        status[rflag_pos] = 0
-        py_parts: dict[int, str] = {}
+        prow = np.zeros((n_all, P_NCOL), dtype=np.int32)
+        prow[:, P_FLT_A] = filt_a
+        prow[:, P_FLT_B] = filt_b
+        counts = (None if p.out_sam
+                  else np.zeros((n_all, 4 * MS), dtype=np.int32))
+        host = ~live
+        if n:
+            prow[live_pos, :22] = prow_live
+            if counts is not None:
+                counts[live_pos] = counts_live
+            host[live_pos[replay_flag]] = True
         lcum = np.concatenate([[0], np.cumsum(live)])
         cursor = 0
-        for i in np.nonzero(status == 0)[0]:
+        t0 = _time.perf_counter()
+        for i in np.nonzero(host)[0]:
             i = int(i)
             t = int(lcum[i])              # live row of this pair (if live)
             if live[i]:
                 if risk[t]:
                     cursor = sync_to(cursor, t) + 1
+                self.n_replayed += 1
             else:
                 cursor = sync_to(cursor, t)
+                self.n_mate_filtered += 1
             ra, rb = blk_a.read_obj(i), blk_b.read_obj(i)
-            pres = self.pair_host.align_pair(ra, rb)
-            self.n_replayed += 1
-            fell = 1
-            text = ""
-            if pres.paired:
-                ptext, fell = fmt.string_align_pair(ra, rb, pres)
-                text += ptext
-            if fell == 1 or not pres.paired:
-                text += fmt.string_align_unpair(
-                    ra, rb, pres.filtered_a, pres.filtered_b, pres)
-            py_parts[i] = text
+            pres = self._host_pair(ra, rb, bool(filt_a[i]), bool(filt_b[i]),
+                                   int(buds_a[i]), int(buds_b[i]))
+            prow[i, :P_FLT_A] = 0
+            self._host_row(ra, rb, pres, fmt, prow[i],
+                           None if counts is None else counts[i])
         if n:
             sync_to(cursor, n)
-
-        prow = np.zeros((n_all, 22), dtype=np.int32)
-        if n:
-            prow[live_pos] = prow_live
-        out, line_off, (npair, na_, nb_) = native.format_pair_block(
-            lib, blk_a.buf, blk_a.rec, blk_b.buf, blk_b.rec, status,
-            prow, se._chrname_buf, se._chrname_off, REV_CHAR,
-            bool(p.out_unmap), p.report_repeat_hits, blk_a.synth_qual,
-            blk_b.synth_qual)
+        self.t_host += _time.perf_counter() - t0
+        un = p.useful_nt[:4].encode("latin1")
+        main, unpair, (npair, na_, nb_) = pe_format.format_pair_block(
+            pe_format.get_lib(), blk_a.buf, blk_a.rec, blk_b.buf, blk_b.rec,
+            prow, None if counts is None else counts[:, :2 * MS],
+            None if counts is None else counts[:, 2 * MS:], MS, buds_a,
+            buds_b, se._chrname_buf, se._chrname_off, REV_CHAR, p,
+            blk_a.synth_qual, blk_b.synth_qual, se.genome.refcat,
+            se._anchors_i64, un, *self._mapseq)
         fmt.n_aligned_pairs += npair
         fmt.n_aligned_a += na_
         fmt.n_aligned_b += nb_
-        if not py_parts:
-            return out
-        pieces, prev = [], 0
-        for i in sorted(py_parts):
-            cut = int(line_off[i])
-            pieces.append(out[prev:cut])
-            pieces.append(py_parts[i].encode("latin1"))
-            prev = cut
-        pieces.append(out[prev:])
-        return b"".join(pieces)
+        return main, unpair

@@ -4,10 +4,12 @@ port of ``bsmap_tpu.engine.pair_pipeline``.
 SAM mode writes paired + unpaired lines into one file; BSP mode writes pairs
 to -o and unpaired hits to the -2 file (main.cpp:103-107).
 
-The native PE block pipeline (SAM, no trimming, no -R) streams both mates
-through chunked native parsing, one ``pair_program`` per window and the
-native pair formatter, with parse-ahead and write-behind threads like the
-SE block path."""
+The native PE block pipeline (the single-device engine on FASTA/FASTQ:
+SAM or BSP, -R, trimming) streams both mates through chunked native
+parsing, native FilterReads and encode on ``-p`` threads, one
+``pair_program`` per window and the native pair formatter, with a reader
+and a writer thread like the SE block path.  The mesh engines and SAM/BAM
+input take the per-pair path."""
 
 from __future__ import annotations
 
@@ -31,24 +33,25 @@ def run_pair_end(o, genome, index, stats: dict | None = None,
                  mesh=None) -> int:
     """Align every pair of ``o.query_a``/``o.query_b``; returns the pair
     count and, into ``stats``, the alignment phase's wall time (engine
-    set-up and the ``.bam`` conversion excluded) and the engine.  ``mesh``:
-    the device list of the mesh engines (``cli.make_engine``)."""
+    set-up and the ``.bam`` conversion excluded), the engine and the path
+    taken (``pe_path``: "blocks" or "pairs").  ``mesh``: the device list
+    of the mesh engines (``cli.make_engine``)."""
     p = o.param
     from ..cli import _randr_seed, _to_bam, with_host_fallback
     engine = with_host_fallback(
         o, lambda: make_pair_engine(o, genome, index, mesh),
         lambda: HostPairBatch(genome, index, p), stats)
     fmt = PairFormatter(genome, p, RandR(_randr_seed()))
+    blocks = takes_blocks(engine, o)     # builds the native formatter
     t0 = time.perf_counter()
-    if (getattr(engine, "supports_pair_blocks", lambda: False)()
-            and detect_format(o.query_a) < 2
-            and detect_format(o.query_b) < 2):
-        total = run_pair_end_blocks(o, genome, engine, fmt)
+    if blocks:
+        total = run_pair_end_blocks(o, genome, engine, fmt,
+                                    threads=p.num_procs)
     else:
         total = run_pair_end_reads(o, genome, engine, fmt)
     if stats is not None:
         stats.update(pairs=total, align_s=time.perf_counter() - t0,
-                     engine=engine)
+                     engine=engine, pe_path="blocks" if blocks else "pairs")
     denom = max(total, 1)
     print("Total number of aligned reads: \n"
           f"pairs:       {fmt.n_aligned_pairs} "
@@ -62,13 +65,42 @@ def run_pair_end(o, genome, index, stats: dict | None = None,
     return total
 
 
-def run_pair_end_reads(o, genome, engine, fmt, header: bool = True) -> int:
-    """Per-pair path: exact for every configuration (BSP, -R, trim).
-    ``header``: write the SAM header (a ``--nprocs`` shard does not)."""
-    p = o.param
-    if not p.out_sam and not o.out_unpair:
+def takes_blocks(engine, o) -> bool:
+    """Whether a pair-end run takes the native block path: an engine that
+    supports it (the single-device engine, any output) on FASTA/FASTQ
+    mates; else the per-pair path."""
+    return (getattr(engine, "supports_pair_blocks", lambda: False)()
+            and _fastx_mates(o))
+
+
+def will_take_blocks(o, engine_name: str, fits: bool) -> bool:
+    """``takes_blocks`` before the engine is built (``cli._wants_local_mp``
+    decides on it): ``engine_name`` (``cli.resolve_engine``'s pick) is
+    ``device`` on a genome it holds (``fits``) and without RRBS, so
+    ``make_pair_engine`` builds the single-device engine, whose
+    ``supports_pair_blocks`` asks ``pair_block_runtime``."""
+    from .pair_device import pair_block_runtime
+    return (engine_name == "device" and fits and not o.param.RRBS_flag
+            and _fastx_mates(o) and pair_block_runtime())
+
+
+def _fastx_mates(o) -> bool:
+    return detect_format(o.query_a) < 2 and detect_format(o.query_b) < 2
+
+
+def _check_unpaired(o) -> None:
+    """BSP output needs the -2 file for the unpaired lines."""
+    if not o.param.out_sam and not o.out_unpair:
         raise SystemExit("failed to open output file for unpaired hits "
                          "(check -2 option)")
+
+
+def run_pair_end_reads(o, genome, engine, fmt, header: bool = True) -> int:
+    """Per-pair path (the mesh engines, SAM/BAM mates, the host engine):
+    exact for every configuration.  ``header``: write the SAM header (a
+    ``--nprocs`` shard does not)."""
+    p = o.param
+    _check_unpaired(o)
     timer = StepTimer()
     total = 0
     with contextlib.ExitStack() as stack:
@@ -95,69 +127,95 @@ def run_pair_end_reads(o, genome, engine, fmt, header: bool = True) -> int:
     return total
 
 
-def run_pair_end_blocks(o, genome, engine, fmt, header: bool = True) -> int:
-    """Native PE block pipeline: parse-ahead producer, align main loop that
-    finishes block N after block N+1's phase 1 is enqueued, write-behind
-    thread (the native calls release the GIL).  ``header``: write the SAM
-    header (a ``--nprocs`` shard does not)."""
+def run_pair_end_blocks(o, genome, engine, fmt, header: bool = True,
+                        threads: int = 1) -> int:
+    """Native PE block pipeline: a reader thread parses block pairs in
+    file order, ``threads`` encode threads run ``encode_block_pair`` on
+    them (native FilterReads and encode, which release the GIL), the align
+    loop takes the encoded pairs strictly in file order and finishes block
+    N after block N+1's phase 1 is enqueued, and a writer thread writes
+    the SAM (or BSP and -2) bytes.  An error in the reader, an encode
+    thread or the writer ends the run with that error.  ``header``: write
+    the SAM header (a ``--nprocs`` shard does not)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from .. import native
     from ..blockio import BlockReadStream
 
     p = o.param
+    _check_unpaired(o)
     lib = native.get_lib()
     sa = BlockReadStream(o.query_a, p, readset=1, lib=lib)
     sb = BlockReadStream(o.query_b, p, readset=2, lib=lib)
     blk_n = PE_BLOCK_WINDOWS * engine.se.B
-    q_in: "queue.Queue" = queue.Queue(maxsize=2)
+    threads = max(threads, 1)
+    pool = ThreadPoolExecutor(threads, thread_name_prefix="bsmap_pe_encode")
+    # the block pairs' encode futures in file order: one ahead of each
+    # thread
+    q_in: "queue.Queue" = queue.Queue(maxsize=threads + 1)
     q_out: "queue.Queue" = queue.Queue(maxsize=4)
     errors: list[BaseException] = []
+    done = threading.Event()
 
-    def producer():
+    def encode(ba, bb):
+        engine.encode_block_pair(ba, bb)
+        return ba, bb
+
+    def reader():
         # geometric first-block ramp, as in the SE pipeline: the device
         # starts on a one-window block instead of idling through the full
         # first parse
         try:
             size = engine.se.B
-            while True:
+            while not done.is_set():
                 ba = sa.next_block(min(size, blk_n))
                 bb = sb.next_block(min(size, blk_n))
                 size *= 2
                 if ba is None or bb is None or len(ba) != len(bb):
                     break
-                engine.encode_block_pair(ba, bb)   # GIL-releasing natives
-                q_in.put((ba, bb))
+                q_in.put(pool.submit(encode, ba, bb))
         except BaseException as e:   # surfaced by the align loop
             errors.append(e)
         q_in.put(None)
 
     def writer():
         try:
-            with open(o.out_file, "wb") as fout:
-                if header:
+            with contextlib.ExitStack() as stack:
+                fout = stack.enter_context(open(o.out_file, "wb"))
+                fout_unpair = (None if p.out_sam else stack.enter_context(
+                    open(o.out_unpair, "wb")))
+                if p.out_sam and header:
                     fout.write(sam_header(genome).encode("latin1"))
                 while True:
                     item = q_out.get()
                     if item is None:
                         break
-                    fout.write(item)
+                    main, unpair = item
+                    fout.write(main)
+                    if fout_unpair is not None:
+                        fout_unpair.write(unpair)
         except BaseException as e:   # surfaced after the join
             errors.append(e)
             while q_out.get() is not None:   # keep the align loop moving
                 pass
 
-    t_prod = threading.Thread(target=producer, daemon=True)
+    t_rd = threading.Thread(target=reader, daemon=True)
     t_wr = threading.Thread(target=writer, daemon=True)
-    t_prod.start()
+    t_rd.start()
     t_wr.start()
     timer = StepTimer()
     total = 0
     prev = None            # (collect, n): block N-1, collected only after
     try:                   # block N's phase 1 is on the device
         while True:
-            item = q_in.get()
-            if item is None:
+            fut = q_in.get()
+            if fut is None:
                 break
-            ba, bb = item
+            try:
+                ba, bb = fut.result()
+            except BaseException as e:   # an encode thread's error
+                errors.append(e)
+                break
             cur = engine.align_block_pair(ba, bb)
             if prev is not None:
                 q_out.put(engine.emit_block(fmt, prev[0]()))
@@ -165,20 +223,22 @@ def run_pair_end_blocks(o, genome, engine, fmt, header: bool = True) -> int:
                 print(f"{total} read pairs finished. "
                       f"{timer.total():.1f} secs passed")
             prev = (cur, len(ba))
-        if prev is not None:
+        if prev is not None and not errors:
             q_out.put(engine.emit_block(fmt, prev[0]()))
             total += prev[1]
             print(f"{total} read pairs finished. "
                   f"{timer.total():.1f} secs passed")
     finally:
+        done.set()
         q_out.put(None)
         t_wr.join()
-        while t_prod.is_alive():     # unblock a producer parked on q_in
+        while t_rd.is_alive():       # unblock a reader parked on q_in
             try:
                 q_in.get(timeout=0.1)
             except queue.Empty:
                 pass
-        t_prod.join()
+        t_rd.join()
+        pool.shutdown(wait=True, cancel_futures=True)
         sa.close()
         sb.close()
     if errors:

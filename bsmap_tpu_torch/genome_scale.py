@@ -40,11 +40,13 @@ from the caches a step before left in ``--dir``):
   workers  ``--nprocs 2`` over the first ``--workers-reads`` SE reads:
            each process's card and host memory, launch to merged file,
            and from them how many workers one card and the host hold;
-           those reads with trimming at ``-p --procs`` (one process on the
-           card) and as many pe pairs as BSP with -2 at ``-p --procs``
-           (the CLI's workers: each one's private and shared host memory
-           from /proc/<pid>/smaps, the cached genome and index it maps,
-           its card memory), each byte-identical to its -p 1 run
+           those reads with trimming at ``-p --procs`` and as many pe pairs
+           as BSP with -2 at ``-p --procs``: on the card each one process
+           with -p encode threads (the block paths; its host peak, card
+           memory and rate), under ``--device cpu`` the CLI's workers
+           (each one's private and shared host memory from
+           /proc/<pid>/smaps, the cached genome and index it maps), each
+           byte-identical to its -p 1 run
 
 Prints the card's name and power limit, then one JSON line with every
 number, each step's under its name with that card line beside it.  Runs
@@ -89,7 +91,8 @@ import torch
 from bsmap_tpu_torch import cli
 stats = {}
 rc = cli.run(sys.argv[2:], stats=stats)
-rec = {"rc": rc, "align_s": stats.get("align_s"), "reads": stats.get("reads")}
+rec = {"rc": rc, "align_s": stats.get("align_s"), "reads": stats.get("reads"),
+       "pairs": stats.get("pairs"), "pe_path": stats.get("pe_path")}
 if torch.cuda.is_initialized():
     rec["max_allocated"] = torch.cuda.max_memory_allocated()
     rec["max_reserved"] = torch.cuda.max_memory_reserved()
@@ -835,11 +838,12 @@ def step_workers(s: Scale, ctx: dict) -> dict:
     run: ``--nprocs 2`` over the first ``--workers-reads`` SE reads (each
     process's card and host memory, launch to merged file, and the
     workers one card and this host hold at that footprint); those reads
-    with trimming (-A, -q 2) at ``-p --procs``, which the CLI runs as one
-    process on the card; and as many of the pe step's pairs as pair-end
-    BSP with -2 at ``-p --procs``, the CLI's own worker processes (each
-    one's private and shared host memory, its pages of the memory-mapped
-    genome and index, its card memory, and the host's peak in use)."""
+    with trimming (-A, -q 2) at ``-p --procs``; and as many of the pe
+    step's pairs as pair-end BSP with -2 at ``-p --procs``.  The CLI runs
+    both as one process on the card (the block paths), and as its own
+    worker processes under ``--device cpu`` (each one's private and
+    shared host memory, its pages of the memory-mapped genome and index,
+    and the host's peak in use)."""
     s.card_peak(reset=True)         # what this process keeps on the card
     gc.collect()
     rec = nprocs_two(s, ctx)
@@ -949,10 +953,11 @@ def se_trim_procs(s: Scale, ctx: dict) -> dict:
 
 def pe_bsp_procs(s: Scale, ctx: dict) -> dict:
     """The first ``--workers-reads`` of the pe step's pairs as pair-end BSP
-    with -2 at ``-p --procs``, the CLI's own workers (the per-pair path):
-    each worker's host and card memory, the cache files each maps, the
-    host's peak in use; both files byte-identical to the one-process
-    run's."""
+    with -2 at ``-p --procs`` (the CLI's default engine and rule): on the
+    card one process on the block path with no worker below it, its host
+    peak, card memory and pairs/s; under ``--device cpu`` the CLI's
+    workers, each one's host memory and the cache files it maps, and the
+    host's peak in use.  Both files byte-identical to the run at -p 1."""
     a = s.a
     n, k = a.workers_reads, a.procs
     r1 = os.path.join(s.dir, f"pe_{a.pe_pairs}_1.fq")
@@ -977,6 +982,31 @@ def pe_bsp_procs(s: Scale, ctx: dict) -> dict:
                                  f"({os.path.basename(got)})", f.read(),
                                  g.read())
     per = worker_memory(s, w, ctx)
+    top = w["host"].seen.get(w["pid"], {})
+    rec = {"pairs": n, "procs": k, "workers": len(per),
+           "cli_rss_gb": top.get("rss"), "cli_mapped_gb": top.get("mapped"),
+           "cli_mapped_files": top.get("files"),
+           "launch_to_merged_s": w["wall_s"], "bytes": nbytes,
+           "one_process_s": one_s,
+           "one_process_pairs_per_s": st["pairs"] / st["align_s"],
+           "per_worker": per, "host_ram_gb": host_ram_gb(),
+           "host_used_before_gb": base,
+           "host_used_peak_gb": w["host"].host_used,
+           "nvidia_smi_peak": w["card"]}
+    if rec["host_used_peak_gb"] > rec["host_ram_gb"]:
+        raise AssertionError("PE BSP held more than the host")
+    if s.dev == "cuda":
+        # the block path: one process with -p encode threads
+        if per or w["top"]["pe_path"] != "blocks":
+            raise AssertionError(f"PE BSP -p {k} on the card: "
+                                 f"{len(per)} workers, path "
+                                 f"{w['top']['pe_path']}")
+        rec.update(pairs_per_s=w["top"]["pairs"] / w["top"]["align_s"],
+                   max_allocated=w["top"]["max_allocated"],
+                   max_reserved=w["top"]["max_reserved"],
+                   card_bytes=w["top"]["max_reserved"]
+                   + ctx["context_bytes"])
+        return rec
     # the CLI's cap names the count it starts on a stderr line (at one,
     # the run stays in its own process)
     cap = re.search(r"-p \d+: (?:(\d+) worker processes|this process "
@@ -991,26 +1021,9 @@ def pe_bsp_procs(s: Scale, ctx: dict) -> dict:
             raise AssertionError(f"PE BSP worker {r['proc_id']} maps "
                                  f"{r['mapped_files']}: not the cached "
                                  "genome and index")
-    top = w["host"].seen.get(w["pid"], {})
-    rec = {"pairs": n, "procs": k, "workers": len(per),
-           "cap": cap.group(0) if cap else None,
-           "cli_rss_gb": top.get("rss"), "cli_mapped_gb": top.get("mapped"),
-           "cli_mapped_files": top.get("files"),
-           "launch_to_merged_s": w["wall_s"], "bytes": nbytes,
-           "one_process_s": one_s,
-           "one_process_pairs_per_s": st["pairs"] / st["align_s"],
-           "per_worker": per, "host_ram_gb": host_ram_gb(),
-           "host_used_before_gb": base,
-           "host_used_peak_gb": w["host"].host_used,
-           "private_sum_gb": sum(r["private_gb"] or 0 for r in per),
-           "anonymous_sum_gb": sum(r["anonymous_gb"] or 0 for r in per),
-           "nvidia_smi_peak": w["card"]}
-    if rec["host_used_peak_gb"] > rec["host_ram_gb"]:
-        raise AssertionError("PE BSP workers held more than the host")
-    if s.dev == "cuda":
-        rec["card_sum_bytes"] = sum(r["card_bytes"] for r in per)
-        if rec["card_sum_bytes"] > ctx["card_bytes"]:
-            raise AssertionError("PE BSP workers hold more than the card")
+    rec.update(cap=cap.group(0) if cap else None,
+               private_sum_gb=sum(r["private_gb"] or 0 for r in per),
+               anonymous_sum_gb=sum(r["anonymous_gb"] or 0 for r in per))
     return rec
 
 

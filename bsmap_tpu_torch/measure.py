@@ -167,8 +167,9 @@ def launch_dump_env(d: str) -> dict:
     ``d`` (holding the ``LAUNCH_DUMP`` sitecustomize, which runs an
     existing one after it) and the repository ahead of the path, and the
     CLI's own -p rule (no ``BSMAP_TPU_LOCAL_MP``).  In chip_smoke.py's
-    phase 27 that keeps the RRBS run at -p 8 in one process on the card
-    and starts two workers for the pair-end BSP run at -p 2."""
+    phases 27 and 29 that keeps the RRBS run at -p 8, the pair-end BSP run
+    at -p 2 and the trimmed pair-end runs at -p 8 in one process on the
+    card."""
     import importlib.util
     os.makedirs(d, exist_ok=True)
     src = LAUNCH_DUMP % d

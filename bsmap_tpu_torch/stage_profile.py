@@ -7,6 +7,7 @@
                                              [--engine index-sharded
                                               [--shards D]]
     python3 -m bsmap_tpu_torch.stage_profile [--rrbs] --launch N1,N2,...
+    python3 -m bsmap_tpu_torch.stage_profile --pe --filtered S1,S2,...
 
 Generates the headline data (2 x 5 Mb genome, fully converted 100 nt reads,
 tools/genreads.generate), with --repeat the chr21-class data (46.7 Mb, 8%
@@ -18,6 +19,20 @@ or -D C-CGG -A AGATCGGAAGAGC -q 2 -S 17 (RRBS) and times each stage on its
 own.  With --chains it aligns with -n 1 (all four strands) on the
 non-directional copies of chip_smoke.py's phases 16-19: every second read
 reverse-complemented (SE, RRBS), every second pair's mates swapped (PE).
+With --pe it profiles SAM on the pe_76nt pairs and then BSP with -2, -R
+and trimming (-A AGATCGGAAGAGC -q 2) on as many pairs of chip_smoke.py's
+phase 29 set (inserts of 28-500, the mates of short ones read into the
+adapter, low-quality tails on some mates), and times the whole CLI at -p 1
+for SAM, BSP, -R, trimming, and BSP with -R and trimming, each on the
+block path (the single-device engine) and on the per-pair path
+(``--engine sharded`` on one card, the first quarter of the pairs).
+With --pe --filtered it runs, in place of the above, BSP with -2, -R and
+trimming on the block path at -p 1 and -p 8 on a phase 29 set made for
+each share S of pairs with a filtered mate (each mate filtered at
+1 - sqrt(1 - S)): pairs/s, replays, filtered-mate pairs and the seconds
+the host engine spends on them (``PairDeviceEngine.t_host``), so that the
+cost of that route is measured at shares the synthetic set does not
+have.
 With --engine index-sharded (SE WGBS only) the stages run on
 ``IndexShardedEngine`` over D region shards (--shards, default 4),
 round-robin over the visible cards, and then once more on the
@@ -26,19 +41,20 @@ line then holds both, each with K7's share of the kernel time.
 
   parse    native parse of every block (``BlockReadStream.next_block``,
            one thread: the CLI's reader thread)
-  encode   native filter (trimming under --rrbs) + encode of every block
-           (``encode_block``, one thread; the CLI runs it on -p threads)
+  encode   native filter (trimming under --rrbs and PE BSP) + encode of
+           every block (``encode_block``, ``encode_block_pair``, one
+           thread; the CLI runs it on -p threads)
   align    SE: DeviceEngine.align_block + finish (rounds 1 and 2,
            collection, host replays); PE: PairDeviceEngine.align_block_pair
            + collect (phase 1, phase 2, J rows, replay flags); with the
            engine's h2d / launch / collect timers
   kernels  CUDA kernel time inside a second align pass (torch.profiler),
            and the device's idle share of that pass's wall time
-  format   native SAM formatting (ZP/ZL tags under --rrbs) + file write of
-           the aligned blocks (PE: emit_block, which also runs the exact
-           host replays)
+  format   native SAM (BSP) formatting (ZP/ZL tags under --rrbs) + file
+           write of the aligned blocks (PE: emit_block, which also runs
+           the exact host replays and the pairs with a filtered mate)
   pipeline the whole CLI (cli.run: the stages overlapped in threads) at
-           -p 1, and for SE again at -p 8 (eight encode threads)
+           -p 1, and again at -p 8 (eight encode threads)
 
 With --launch it times, in place of the stages, whole CLI runs from
 launch to the finished file, each a process of its own, at -p 8 with
@@ -137,8 +153,9 @@ def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
 
 
 def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
-               extra=()):
-    """The PE engine's stages over the pe_76nt block pairs."""
+               extra=(), suffix: str = "sam"):
+    """The PE engine's stages over the pe_76nt block pairs, SAM or (with
+    ``suffix`` "bsp") BSP with -2."""
     import torch
     from . import cli, native
     from .blockio import BlockReadStream
@@ -150,9 +167,12 @@ def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
     flags = ["-a", r1, "-b", r2, "-d", gpath, "-S", "17"] + list(extra)
     o = cli.parse_args(flags + ["-o", os.path.join(root, "x.sam")])
     p = o.param
+    p.out_sam = int(suffix == "sam")
     genome = cli.load_genome(gpath, p)
     index = cli.get_index(o, genome)
     eng = PairDeviceEngine(genome, index, p, device=dev)
+    if not eng.supports_pair_blocks():      # builds the native formatter
+        raise RuntimeError("the pair-end block path is not available")
     lib = native.get_lib()
     t0 = time.perf_counter()
     sa = BlockReadStream(r1, p, readset=1, lib=lib)
@@ -176,18 +196,20 @@ def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
 
     def fmt_all(aligned, path):
         fmt = PairFormatter(genome, p, RandR(1))
-        with open(path, "wb") as f:
+        with open(path, "wb") as f, open(path + ".u", "wb") as fu:
             for al in aligned:
-                f.write(eng.emit_block(fmt, al))
+                main, unpair = eng.emit_block(fmt, al)
+                f.write(main)
+                fu.write(unpair)
 
     return flags, eng, eng.se, (t_parse, t_encode), align_all, fmt_all
 
 
 def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
     """Time the stages of one engine (``stages`` = _se_stages' or
-    _pe_stages' result) and whole CLI runs of the same flags at -p 1 and,
-    single-end, -p 8 (on ``mesh``'s index-sharded engine when given);
-    returns the JSON fields."""
+    _pe_stages' result) and whole CLI runs of the same flags at -p 1 and
+    -p 8 (on ``mesh``'s index-sharded engine when given); returns the JSON
+    fields."""
     import torch
     from . import cli
     flags, eng, se, (t_parse, t_encode), align_all, fmt_all = stages
@@ -201,9 +223,14 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
     aligned = align_all()
     t_align = time.perf_counter() - t0
     timers = {k: getattr(se, k) for k in timer_keys}
-    # SE replays run in align, PE replays in format (emit_block)
+    # SE replays run in align, PE replays in format (emit_block), where
+    # the pairs with a filtered mate run too
     counts = {"n_dispatched": se.n_dispatched, "n_probe": se.n_probe,
               "n_replayed": eng.n_replayed}
+    outs = ["-o", os.path.join(root, "run.sam")]
+    if not eng.param.out_sam:
+        outs = ["-o", os.path.join(root, "run.bsp"), "-2",
+                os.path.join(root, "run_u.bsp")]
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -219,18 +246,19 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
     fmt_all(aligned, os.path.join(root, "fmt.sam"))
     t_fmt = time.perf_counter() - t0
     counts["n_replayed"] += eng.n_replayed - r0
+    if hasattr(eng, "n_mate_filtered"):
+        counts["n_mate_filtered"] = eng.n_mate_filtered
     del eng, se, aligned, align_all, fmt_all, stages
     torch.cuda.empty_cache()
 
-    # -p 1: the stages as timed above, one encode thread; single-end
-    # again at -p 8, the default: one process, eight encode threads
+    # -p 1: the stages as timed above, one encode thread; again at -p 8,
+    # the default: one process, eight encode threads
     extra = [] if mesh is None else ["--engine", "index-sharded"]
     pipe = {}
-    for n_p in ((1,) if unit == "pairs" else (1, 8)):
+    for n_p in (1, 8):
         st: dict = {}
-        rc = cli.run(flags + ["-o", os.path.join(root, "run.sam"),
-                              "--device", "cuda", "-p", str(n_p)] + extra,
-                     stats=st, mesh=mesh)
+        rc = cli.run(flags + outs + ["--device", "cuda", "-p", str(n_p)]
+                     + extra, stats=st, mesh=mesh)
         if rc != 0:
             raise RuntimeError(f"cli.run returned {rc}")
         pipe[n_p] = st
@@ -246,13 +274,83 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
         "k7_ms": k7, "k7_share": k7 / k_total if k_total else 0.0,
         "pipeline_align_s": st["align_s"],
         f"pipeline_{unit}_per_s": st[unit] / st["align_s"],
-        **({f"pipeline_p8_{unit}_per_s": pipe[8][unit] / pipe[8]["align_s"]}
-           if 8 in pipe else {}),
+        f"pipeline_p8_{unit}_per_s": pipe[8][unit] / pipe[8]["align_s"],
         "engine": st["engine_name"],
     }
 
 
 TRIM_FLAGS = ["-A", "AGATCGGAAGAGC", "-q", "2"]
+# --pe: (name, flags, output suffix, on the trimmed set): each runs the
+# whole CLI on both pair-end paths; "sam" and "bsp_trim" also by stage
+PE_RUNS = (("sam", [], "sam", False), ("bsp", [], "bsp", False),
+           ("xr", ["-R"], "sam", False), ("trim", TRIM_FLAGS, "sam", True),
+           ("bsp_trim", ["-R"] + TRIM_FLAGS, "bsp", True))
+
+
+def _pe_paths(root: str, gpath: str, sets: dict, n: int, extra=()) -> dict:
+    """Pairs/s of the whole CLI at -p 1 for each of ``PE_RUNS``: on the
+    block path (the single-device engine) over all ``n`` pairs, and on the
+    per-pair path (``--engine sharded``, one card) over the first n/4,
+    with each run's replays and pairs with a filtered mate."""
+    from . import cli
+    out = {}
+    for name, flags, suffix, trimmed in PE_RUNS:
+        r1, r2 = sets[trimmed]
+        argv = (["-a", r1, "-b", r2, "-d", gpath, "-S", "17"] + flags
+                + list(extra) + ["-o", os.path.join(root, f"p.{suffix}"),
+                                 "--device", "cuda", "-p", "1"])
+        if suffix == "bsp":
+            argv += ["-2", os.path.join(root, "p_u.bsp")]
+        out[name] = {}
+        for path, more, pairs in (("blocks", [], n),
+                                  ("pairs", ["--engine", "sharded", "-E",
+                                             str(n // 4)], n // 4)):
+            st: dict = {}
+            if cli.run(argv + more, stats=st) != 0 or st["pairs"] != pairs \
+                    or st["pe_path"] != path:
+                raise RuntimeError(f"{name}: {st.get('pairs')} pairs on "
+                                   f"the {st.get('pe_path')} path")
+            eng = st["engine"]
+            out[name][path] = {
+                "pairs": pairs, "align_s": st["align_s"],
+                "pairs_per_s": pairs / st["align_s"],
+                "n_replayed": eng.n_replayed,
+                "n_mate_filtered": eng.n_mate_filtered}
+        print(json.dumps({name: out[name]}), flush=True)
+    return out
+def _filtered_sweep(root: str, gpath: str, n: int, shares: list[float],
+                    extra=(), dev: str = "cuda") -> list[dict]:
+    """--filtered: one row a share and -p (module docstring)."""
+    from chip_smoke import make_trim_pe_set
+    from . import cli
+    rows = []
+    for share in shares:
+        r1, r2 = make_trim_pe_set(os.path.join(root, f"filt{share:g}"), n,
+                                  filtered=1 - (1 - share) ** 0.5)
+        for procs in (1, 8):
+            argv = (["-a", r1, "-b", r2, "-d", gpath, "-S", "17", "-R"]
+                    + TRIM_FLAGS + list(extra)
+                    + ["-o", os.path.join(root, "f.bsp"), "-2",
+                       os.path.join(root, "f_u.bsp"), "--device", dev,
+                       "-p", str(procs)])
+            st: dict = {}
+            if cli.run(argv, stats=st) != 0 or st["pairs"] != n \
+                    or st["pe_path"] != "blocks":
+                raise RuntimeError(f"filtered {share}: {st.get('pairs')} "
+                                   f"pairs on the {st.get('pe_path')} path")
+            eng = st["engine"]
+            n_host = eng.n_replayed + eng.n_mate_filtered
+            rows.append({
+                "share": share, "procs": procs, "pairs": n,
+                "align_s": st["align_s"], "pairs_per_s": n / st["align_s"],
+                "n_replayed": eng.n_replayed,
+                "n_mate_filtered": eng.n_mate_filtered,
+                "host_s": eng.t_host,
+                "host_ms_per_pair": 1e3 * eng.t_host / max(n_host, 1)})
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 # a CLI process that starts -p workers wherever the run allows them
 WORKERS = ("import sys; from bsmap_tpu_torch import cli; "
            "cli._wants_local_mp = lambda o, genome: True; "
@@ -343,12 +441,18 @@ def main() -> int:
                     help="comma-separated read counts: launch-to-file "
                     "times at -p 8 with trimming, one process against "
                     "workers (module docstring)")
+    ap.add_argument("--filtered", default=None,
+                    help="with --pe: comma-separated shares of pairs with a "
+                    "filtered mate, for the trimmed BSP sweep alone "
+                    "(module docstring)")
     args = ap.parse_args()
+    if args.filtered and not args.pe:
+        ap.error("--filtered goes with --pe")
     sharded = args.engine == "index-sharded"
     if sharded and (args.pe or args.rrbs):
         ap.error("--engine index-sharded profiles SE WGBS (headline or "
                  "--repeat)")
-    from chip_smoke import nondirectional, swap_mates
+    from chip_smoke import make_trim_pe_set, nondirectional, swap_mates
     from tools.genreads import (generate, generate_chr21, generate_pe,
                                 generate_rrbs)
     from .engine import _build
@@ -369,13 +473,26 @@ def main() -> int:
             res = {"launch": _launch(
                 root, gpath, rpath, RRBS_FLAGS if args.rrbs
                 else SE_FLAGS + TRIM_FLAGS, sizes)}
+        elif args.filtered:
+            gpath, _r1, _r2 = generate_pe(root, n_pairs=n)
+            res = {"filtered": _filtered_sweep(
+                root, gpath, n, [float(x) for x in args.filtered.split(",")],
+                n1)}
         elif args.pe:
             gpath, r1, r2 = generate_pe(root, n_pairs=n)
+            sets = {False: (r1, r2), True: make_trim_pe_set(
+                os.path.join(root, "trim"), n)}
             if args.chains:
-                r1, r2 = swap_mates(r1, r2, os.path.join(root, "sw_1.fq"),
-                                    os.path.join(root, "sw_2.fq"))
-            res = _profile(root, _pe_stages(root, gpath, r1, r2, extra=n1),
-                           unit, n)
+                sets = {k: swap_mates(
+                    a, b, os.path.join(root, f"sw{k:d}_1.fq"),
+                    os.path.join(root, f"sw{k:d}_2.fq"))
+                    for k, (a, b) in sets.items()}
+            res = {"sam": _profile(root, _pe_stages(
+                root, gpath, *sets[False], extra=n1), unit, n)}
+            res["bsp_trim"] = _profile(root, _pe_stages(
+                root, gpath, *sets[True], extra=n1 + ["-R"] + TRIM_FLAGS,
+                suffix="bsp"), unit, n)
+            res["paths"] = _pe_paths(root, gpath, sets, n, n1)
         else:
             if args.rrbs:
                 gpath, rpath = generate_rrbs(root, n_reads=n)
@@ -404,7 +521,9 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    res = {"data": ("pe_76nt" if args.pe else "rrbs_mspi_trim" if args.rrbs
+    res = {"data": ("pe_76nt_trim (synthetic)" if args.filtered
+                    else "pe_76nt" if args.pe
+                    else "rrbs_mspi_trim" if args.rrbs
                     else "chr21_class" if args.repeat else "headline"
                     + (" with -A/-q trimming" if sizes else ""))
            + (", -n 1 non-directional" if args.chains else ""), unit: n,

@@ -69,7 +69,9 @@ Phases (each raises on failure; any failure exits non-zero):
      pairs with 2% errors (tools/simulate.py), every 8th cut to 51 nt (a
      length whose seed schedule may read stale state: host replays),
      through the block path (SAM; phase 2 at full rank) and the per-pair
-     path (BSP with -2), each byte-identical to the host engine;
+     path (BSP with -2 through ``--engine sharded`` on the one card: the
+     single-device engine runs BSP on the block path), each byte-identical
+     to the host engine;
  12. RRBS data: BASELINE config 3 (tools/genreads.generate_rrbs defaults:
      one 10 Mb chromosome, 200,000 MspI-fragment 76 nt reads); genome and
      the tag-partitioned index;
@@ -154,8 +156,9 @@ Phases (each raises on failure; any failure exits non-zero):
      14's output), which the CLI runs as one process with eight encode
      threads (exactly one process reports: K2-K4, never K1), its rate
      beside phase 14's at -p 1; and -p 2 on the first 20,000 pairs as
-     pair-end BSP with -2 (the per-pair path: the CLI's own two workers,
-     both files against a one-process run here).  Every process reports
+     pair-end BSP with -2, which the CLI runs as one process on the block
+     path with two encode threads (exactly one process reports: K2-K6),
+     both files against a -p 1 run here.  Every process reports
      its kernel launches and its peak of allocated card memory at exit
      (``measure.LAUNCH_DUMP``, a sitecustomize on its path); ``nvidia-smi
      --query-compute-apps`` is sampled while they run; each run's rate
@@ -181,11 +184,25 @@ Phases (each raises on failure; any failure exits non-zero):
      first 2,000 byte-identical to the host engine.  Prints the card
      memory, reads/s, idle share, probe passes, replays and the phase's
      seconds.  A genome or table that cannot be placed fails the run.
+ 29. pair-end trimming on the block path (before phase 28's wait):
+     200,000 pe_76nt-class pairs on phase 7's genome, a synthetic mix
+     (``make_trim_pe_set``): inserts uniform in 28-500 (BASELINE config
+     2's range, not its distribution; the mates of inserts under 76 nt
+     read into the adapter) and low-quality tails on some mates (-q 2
+     trims them, and filters a mate left under 16 nt: one mate of a pair,
+     now and then both), as BSP with -2 and -R, and as SAM with -R -u,
+     each with -A AGATCGGAAGAGC -q 2 -S 17: at -p 1 in this process (the
+     block path, K2-K6), its first 5,000 pairs of each file
+     byte-identical to the host engine, its pairs/s beside phase 9's SAM
+     rate, host replays and pairs with a filtered mate counted apart;
+     then at -p 8 in a process of its own, which the CLI keeps one
+     process (exactly one LAUNCH_DUMP record, K2-K6), each file
+     byte-identical to the -p 1 run's.
 
 The CLI's default -p 8 starts worker processes on the pair-end per-pair
-path (BSP, -R, trimming); every phase but 27 runs in this process
-(``BSMAP_TPU_LOCAL_MP=0``), single-end runs with the default -p 8 encode
-threads but phase 14 (-p 1).
+path of the mesh engines and under --device cpu; every phase but 27 and
+the -p 8 runs of 29 runs in this process (``BSMAP_TPU_LOCAL_MP=0``), with
+the default -p 8 encode threads but phases 14 and 29 (-p 1).
 
 The kernels' launch counters are zeroed right before each run of a main
 path and read right after it: phase 4 to 5 (the single-end path: K1-K4
@@ -198,7 +215,8 @@ K5, K6 and, index-sharded, K7 in place of K4), phase 25's .bam runs (the
 SE and PE paths) and its -a in.bam run (K3, K4), every process of
 phase 27 (what phase 4 launched, K2-K6, the RRBS path) and its
 one-process pair-end BSP run (K2-K6), counted in the processes
-themselves, and phase 28's two runs (K1-K4, K2-K6).
+themselves, phase 29's runs (K2-K6, in this process and in its -p 8
+processes) and phase 28's two runs (K1-K4, K2-K6).
 Every kernel's JSON row has its launches summed over those runs, its
 error against the twin, its time and the twin's at the single-end
 headline window (the pair-end one for K5 and K6), and its bound there: the bytes it must move over the card's memory
@@ -243,10 +261,13 @@ N_REPEAT = 100_000
 N_PARITY = 5_000
 N_PAIRS = 200_000
 # phase 11: (tag, flags, output suffix [, -2], the least n_dispatched and
-# n_replayed that show the path's corners ran: phase 2, host replays)
+# n_replayed that show the path's corners ran: phase 2, host replays, the
+# engine: BSP with -2 runs on the block path on the single-device engine,
+# so the per-pair run takes the read-stripe engine on the one card)
 PE_PATH_RUNS = (
-    ("block path", ["-S", "1", "-v", "2", "-u"], ("sam",), 2, 1),
-    ("per-pair path", ["-S", "3", "-v", "3"], ("bsp", "-2"), 4, 1),
+    ("block path", ["-S", "1", "-v", "2", "-u"], ("sam",), 2, 1, []),
+    ("per-pair path", ["-S", "3", "-v", "3"], ("bsp", "-2"), 4, 1,
+     ["--engine", "sharded"]),
 )
 ALIGN_FLAGS = ["-v", "2", "-S", "17"]
 N1 = ["-n", "1"]
@@ -287,6 +308,11 @@ INDEX_SHARDED_PATH = ("exact_schedule", "verify_candidates", "merge_shards")
 RRBS_ADAPTER = "AGATCGGAAGAGC"
 N_NPROCS = 2                     # phase 27's processes on the one card
 N_PE_BSP = 20_000                # phase 27's pair-end BSP pairs (-E)
+N_TRIM_PAIRS = 200_000           # phase 29's pairs
+TRIM_PE_FLAGS = ["-S", "17", "-A", RRBS_ADAPTER, "-q", "2"]
+# phase 29: (tag, flags, output suffix [, -2])
+TRIM_PE_RUNS = (("bsp", ["-R"], ("bsp", "-2")),
+                ("sam_xr", ["-R", "-u"], ("sam",)))
 PROC_TIMEOUT = 900               # seconds: phases 25-27's other processes
 # per-kernel extras of the JSON line: the launch form or group width in use
 # and the other one's time, K3's parts by kernel name, the library scan
@@ -1691,7 +1717,8 @@ def phase_pe_paths(root: str, dev: str = "cuda", extra=(),
     if not os.path.exists(r2):
         make_pe_err_set(d, g, r1, r2)
     total = {k: 0 for k in K.launch_counts()}
-    for tag, flags, (suffix, *unpaired), min_disp, min_rep in PE_PATH_RUNS:
+    for tag, flags, (suffix, *unpaired), min_disp, min_rep, engine in \
+            PE_PATH_RUNS:
         flags = flags + list(extra)
         outs = {}
         for eng in (["--device", dev], ["--engine", "host"]):
@@ -1706,8 +1733,12 @@ def phase_pe_paths(root: str, dev: str = "cuda", extra=(),
                 run_cli(["-a", r1, "-b", r2, "-d", g] + flags + argv + eng)
                 continue
             K.reset_launch_counts()
-            st = run_cli(["-a", r1, "-b", r2, "-d", g] + flags + argv + eng)
+            st = run_cli(["-a", r1, "-b", r2, "-d", g] + flags + argv + eng
+                         + engine)
             counts = K.launch_counts()
+            if st["pe_path"] != ("pairs" if engine else "blocks"):
+                raise AssertionError(f"{tag}: ran the {st['pe_path']} "
+                                     "path")
             missing = [k for k in PE_PATH if counts[k] == 0]
             if missing:
                 raise AssertionError(f"{tag}: kernels never launched: "
@@ -2264,7 +2295,7 @@ def phase_mesh_pe(root: str, dev: str = "cuda") -> dict:
     g, r1, r2 = (os.path.join(d, x) for x in ("ref.fa", "r1.fq", "r2.fq"))
     total = {k: 0 for k in K.launch_counts()}
     for engine in ("sharded", "index-sharded"):
-        for D, (tag, flags, (suffix, *unpaired), _md, _mr) in (
+        for D, (tag, flags, (suffix, *unpaired), _md, _mr, _e) in (
                 (2, PE_PATH_RUNS[0]), (4, PE_PATH_RUNS[1])):
             mesh = shard_mesh(D) if dev == "cuda" else \
                 [torch.device("cpu")] * D
@@ -2497,8 +2528,10 @@ sys.exit(rc)
 """
 
 
-def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
-    """Phase 27: multi-process runs on the one card.  For each of
+def phase_multiprocess(root: str, runs: dict, dev: str = "cuda",
+                       phase: str = "27") -> tuple:
+    """Phase 27 (and 29's -p 8 runs): multi-process runs on the one card.
+    For each of
     ``runs`` (tag -> (how, argv without -o, the files of its one-process
     run, the kernels each process must launch, those the processes
     together must launch, those none may, its reads or pairs, the
@@ -2560,7 +2593,7 @@ def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
         want_n = {"one": 0, "workers": N_NPROCS,
                   "nprocs": N_NPROCS - 1}[how]
         if len(workers) != want_n or (how == "one" and len(recs) != 1):
-            raise AssertionError(f"[27] {tag}: {len(workers)} worker "
+            raise AssertionError(f"[{phase}] {tag}: {len(workers)} worker "
                                  f"records of {len(recs)}")
         if how == "one":
             per_proc = [("the one", recs[0]["launches"])]
@@ -2568,13 +2601,14 @@ def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
             per_proc = ([("0", c0)] if how == "nprocs" else []) + [
                 (_proc_id(r), r["launches"]) for r in workers]
         for k, c in per_proc:
-            need_launches(f"[27] {tag}, process {k}", c, need, never)
+            need_launches(f"[{phase}] {tag}, process {k}", c, need, never)
             counts.append(c)
-        need_launches(f"[27] {tag}, the processes together",
+        need_launches(f"[{phase}] {tag}, the processes together",
                       {k: sum(c[k] for _, c in per_proc) for k in need_all},
                       need_all)
-        size = sum(assert_same_file(f"[27] {tag} vs its one-process run",
-                                    got, w) for got, w in zip(outs, want))
+        size = sum(assert_same_file(f"[{phase}] {tag} vs its one-process "
+                                    "run", got, w)
+                   for got, w in zip(outs, want))
         mib = {}
         if dev == "cuda":
             if how == "nprocs":
@@ -2591,11 +2625,13 @@ def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
         if how == "one":
             with open(stats_path) as f:
                 one = json.load(f)
-            res[tag]["align_per_s"] = one["reads"] / one["align_s"]
+            res[tag]["align_per_s"] = (one.get("reads") or one["pairs"]) \
+                / one["align_s"]
         what = (f"-p {argv[argv.index('-p') + 1]}, one process"
                 if how == "one" else f"-p {N_NPROCS}, the CLI's workers"
                 if how == "workers" else f"--nprocs {N_NPROCS}")
-        log(f"[27] {tag}: {what} on {dev}, {n} in {wall:.1f} s from launch "
+        log(f"[{phase}] {tag}: {what} on {dev}, {n} in {wall:.1f} s from "
+            "launch "
             f"to the {'file' if how == 'one' else 'merged file'} "
             f"({n / wall:.1f}/s; one process, alignment phase: "
             f"{one_rate:.1f}/s)"
@@ -2607,6 +2643,128 @@ def phase_multiprocess(root: str, runs: dict, dev: str = "cuda") -> tuple:
             "(process 0 here: with what this process still holds); "
             f"nvidia-smi, all processes on the card {mem.peak or 'not read'}; "
             f"byte-identical to the one-process run ({size} bytes)")
+    return res, counts
+
+
+def make_trim_pe_set(d: str, n_pairs: int, seed: int = 43,
+                     filtered: float = 0.0025) -> tuple:
+    """Phase 29's pairs on phase 7's genome (tools/genreads.generate_pe's
+    4.6 Mb chromosome, seed 11): fully converted 76 nt mates as
+    ``make_pe_reads`` draws them, over inserts uniform in 28-500; a mate
+    of a shorter insert reads on into the TruSeq adapter.  Qualities 'I',
+    but every 20th mate (at random) ends in '#' after base 40 (-q 2 trims
+    it) and a ``filtered`` share of the mates after base 8 (-q 2 filters
+    it; about 2 x ``filtered`` of the pairs).  The mix is synthetic:
+    BASELINE config 2 gives only the insert range (its -m/-x), and no
+    source here gives an insert distribution, tail rates or a filtered
+    share, so a rate on this set is this set's and no library's.  Returns
+    the two FASTQ paths; made once in ``d``."""
+    import numpy as np
+    from tools.genreads import COMP, make_genome
+    os.makedirs(d, exist_ok=True)
+    paths = (os.path.join(d, "t_1.fq"), os.path.join(d, "t_2.fq"))
+    if os.path.exists(paths[1]):
+        return paths
+    t0 = time.time()
+    rng = np.random.RandomState(seed)
+    chrom = make_genome(11, 1, 4_600_000)[0]
+    L = 76
+    ins = rng.randint(28, 501, size=n_pairs)
+    pos = rng.randint(0, len(chrom) - 501, size=n_pairs)
+    offs = np.arange(L)
+    w1 = chrom[pos[:, None] + np.minimum(offs, ins[:, None] - 1)]
+    w2 = COMP[chrom[pos[:, None] + np.maximum(ins[:, None] - 1 - offs, 0)]]
+    flip = rng.random_sample(n_pairs) < 0.5
+    a = np.where(flip[:, None], w2, w1)
+    b = np.where(flip[:, None], w1, w2)
+    adapter = np.frombuffer((RRBS_ADAPTER + "CACACGTCTGAACTCCAGTCACATCTCGTA"
+                             "TGCCGTCTTCTGCTTG").encode()[:L], np.uint8)
+    tail = offs[None, :] >= ins[:, None]
+    ad = adapter[np.maximum(offs[None, :] - ins[:, None], 0)]
+    mates = (np.where(tail, ad, np.where(a == ord("C"), ord("T"), a)),
+             np.where(tail, ad, np.where(b == ord("G"), ord("A"), b)))
+    for path, seqs in zip(paths, mates):
+        qual = np.full((n_pairs, L), ord("I"), np.uint8)
+        qual[rng.random_sample(n_pairs) < 0.05, 40:] = ord("#")
+        qual[rng.random_sample(n_pairs) < filtered, 8:] = ord("#")
+        with open(path, "wb") as f:
+            f.write(b"".join(b"@t%d\n%s\n+\n%s\n" % (i, s.tobytes(),
+                                                    q.tobytes())
+                             for i, (s, q) in enumerate(zip(seqs, qual))))
+    log(f"[29] data (a synthetic mix): {n_pairs} pairs, inserts uniform "
+        f"in 28-500 ({int((ins < L).sum())} under {L} nt), low-quality "
+        f"tails on 5% of mates after base 40 and {100 * filtered:g}% after "
+        f"base 8, in {time.time() - t0:.1f} s")
+    return paths
+
+
+def assert_prefix(tag: str, got: str, want: str) -> int:
+    """The host engine's file on the first pairs is the start of the GPU
+    run's on all of them; returns its size."""
+    with open(want, "rb") as f:
+        b = f.read()
+    with open(got, "rb") as f:
+        a = f.read(len(b))
+    if a != b or not b.endswith(b"\n"):
+        la, lb = a.splitlines(), b.splitlines()
+        bad = next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
+                   min(len(la), len(lb)))
+        raise AssertionError(f"{tag}: GPU output {os.path.basename(got)} "
+                             f"differs from the host engine at line {bad}")
+    return len(b)
+
+
+def phase_pe_trim(root: str, gp: str, sam_rate: float,
+                  dev: str = "cuda") -> tuple:
+    """Phase 29: pair-end trimming (``TRIM_PE_FLAGS``) on the block path,
+    BSP with -2 and SAM with -R (module docstring).  Returns (per-run
+    numbers, the launch counts of each main-path run)."""
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "pe_trim")
+    t1, t2 = make_trim_pe_set(d, N_TRIM_PAIRS)
+    res, counts, multi = {}, [], {}
+    for tag, extra, (suffix, *unpaired) in TRIM_PE_RUNS:
+        argv = ["-a", t1, "-b", t2, "-d", gp] + TRIM_PE_FLAGS + extra
+        files, host = ([os.path.join(d, f"{who}{tag}{x}.{suffix}")
+                        for x in ("", "_u")[: 1 + len(unpaired)]]
+                       for who in ("", "host_"))
+
+        def outs(fs):
+            return ["-o", fs[0]] + (["-2", fs[1]] if len(fs) > 1 else [])
+
+        K.reset_launch_counts()
+        st = run_cli(argv + outs(files) + ["--device", dev, "-p", "1"])
+        counts.append(K.launch_counts())
+        need_launches(f"[29] {tag}, -p 1", counts[-1], PE_PATH)
+        eng = st["engine"]
+        if st["pe_path"] != "blocks" or st["pairs"] != N_TRIM_PAIRS:
+            raise AssertionError(f"[29] {tag}: {st['pairs']} pairs on the "
+                                 f"{st['pe_path']} path")
+        run_cli(argv + outs(host) + ["-E", str(N_PARITY), "--engine",
+                                     "host"])
+        size = sum(assert_prefix(f"[29] {tag}", g, h)
+                   for g, h in zip(files, host))
+        rate = st["pairs"] / st["align_s"]
+        res[tag] = {"pairs_per_s": rate, "align_s": st["align_s"],
+                    "n_dispatched": eng.se.n_dispatched,
+                    "n_replayed": eng.n_replayed,
+                    "n_mate_filtered": eng.n_mate_filtered,
+                    "host_s": eng.t_host}
+        log(f"[29] {tag} ({' '.join(TRIM_PE_FLAGS + extra)}), -p 1: "
+            f"{N_TRIM_PAIRS} pairs in {st['align_s']:.3f} s = {rate:.1f} "
+            f"pairs/s (phase 9's SAM: {sam_rate:.1f}); n_dispatched "
+            f"{eng.se.n_dispatched}, n_replayed {eng.n_replayed}, pairs "
+            f"with a filtered mate {eng.n_mate_filtered}, "
+            f"{eng.t_host:.3f} s on the host engine; the first "
+            f"{N_PARITY} pairs byte-identical to the host engine ({size} "
+            "bytes)")
+        multi[f"trim_{tag}"] = ("one", argv + ["-p", "8"], files, PE_PATH,
+                                PE_PATH, (), N_TRIM_PAIRS, rate)
+    mp, c = phase_multiprocess(root, multi, dev, phase="29")
+    counts.extend(c)
+    for tag in res:
+        res[tag]["p8_pairs_per_s"] = mp[f"trim_{tag}"]["align_per_s"]
+        res[tag]["p8_wall_s"] = mp[f"trim_{tag}"]["wall_s"]
     return res, counts
 
 
@@ -3045,8 +3203,8 @@ def main() -> int:
         bam, c25 = phase_bam(root, g1, r1, gp, p1, p2, se_need)
         main_runs.extend(c25)
         meth = phase_methratio(root, g1, r1, gp)
-        # pair-end BSP with -2 (the per-pair path) in one process: the
-        # bytes phase 27's -p 2 workers must merge to
+        # pair-end BSP with -2 at -p 1: the bytes phase 27's -p 2 run
+        # (one process on the block path) must write
         bsp = ["-a", p1, "-b", p2, "-d", gp] + PE_FLAGS + ["-E",
                                                            str(N_PE_BSP)]
         bsp_one = [os.path.join(root, f"pe_bsp{x}.bsp") for x in ("", "_u")]
@@ -3054,6 +3212,8 @@ def main() -> int:
             "-o", bsp_one[0], "-2", bsp_one[1], "--device", "cuda", "-p",
             "1"])
         need_launches("[27] pair-end BSP, one process", c_bsp, PE_PATH)
+        if st_bsp["pe_path"] != "blocks":
+            raise AssertionError("[27] pair-end BSP off the block path")
         mp, c27 = phase_multiprocess(root, {
             "headline": ("nprocs", ["-a", r1, "-d", g1] + ALIGN_FLAGS,
                          [os.path.join(root, "head.sam")],
@@ -3066,10 +3226,12 @@ def main() -> int:
             "pe_76nt": ("nprocs", ["-a", p1, "-b", p2, "-d", gp] + PE_FLAGS,
                         [os.path.join(root, "pe.sam")], PE_PATH, PE_PATH, (),
                         N_PAIRS, pe["pairs_per_s"]),
-            "pe_76nt_bsp": ("workers", bsp + ["-p", str(N_NPROCS)], bsp_one,
+            "pe_76nt_bsp": ("one", bsp + ["-p", str(N_NPROCS)], bsp_one,
                             PE_PATH, PE_PATH, (), N_PE_BSP,
                             st_bsp["pairs"] / st_bsp["align_s"])})
         main_runs.extend(c27)
+        trim, c29 = phase_pe_trim(root, gp, pe["pairs_per_s"])
+        main_runs.extend(c29)
         scale = phase_genome_scale(root, main_runs, prep)
     finally:
         if prep.poll() is None:          # a phase before 28 failed
@@ -3095,7 +3257,13 @@ def main() -> int:
         "s; [27] launch to the (merged) file / one process's alignment "
         "phase: " + ", ".join(f"{k} ({v['how']}) {v['per_s_wall']:.1f} / "
                               f"{v['one_process_per_s']:.1f}"
-                              for k, v in mp.items()))
+                              for k, v in mp.items())
+        + "; [29] pair-end trimming on the block path (the synthetic "
+        "mix), pairs/s at -p 1 / "
+        "-p 8: " + ", ".join(f"{k} {v['pairs_per_s']:.1f} / "
+                              f"{v['p8_pairs_per_s']:.1f}"
+                              for k, v in trim.items())
+        + f" (phase 9's SAM {pe['pairs_per_s']:.1f})")
     log("[summary] seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in _PHASE_S.items()}))
     results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1, sres24,

@@ -65,19 +65,21 @@ def test_torch_cli_n1_matches_jax_engines(nd_data, reads, flags, suffix):
 
 @pytest.mark.parametrize("flags,suffix", [
     (["-S", "1", "-v", "2", "-u"], "sam"),       # block path
-    (["-S", "3", "-v", "3"], "bsp"),             # per-pair path, -2
+    (["-S", "3", "-v", "3"], "bsp"),             # both paths, -2
 ])
-def test_torch_cli_pe_n1_matches_jax_engines(nd_data, flags, suffix):
+def test_torch_cli_pe_n1_matches_jax_engines(nd_data, flags, suffix,
+                                             monkeypatch):
     """PE -n 1 on swapped pairs, every 8th cut to 51 nt (their pairs replay
     on the host after a MateState sync of both chains): the block path
-    (SAM) and the per-pair path (BSP with -2) equal both bsmap_tpu
-    engines' bytes."""
+    (SAM, and BSP with -2) and the per-pair path (BSP with -2, a mesh
+    engine) equal both bsmap_tpu engines' bytes."""
     tag = "pe_" + "_".join(flags).replace("-", "")
     base = ["-a", "p1.fq", "-b", "p2.fq", "-d", "refpe.fa", "-n", "1"] + flags
     outs = {"-o": f"{tag}.{suffix}"}
     if suffix == "bsp":
         outs["-2"] = f"{tag}_unpaired.bsp"
-    _three_way(nd_data, base, outs)
+    _three_way(nd_data, base, outs,
+               monkeypatch if suffix == "bsp" else None)
 
 
 @pytest.mark.parametrize("flags,suffix", [

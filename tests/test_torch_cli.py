@@ -65,10 +65,12 @@ def _cli(d, module, args):
     assert r.returncode == 0, r.stderr.decode()
 
 
-def _three_way(d, base, outs):
+def _three_way(d, base, outs, monkeypatch=None):
     """Run the port (``--device cpu``) and both bsmap_tpu engines on
     ``base``; ``outs`` maps each -o/-2 flag to a file name and every output
-    file must be byte-identical across the three runs."""
+    file must be byte-identical across the three runs.  With
+    ``monkeypatch`` (pair-end), the port runs once more on its per-pair
+    path (``_per_pair``), held to the same bytes."""
     runs = {"torch": ("bsmap_tpu_torch.cli", ["--device", "cpu"]),
             "device": ("bsmap_tpu.cli", ["--engine", "device"]),
             "host": ("bsmap_tpu.cli", ["--engine", "host"])}
@@ -79,6 +81,26 @@ def _three_way(d, base, outs):
     for name in outs.values():
         assert_same(d, f"host_{name}", f"torch_{name}")
         assert_same(d, f"device_{name}", f"torch_{name}")
+    if monkeypatch is not None:
+        _per_pair(d, base, outs, monkeypatch)
+
+
+def _per_pair(d, base, outs, monkeypatch):
+    """The port in this process on its pair-end per-pair path: the
+    read-stripe engine on one CPU device (``--engine sharded``; a mesh
+    engine, so not the block path), which must say so in ``pe_path``;
+    every output file byte-identical to the host engine's ``host_*``."""
+    from bsmap_tpu_torch import cli
+    monkeypatch.chdir(d)
+    monkeypatch.setenv("BSMAP_TPU_RANDR_SEED", ENV["BSMAP_TPU_RANDR_SEED"])
+    files = [x for flag, name in outs.items()
+             for x in (flag, f"pairs_{name}")]
+    st = {}
+    assert cli.run(base + files + ["--device", "cpu", "--engine", "sharded",
+                                   "-p", "1"], stats=st) == 0
+    assert st["pe_path"] == "pairs"
+    for name in outs.values():
+        assert_same(d, f"host_{name}", f"pairs_{name}")
 
 
 @pytest.mark.parametrize("reads,ref,flags,suffix", [
@@ -117,16 +139,19 @@ def test_torch_cli_matches_jax_engines(cli_data, reads, ref, flags, suffix):
                         "-A", "AGATCGGAAGAGC", "-u"], "sam"),
 ])
 def test_torch_cli_pe_matches_jax_engines(cli_data, pairs, ref, flags,
-                                          suffix):
+                                          suffix, monkeypatch):
     """Pair-end (-b): SAM with -S 1, -S 0 (pinned rand_r seed) and -r 0,
     BSP with the -2 unpaired file, XR tags (-R) and adapter/quality
-    trimming: the port's bytes equal both bsmap_tpu engines'."""
+    trimming: the port's bytes (the single-device engine's block path)
+    equal both bsmap_tpu engines'.  BSP, -R and trimming run once more on
+    the per-pair path (a mesh engine), held to the same bytes."""
     tag = f"{pairs}_{'_'.join(flags)}".replace("-", "")
     base = ["-a", f"{pairs}1.fq", "-b", f"{pairs}2.fq", "-d", ref] + flags
     outs = {"-o": f"{tag}.{suffix}"}
     if suffix == "bsp":
         outs["-2"] = f"{tag}_unpaired.bsp"
-    _three_way(cli_data, base, outs)
+    per_pair = suffix == "bsp" or "-R" in flags or "-A" in flags
+    _three_way(cli_data, base, outs, monkeypatch if per_pair else None)
 
 
 def test_torch_cli_pe_replays_filter_once(cli_data):
@@ -156,23 +181,28 @@ def test_torch_cli_pe_repeat_corners(repeat_pe_data):
     _three_way(repeat_pe_data, base, {"-o": "rep.sam"})
 
 
-def test_torch_cli_pe_per_pair_many_hits(tmp_path):
-    """The per-pair path (BSP with -2) under -S 1 on pairs whose mates have
-    twenty equal-best hits, more than the K = 16 compacted ones: the
-    unpaired draw may fall past the K hits (the pair replays, so the pick
-    must not fail first).  The port's bytes equal the host engine's."""
+def test_torch_cli_pe_per_pair_many_hits(tmp_path, monkeypatch):
+    """The per-pair path (BSP with -2, a mesh engine) under -S 1 on pairs
+    whose mates have twenty equal-best hits, more than the K = 16
+    compacted ones: the unpaired draw may fall past the K hits (the pair
+    replays, so the pick must not fail first).  The port's bytes equal the
+    host engine's there, and on the block path (the single-device
+    engine) too."""
     from .test_torch_pair import _rep_genome
     _rep_genome(tmp_path)
     base = ["-a", "rep_1.fq", "-b", "rep_2.fq", "-d", "rep.fa", "-S", "1",
             "-v", "2"]
     runs = (("torch", "bsmap_tpu_torch.cli", ["--device", "cpu"]),
             ("host", "bsmap_tpu.cli", ["--engine", "host"]))
+    outs = {"-o": "rep.bsp", "-2": "rep_unpaired.bsp"}
     for tag, module, extra in runs:
-        _cli(tmp_path, module, base + ["-o", f"{tag}.bsp", "-2",
-                                       f"{tag}_unpaired.bsp"] + extra)
-    for name in ("", "_unpaired"):
-        assert_same(tmp_path, f"host{name}.bsp", f"torch{name}.bsp")
-    assert (tmp_path / "torch.bsp").stat().st_size > 0
+        _cli(tmp_path, module, base + [x for flag, name in outs.items()
+                                       for x in (flag, f"{tag}_{name}")]
+             + extra)
+    for name in outs.values():
+        assert_same(tmp_path, f"host_{name}", f"torch_{name}")
+    assert (tmp_path / "torch_rep.bsp").stat().st_size > 0
+    _per_pair(tmp_path, base, outs, monkeypatch)
 
 
 @pytest.mark.parametrize("flags", [["--engine", "tpu"]])

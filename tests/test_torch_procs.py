@@ -88,15 +88,33 @@ def _cases():
         out.append((f"{tag}-fq-auto-host-genome", ["-a", "r.fq"] + flags,
                     suffix, HUGE, per_read))
     pe = ["-a", "r.fq", "-b", "r.fq"]
+    # pair-end trimming, BSP and -R: one process on the card's
+    # single-device engine (the block path), workers elsewhere
     for eng in ENGINES + ["host"]:
         for dev in ("cuda", "cpu"):
             run = pe + ["--engine", eng, "--device", dev]
+            block = dev == "cuda" and eng in ("device", "auto")
             out += [(f"pe-trim-{eng}-{dev}", run + ADAPTER, "sam", SMALL,
-                     True),
+                     not block),
                     (f"pe-bsp-{eng}-{dev}", run + ["-2", "u.bsp"], "bsp",
-                     SMALL, True),
-                    (f"pe-xr-{eng}-{dev}", run + ["-R"], "sam", SMALL, True),
+                     SMALL, not block),
+                    (f"pe-xr-{eng}-{dev}", run + ["-R"], "sam", SMALL,
+                     not block),
                     (f"pe-sam-{eng}-{dev}", run, "sam", SMALL, False)]
+    for kind, flags, suffix in (("trim", ADAPTER + ["-q", "2"], "sam"),
+                                ("bsp", ["-2", "u.bsp"], "bsp")):
+        out.append((f"pe-{kind}-fa-device-cuda",
+                    ["-a", "r.fa", "-b", "r.fa"] + flags, suffix, SMALL,
+                    False))
+        for fmt in ("sam", "bam"):     # SAM/BAM mates: the per-pair path
+            out.append((f"pe-{kind}-{fmt}-device-cuda",
+                        ["-a", f"r.{fmt}", "-b", f"r.{fmt}"] + flags,
+                        suffix, SMALL, True))
+        out.append((f"pe-{kind}-fq-auto-host-genome", pe + flags, suffix,
+                    HUGE, True))
+        # pair-end RRBS: auto gives way to the host engine
+        out.append((f"pe-rrbs-{kind}-fq-auto-cuda",
+                    pe + ["-D", "C-CGG"] + flags, suffix, SMALL, True))
     return out
 
 
@@ -107,15 +125,62 @@ CASES = _cases()
 def test_wants_local_mp(reads, one_card, monkeypatch, case):
     """-p 8 starts workers only where one process cannot use -p threads:
     --device cpu, --engine host, SAM/BAM input, auto giving way to the
-    host engine (on a per-read configuration), and the pair-end per-pair
-    path; single-end FASTA/FASTQ on a PyTorch engine on the card is one
-    process.  -p 1 is one process everywhere."""
+    host engine (on a per-read configuration, pair-end RRBS included), and
+    the pair-end per-pair path of the mesh engines; single-end
+    FASTA/FASTQ on a PyTorch engine on the card, and pair-end on its
+    single-device engine (trimming, BSP and -R included), is one process.
+    -p 1 is one process everywhere."""
     from bsmap_tpu_torch import cli
     _id, argv, suffix, genome, workers = case
     monkeypatch.chdir(reads)
     assert cli._wants_local_mp(options(argv, suffix), genome) is workers
     assert not cli._wants_local_mp(options(argv + ["-p", "1"], suffix),
                                    genome)
+
+
+@pytest.mark.parametrize("engine, workers", [("auto", True),
+                                             ("device", False),
+                                             ("sharded", True)])
+def test_wants_local_mp_pe_two_cards(reads, one_card, monkeypatch, engine,
+                                     workers):
+    """With two cards, pair-end BSP under auto runs the read-stripe
+    engine's per-pair path: -p 8 starts workers; --engine device keeps
+    one process on the block path."""
+    import torch
+    from bsmap_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.chdir(reads)
+    o = options(["-a", "r.fq", "-b", "r.fq", "-2", "u.bsp", "--engine",
+                 engine], "bsp")
+    assert cli._wants_local_mp(o, SMALL) is workers
+
+
+def test_formatter_build_failure_keeps_workers(reads, one_card, tmp_path,
+                                               monkeypatch, capsys):
+    """A pair formatter that does not compile: ``get_lib`` prints the
+    compiler's error and the route on stderr and returns None, the block
+    path's runtime is missing, and -p 8 pair-end BSP on the card's
+    single-device engine (one process while the formatter builds) starts
+    workers for the per-pair path."""
+    from bsmap_tpu_torch import cli
+    from bsmap_tpu_torch.engine import pair_device
+    from bsmap_tpu_torch.native import pe_format
+    monkeypatch.chdir(reads)
+    o = options(["-a", "r.fq", "-b", "r.fq", "-2", "u.bsp", "--engine",
+                 "device"], "bsp")
+    assert not cli._wants_local_mp(o, SMALL)
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("not C++\n")
+    monkeypatch.setattr(pe_format, "SRC", str(bad))
+    monkeypatch.setattr(pe_format, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(pe_format, "_LIB", None)
+    monkeypatch.setattr(pe_format, "_TRIED", False)
+    capsys.readouterr()
+    assert not pair_device.pair_block_runtime()
+    err = capsys.readouterr().err
+    assert "bad.cpp" in err
+    assert "engine: per-pair path (pe_format unavailable)" in err
+    assert cli._wants_local_mp(o, SMALL)
 
 
 @pytest.fixture(scope="module")
