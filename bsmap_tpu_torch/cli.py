@@ -345,8 +345,11 @@ def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
     this process's range under ``--nprocs``; with ``pe_path``, "blocks"
     or "pairs"), ``align_s``, ``engine`` (the
     engine object), ``engine_name`` (the engine that ran: ``auto``
-    resolved, ``host`` where it gave way) and, for ``.bam`` output, the
-    conversion's ``bam_s`` (not in ``align_s``).  ``mesh`` overrides the
+    resolved, ``host`` where it gave way), for ``.bam`` output the
+    conversion's ``bam_s`` (not in ``align_s``) and, for single-end BSP
+    or XR under ``--nprocs`` past the first range, ``walk_s``: the
+    seconds that took the output state over from the reads before it
+    (``distributed.reconstruct_format_state``).  ``mesh`` overrides the
     device list of the mesh engines and of ``auto``'s choice (it may
     repeat a device)."""
     if not argv:
@@ -645,14 +648,28 @@ def run_multihost_se(o: Options, genome, index, stats: dict | None = None,
 
         engine = with_host_fallback(
             o, lambda: make_engine(o, genome, index, mesh), host, stats)
-        if s > 1:
+        fmt = SamFormatter(genome, p, RandR(1))
+        # a single process starts fresh at the user's -B (read_start)
+        if s > p.read_start:
             dist.reconstruct_state(engine, o.query_a, p, s)
+            if not p.out_sam or p.out_ref:
+                # BSP and XR print what leaks from read to read (a QC
+                # line's orientation, a context's leading bases): take it
+                # over from the reads before s
+                t0 = time.perf_counter()
+                dist.reconstruct_format_state(engine, fmt, o.query_a, p, s,
+                                              first=p.read_start)
+                walk_s = time.perf_counter() - t0
+                print(f"range start {s}: hits[0][0] slot {fmt.stale_h00}, "
+                      f"context {bytes(fmt._mapseq[:2])} from the reads "
+                      f"before it in {walk_s:.6f} s", file=sys.stderr)
+                if stats is not None:
+                    stats["walk_s"] = walk_s
         p.read_start, p.read_end = s, e
         # written through a .tmp and renamed: a shard that dies midway
         # never looks complete to the merger
         shard_path = final_out + f".shard{o.proc_id}"
         o.out_file = shard_path + ".tmp"
-        fmt = SamFormatter(genome, p, RandR(1))
         timer = StepTimer()
         t0 = time.perf_counter()
         from .readio import detect_format
@@ -705,7 +722,7 @@ def run_multihost_pair(o: Options, genome, index, stats: dict | None = None,
         engine = with_host_fallback(
             o, lambda: make_pair_engine(o, genome, index, mesh),
             lambda: HostPairBatch(genome, index, p), stats)
-        if s > 1:
+        if s > p.read_start:    # a single process starts fresh at -B
             dist.reconstruct_pair_state(engine, o.query_a, o.query_b, p, s)
         p.read_start, p.read_end = s, e
         final_out, final_unpair = o.out_file, o.out_unpair

@@ -511,13 +511,16 @@ class DeviceEngine:
                     for i in range(p.index_interval))
         return self._amax_cache[seedseg]
 
-    def _fx_eligible(self, lens: np.ndarray, budgets: np.ndarray) -> bool:
+    def _fx_eligible(self, lens: np.ndarray, budgets: np.ndarray,
+                     ncnt: np.ndarray) -> bool:
         """True when EVERY read supports the fixed-schedule fast path:
         full sensitivity (seedseg == budget+1, so the pigeonhole hit set is
-        schedule-independent) and all offset-0 probes within the fresh seed
-        range."""
+        schedule-independent), all offset-0 probes within the fresh seed
+        range, and no N (``ncnt``, the reads' non-ACGT bases): an N costs
+        no mismatch but a seed over it matches no index entry, so which
+        hits a read with one finds depends on where its seeds lie."""
         p = self.param
-        if p.RRBS_flag or len(lens) == 0:
+        if p.RRBS_flag or len(lens) == 0 or np.any(ncnt):
             return False
         S, I = p.seed_size, p.index_interval
         lens = np.ascontiguousarray(lens, dtype=np.int64)
@@ -1022,7 +1025,8 @@ class DeviceEngine:
         cfg = self._cfg("b" if p.chains
                         else ("r" if block.readset == 2 else "f"), lean=lean,
                         nw=nw)
-        fx_ok = lean and self._fx_eligible(lens_l, buds)
+        fx_ok = lean and self._fx_eligible(
+            lens_l, buds, self.encode_block(block)[1][live_pos, 2 * nw + 3])
         fin = self._align_arrays(
             cfg, rows_l, lambda t: block.read_obj(int(live_pos[t])),
             risk=risk, fx_ok=fx_ok, defer=True)
@@ -1058,6 +1062,34 @@ class DeviceEngine:
         else:
             chain, hit = 1, res.chits[ii][j - int(res.n_hit[ii])]
         return (1, ii, ssum, chain, int(hit[0]), int(hit[1]))
+
+    @staticmethod
+    def _carry_stale_h00(rows_all, status, MS: int, fmt,
+                         qc_strand: bool) -> None:
+        """Carry the hits[0][0] slot through one block in read order, as
+        ``string_align``/``emit_device`` do (``fmt.stale_h00``): a result
+        row with ``X_H00F`` sets it, a QC row (status 1, all zeros) takes
+        it as it stands.  With ``qc_strand`` (BSP) each QC row gets the
+        slot's ``X_CHRP`` and ``X_CHAIN = 0``: its line is
+        reverse-complemented when the slot lies on a Crick strand
+        (``_out_bsp``, align.cpp:723-760)."""
+        ex = 2 * MS
+        set_at = np.flatnonzero(rows_all[:, ex + X_H00F])
+        slot_cols = [ex + X_H00C, ex + X_H00W]
+        qc = np.flatnonzero(status == 1) if qc_strand else set_at[:0]
+        if len(qc):
+            # the last row before each QC row that set the slot; -1 where
+            # none in this block did (the slot the block started with)
+            k = np.searchsorted(set_at, qc) - 1
+            slot = np.tile(np.array(fmt.stale_h00, dtype=np.int32),
+                           (len(qc), 1))
+            slot[k >= 0] = rows_all[set_at[k[k >= 0]]][:, slot_cols]
+            rows_all[qc, ex + X_CHRP] = slot[:, 0]
+            rows_all[qc, ex + X_WLOC] = slot[:, 1]
+            rows_all[qc, ex + X_CHAIN] = 0
+        if len(set_at):
+            c, w = rows_all[set_at[-1], slot_cols]
+            fmt.stale_h00 = (int(c), int(w))
 
     def _format_block_full(self, block, aligned, fmt) -> bytes:
         """BSP / -R SAM native block formatting over FULL result rows.
@@ -1104,9 +1136,14 @@ class DeviceEngine:
             row[ex + X_CHAIN] = chain
             row[ex + X_CHRP] = chrp
             row[ex + X_WLOC] = wloc
+            if res.hits[0]:
+                row[ex + X_H00F] = 1
+                row[ex + X_H00C], row[ex + X_H00W] = res.hits[0][0]
             rows_all[pos] = row
         if fcum is not None:
             fmt.rand_r.skip(int(fcum[n_all] - fcum[prev]))
+        self._carry_stale_h00(rows_all, status, MS, fmt,
+                              qc_strand=p.out_sam == 0)
         un = self.param.useful_nt[:4].encode("latin1")
         total_codes = len(self.genome.refcat) * SEGLEN
         if p.out_sam >= 1:

@@ -620,7 +620,11 @@ int64_t bsmap_format_bsp_block(
         if (!out_unmap && (nn <= 0 || (nn > 1 && rrhits == 0))) continue;
         memcpy(o, buf + name_off, name_len); o += name_len;
         *o++ = '\t';
-        bool rc = nn > 0 && ((chain ^ (chrp & 1)) != 0);
+        // (chain ^ chrp % 2) && n, as _out_bsp: a QC row (nn = -1) carries
+        // the stale hits[0][0] slot's chrp with chain 0, so its line is
+        // reverse-complemented when that slot lies on a Crick strand; an
+        // NM row (nn = 0) stays forward
+        bool rc = nn != 0 && ((chain ^ (chrp & 1)) != 0);
         const uint8_t* s = buf + seq_off;
         if (rc) {
             for (int64_t k = seq_len - 1; k >= 0; k--) *o++ = revc[s[k]];

@@ -43,13 +43,15 @@ def initialize(coordinator: str | None, num_processes: int,
 
 
 def count_reads(path: str, param) -> int:
-    """Fast full-file read count with the native tokenizer (one pass)."""
+    """Fast full-file read count with the native tokenizer (one pass);
+    SAM/BAM input, which the tokenizer does not read, through its own
+    stream."""
     from .. import native
     from ..blockio import BlockReadStream
+    from ..readio import detect_format, open_read_stream
     lib = native.get_lib()
-    if lib is None:
-        from ..readio import ReadStream
-        s = ReadStream(path, param, 0)
+    if lib is None or detect_format(path) >= 2:
+        s = open_read_stream(path, param, 0)
         n = 0
         while True:
             b = s.next_batch(50000)
@@ -93,7 +95,7 @@ def _reconstruct_into(host, state, path: str, param, range_start: int,
     temporary fill).  The window doubles until it contains such a read (or
     reaches the start of the file)."""
     from ..engine.host_engine import MateState, fill_seed_buffers
-    from ..readio import ReadStream
+    from ..readio import open_read_stream
     from ..trim import filter_read
 
     if range_start <= 1:
@@ -106,7 +108,7 @@ def _reconstruct_into(host, state, path: str, param, range_start: int,
         p2 = copy.copy(p)
         p2.read_start = w0
         p2.read_end = range_start - 1
-        s = ReadStream(path, p2, readset)
+        s = open_read_stream(path, p2, readset)
         reads = s.next_batch(range_start - w0)
         s.close()
         live = []
@@ -140,6 +142,80 @@ def reconstruct_state(engine, path: str, param, range_start: int,
     host = getattr(engine, "host", engine)
     _reconstruct_into(host, host.mate_state, path, param, range_start,
                       readset=0, window=window)
+
+
+def reconstruct_format_state(engine, fmt, path: str, param,
+                             range_start: int, first: int = 1,
+                             window: int = 16) -> None:
+    """SE: set the output state that leaks from read to read (the
+    reference's hits[0][0] slot and _mapseq context buffer) in ``fmt``, a
+    fresh SamFormatter, and in ``engine``'s native context buffer, as a
+    single-process run from read ``first`` (the user's -B) holds them at
+    ``range_start``.  BSP QC lines print in the slot's orientation
+    (``stale_h00``: that of the last read with a level-0 forward hit, (0, 0)
+    where none has one; output/sam.py ``_out_bsp``), and a context string
+    (BSP, XR) at a hit at chromosome position 0 or 1 keeps the buffer's
+    leading slots from the context before it (``_context``).  The reads
+    of a window before the boundary are aligned and formatted in order by
+    ``engine`` itself (its per-read path, output dropped) on a MateState
+    rebuilt at the window's start (fresh at ``first``), so every alignment
+    and context is the one the single-process run made; the window
+    doubles until it holds a context at position 2 or later and, where
+    QC lines print (BSP with -u), the slot's read, or starts at
+    ``first``.  The engine's own MateState is left as it was.  Pair-end
+    prints a filtered mate with the hit (0, 0) (output/pair_sam.py), but
+    its context buffers leak the same way; they are not taken over."""
+    import copy
+    from ..engine.host_engine import MateState
+    from ..output.sam import SamFormatter
+    from ..readio import open_read_stream
+    from ..utils import RandR
+
+    class Walk(SamFormatter):
+        """Records whether a context wrote the buffer's leading slots."""
+
+        full_context = False
+
+        def _context(self, chr_packed, loc, read_len):
+            self.full_context |= loc >= 2
+            return super()._context(chr_packed, loc, read_len)
+
+    if range_start <= first:
+        return
+    unset = (-1, -1)
+    need_h00 = (not param.out_sam and param.out_unmap
+                and param.report_repeat_hits)
+    host = getattr(engine, "host", engine)
+    kept = host.mate_state
+    try:
+        while True:
+            w0 = max(first, range_start - window)
+            host.mate_state = MateState()
+            if w0 > first:
+                _reconstruct_into(host, host.mate_state, path, param, w0)
+            p2 = copy.copy(param)
+            p2.read_start, p2.read_end = w0, range_start - 1
+            s = open_read_stream(path, p2, 0)
+            reads = s.next_batch(range_start - w0)
+            s.close()
+            walk = Walk(fmt.genome, param, RandR(1))
+            walk.stale_h00 = unset
+            if hasattr(engine, "format_batch"):
+                engine.format_batch(reads, walk)
+            else:
+                for rd in reads:
+                    walk.string_align(rd, engine.align(rd))
+            if (walk.full_context and (walk.stale_h00 != unset
+                                       or not need_h00)) or w0 == first:
+                break
+            window *= 2
+    finally:
+        host.mate_state = kept
+    if walk.stale_h00 != unset:
+        fmt.stale_h00 = walk.stale_h00
+    fmt._mapseq[:] = walk._mapseq
+    if hasattr(engine, "_mapseq_buf"):
+        engine._mapseq_buf[:] = np.frombuffer(bytes(walk._mapseq), np.uint8)
 
 
 def reconstruct_pair_state(pair_engine, path_a: str, path_b: str, param,

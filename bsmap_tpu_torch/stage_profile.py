@@ -3,7 +3,7 @@
 
     python3 -m bsmap_tpu_torch.stage_profile [--reads N]
                                              [--repeat | --pe | --rrbs]
-                                             [--chains]
+                                             [--chains] [--bsp]
                                              [--engine index-sharded
                                               [--shards D]]
     python3 -m bsmap_tpu_torch.stage_profile [--rrbs] --launch N1,N2,...
@@ -33,6 +33,9 @@ each share S of pairs with a filtered mate (each mate filtered at
 the host engine spends on them (``PairDeviceEngine.t_host``), so that the
 cost of that route is measured at shares the synthetic set does not
 have.
+With --bsp the single-end stages write BSP with -u (full result rows, the
+native BSP formatter, the stale hits[0][0] slot carried through each block)
+in place of SAM.
 With --engine index-sharded (SE WGBS only) the stages run on
 ``IndexShardedEngine`` over D region shards (--shards, default 4),
 round-robin over the visible cards, and then once more on the
@@ -101,9 +104,10 @@ RRBS_FLAGS = ["-D", "C-CGG", "-A", "AGATCGGAAGAGC", "-q", "2", "-S", "17"]
 
 
 def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
-               align_flags=SE_FLAGS, mesh=None):
+               align_flags=SE_FLAGS, mesh=None, bsp: bool = False):
     """The SE engine's stages over the headline, chr21-class or RRBS
-    blocks; on ``IndexShardedEngine`` over ``mesh`` when one is given.
+    blocks; on ``IndexShardedEngine`` over ``mesh`` when one is given;
+    with ``bsp``, BSP output (full result rows, ``_format_block_full``).
     (``dev`` = "cpu" rehearses them with the kernels' twins.)"""
     import torch
     from . import cli, native
@@ -114,9 +118,10 @@ def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
     from .utils import RandR
 
     flags = ["-a", rpath, "-d", gpath] + align_flags
-    o = cli.parse_args(flags + ["-o", os.path.join(root, "x.sam")])
+    o = cli.parse_args(flags + ["-o", os.path.join(
+        root, "x.bsp" if bsp else "x.sam")])
     p = o.param
-    p.out_sam = 1
+    p.out_sam = int(not bsp)
     genome = cli.load_genome(gpath, p)
     index = cli.get_index(o, genome)
     eng = (DeviceEngine(genome, index, p, device=dev) if mesh is None
@@ -229,8 +234,9 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
               "n_replayed": eng.n_replayed}
     outs = ["-o", os.path.join(root, "run.sam")]
     if not eng.param.out_sam:
-        outs = ["-o", os.path.join(root, "run.bsp"), "-2",
-                os.path.join(root, "run_u.bsp")]
+        outs = ["-o", os.path.join(root, "run.bsp")] + (
+            ["-2", os.path.join(root, "run_u.bsp")] if unit == "pairs"
+            else [])
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -441,6 +447,9 @@ def main() -> int:
                     help="comma-separated read counts: launch-to-file "
                     "times at -p 8 with trimming, one process against "
                     "workers (module docstring)")
+    ap.add_argument("--bsp", action="store_true",
+                    help="single-end BSP output with -u (full result rows "
+                    "and the BSP formatter) in place of SAM")
     ap.add_argument("--filtered", default=None,
                     help="with --pe: comma-separated shares of pairs with a "
                     "filtered mate, for the trimmed BSP sweep alone "
@@ -448,6 +457,9 @@ def main() -> int:
     args = ap.parse_args()
     if args.filtered and not args.pe:
         ap.error("--filtered goes with --pe")
+    if args.bsp and (args.pe or args.launch):
+        ap.error("--bsp profiles the single-end stages (--pe profiles "
+                 "BSP with -2 already)")
     sharded = args.engine == "index-sharded"
     if sharded and (args.pe or args.rrbs):
         ap.error("--engine index-sharded profiles SE WGBS (headline or "
@@ -501,7 +513,8 @@ def main() -> int:
                 gpath, rpath = gen(root, n_reads=n)
             if args.chains:
                 rpath = nondirectional(rpath, os.path.join(root, "nd.fq"))
-            flags = (RRBS_FLAGS if args.rrbs else SE_FLAGS) + n1
+            flags = ((RRBS_FLAGS if args.rrbs else SE_FLAGS) + n1
+                     + (["-u"] if args.bsp else []))
             meshes = [None]
             if sharded:
                 ncard = torch.cuda.device_count()
@@ -511,8 +524,8 @@ def main() -> int:
             for mesh in meshes:
                 name = "device" if mesh is None else "index-sharded"
                 res[name] = _profile(root, _se_stages(
-                    root, gpath, rpath, align_flags=flags, mesh=mesh), unit,
-                    n, mesh)
+                    root, gpath, rpath, align_flags=flags, mesh=mesh,
+                    bsp=args.bsp), unit, n, mesh)
                 if mesh is not None:
                     res[name]["shards"] = args.shards
                     res[name]["mesh"] = sorted(set(map(str, mesh)))
@@ -526,7 +539,8 @@ def main() -> int:
                     else "rrbs_mspi_trim" if args.rrbs
                     else "chr21_class" if args.repeat else "headline"
                     + (" with -A/-q trimming" if sizes else ""))
-           + (", -n 1 non-directional" if args.chains else ""), unit: n,
+           + (", -n 1 non-directional" if args.chains else "")
+           + (", BSP -u" if args.bsp else ""), unit: n,
            **res}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -198,11 +198,23 @@ Phases (each raises on failure; any failure exits non-zero):
      then at -p 8 in a process of its own, which the CLI keeps one
      process (exactly one LAUNCH_DUMP record, K2-K6), each file
      byte-identical to the -p 1 run's.
+ 30. QC lines of single-end BSP (after 29, before phase 28's wait): the
+     first 5,000 headline reads with Ns put into every 16th read (8 Ns,
+     a QC read, in every second of them; ``make_qc_set``), -S 17 -v 2 -u
+     -A AGATCGGAAGAGC -q 20, on the block path at -p 1 in this process
+     (K2-K4, never K1: BSP takes full rows), byte-identical to the host
+     engine, which prints a QC line in the orientation of the hits[0][0]
+     slot of the last read with a level-0 forward hit; the count of QC
+     lines and how many are reverse-complemented (both orientations must
+     occur); then at -p 8 (one process, exactly one LAUNCH_DUMP record) and
+     under --nprocs 2, whose second range starts on a QC read (its slot
+     taken over from the reads before it: the seconds that took, from
+     process 1's log), each byte-identical to the host engine.
 
 The CLI's default -p 8 starts worker processes on the pair-end per-pair
 path of the mesh engines and under --device cpu; every phase but 27 and
 the -p 8 runs of 29 runs in this process (``BSMAP_TPU_LOCAL_MP=0``), with
-the default -p 8 encode threads but phases 14 and 29 (-p 1).
+the default -p 8 encode threads but phases 14, 29 and 30 (-p 1).
 
 The kernels' launch counters are zeroed right before each run of a main
 path and read right after it: phase 4 to 5 (the single-end path: K1-K4
@@ -216,7 +228,8 @@ SE and PE paths) and its -a in.bam run (K3, K4), every process of
 phase 27 (what phase 4 launched, K2-K6, the RRBS path) and its
 one-process pair-end BSP run (K2-K6), counted in the processes
 themselves, phase 29's runs (K2-K6, in this process and in its -p 8
-processes) and phase 28's two runs (K1-K4, K2-K6).
+processes), phase 30's runs (K2-K4, never K1, in this process and in
+each of its other processes) and phase 28's two runs (K1-K4, K2-K6).
 Every kernel's JSON row has its launches summed over those runs, its
 error against the twin, its time and the twin's at the single-end
 headline window (the pair-end one for K5 and K6), and its bound there: the bytes it must move over the card's memory
@@ -314,6 +327,11 @@ TRIM_PE_FLAGS = ["-S", "17", "-A", RRBS_ADAPTER, "-q", "2"]
 TRIM_PE_RUNS = (("bsp", ["-R"], ("bsp", "-2")),
                 ("sam_xr", ["-R", "-u"], ("sam",)))
 PROC_TIMEOUT = 900               # seconds: phases 25-27's other processes
+# phase 30: single-end BSP -u with trimming on reads with Ns; a read k
+# (1-based) with k % N_QC_EVERY == N_QC_AT gets Ns, so --nprocs 2's second
+# range (read N_PARITY / 2 + 1) starts on one
+QC_FLAGS = ["-S", "17", "-v", "2", "-u", "-A", RRBS_ADAPTER, "-q", "20"]
+N_QC_EVERY, N_QC_AT = 16, 5
 # per-kernel extras of the JSON line: the launch form or group width in use
 # and the other one's time, K3's parts by kernel name, the library scan
 FORM_KEYS = ("device_ms", "parts_ms", "variant", "variant_ms",
@@ -2768,6 +2786,99 @@ def phase_pe_trim(root: str, gp: str, sam_rate: float,
     return res, counts
 
 
+def make_qc_set(src: str, dst: str, n: int) -> None:
+    """Phase 30's reads: the first ``n`` FASTQ records of ``src`` with Ns
+    put into each read k (1-based) with k % N_QC_EVERY == N_QC_AT, at
+    random places (seed 30): 8 Ns (a QC read under the default -f 5) where
+    k // N_QC_EVERY is even, else 3."""
+    import itertools
+    rng = random.Random(30)
+    with open(src, "rb") as f:
+        lines = list(itertools.islice(f, 4 * n))
+    for k in range(N_QC_AT, n + 1, N_QC_EVERY):
+        seq = bytearray(lines[4 * (k - 1) + 1].rstrip(b"\n"))
+        for i in rng.sample(range(len(seq)), 8 if k // N_QC_EVERY % 2 == 0
+                            else 3):
+            seq[i] = ord("N")
+        lines[4 * (k - 1) + 1] = bytes(seq) + b"\n"
+    with open(dst, "wb") as f:
+        f.writelines(lines)
+
+
+def qc_line_counts(bsp: str, reads: str) -> tuple:
+    """(QC lines, those reverse-complemented) of a BSP file: a QC line
+    prints the read as trimmed, or reverse-complemented where the stale
+    hits[0][0] slot lies on a Crick strand."""
+    with open(reads, "rb") as f:
+        lines = f.read().splitlines()
+    seqs = {lines[k][1:]: lines[k + 1] for k in range(0, len(lines), 4)}
+    n_qc = n_rc = 0
+    with open(bsp, "rb") as f:
+        for ln in f:
+            name, seq, _qual, cls = ln.split(b"\t", 4)[:4]
+            if cls.rstrip(b"\n") == b"QC":
+                n_qc += 1
+                n_rc += seq != seqs[name][: len(seq)]
+    return n_qc, n_rc
+
+
+def phase_qc_lines(root: str, g1: str, r1: str, dev: str = "cuda") -> tuple:
+    """Phase 30: QC lines of single-end BSP -u on the block path (module
+    docstring).  Returns (numbers, the launch counts of each main-path
+    run)."""
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "qc")
+    os.makedirs(d, exist_ok=True)
+    reads = os.path.join(d, "qc.fq")
+    make_qc_set(r1, reads, N_PARITY)
+    argv = ["-a", reads, "-d", g1] + QC_FLAGS
+    one, host = (os.path.join(d, f"{w}.bsp") for w in ("one", "host"))
+    # BSP rows are full rows: the exact schedule, never the fixed one
+    need, never = ("exact_schedule", "verify_candidates",
+                   "reduce_reads"), ("fixed_schedule",)
+    K.reset_launch_counts()
+    st = run_cli(argv + ["-o", one, "--device", dev, "-p", "1"])
+    counts = [K.launch_counts()]
+    need_launches("[30] QC lines, -p 1", counts[-1], need, never)
+    t0 = time.perf_counter()
+    run_cli(argv + ["-o", host, "--engine", "host", "-p", "1"])
+    host_s = time.perf_counter() - t0
+    size = assert_same_file("[30] -p 1", one, host)
+    n_qc, n_rc = qc_line_counts(host, reads)
+    if not 0 < n_rc < n_qc:
+        raise AssertionError(f"[30] {n_rc} of {n_qc} QC lines turned: "
+                             "expected both orientations")
+    rate = st["reads"] / st["align_s"]
+    log(f"[30] QC lines ({' '.join(QC_FLAGS)}; Ns in every "
+        f"{N_QC_EVERY}th read): {N_PARITY} reads, -p 1 at {rate:.1f} "
+        f"reads/s, byte-identical to the host engine ({size} bytes, host "
+        f"{host_s:.1f} s); {n_qc} QC lines, {n_rc} reverse-complemented")
+    mp, c = phase_multiprocess(root, {
+        "qc_p8": ("one", argv + ["-p", "8"], [host], need, need, never,
+                  N_PARITY, rate),
+        "qc_nprocs": ("nprocs", argv, [host], need, need, never, N_PARITY,
+                      rate)}, dev, phase="30")
+    counts.extend(c)
+    with open(os.path.join(root, "mp", "qc_nprocs.bsp.1.log")) as f:
+        walk = re.findall(r"range start (\d+): hits\[0\]\[0\] slot "
+                          r"\((\d+), (\d+)\), context .* from the reads "
+                          r"before it in ([0-9.]+) s", f.read())
+    with open(host, "rb") as f:
+        first = f.read().splitlines()[N_PARITY // 2].split(b"\t")[3]
+    if (len(walk) != 1 or int(walk[0][0]) != N_PARITY // 2 + 1
+            or first != b"QC"):
+        raise AssertionError(f"[30] --nprocs 2, process 1: walk back {walk}"
+                             f", its first read's class {first}")
+    walk_s = float(walk[0][3])
+    log(f"[30] --nprocs 2: process 1's range starts at read {walk[0][0]} "
+        f"(a QC read) with the slot ({walk[0][1]}, {walk[0][2]}) taken over "
+        f"in {walk_s:.6f} s")
+    return {"reads": N_PARITY, "qc_lines": n_qc, "qc_reverse": n_rc,
+            "p1_reads_per_s": rate, "host_s": host_s, "walk_s": walk_s,
+            "p8_align_per_s": mp["qc_p8"]["align_per_s"],
+            "nprocs_wall_s": mp["qc_nprocs"]["wall_s"]}, counts
+
+
 def scale_se_kernels(K, eng, rpath: str, errs: dict) -> dict:
     """Phase 28's single-end kernels against their twins on the first
     window of the hg38-class reads, on the tables step's engine: round 1
@@ -3232,6 +3343,8 @@ def main() -> int:
         main_runs.extend(c27)
         trim, c29 = phase_pe_trim(root, gp, pe["pairs_per_s"])
         main_runs.extend(c29)
+        qc, c30 = phase_qc_lines(root, g1, r1)
+        main_runs.extend(c30)
         scale = phase_genome_scale(root, main_runs, prep)
     finally:
         if prep.poll() is None:          # a phase before 28 failed
@@ -3263,7 +3376,10 @@ def main() -> int:
         "-p 8: " + ", ".join(f"{k} {v['pairs_per_s']:.1f} / "
                               f"{v['p8_pairs_per_s']:.1f}"
                               for k, v in trim.items())
-        + f" (phase 9's SAM {pe['pairs_per_s']:.1f})")
+        + f" (phase 9's SAM {pe['pairs_per_s']:.1f}); [30] BSP -u QC "
+        f"lines: {qc['qc_lines']} ({qc['qc_reverse']} reverse-complemented) "
+        f"at -p 1, -p 8 and --nprocs 2, range start taken over in "
+        f"{qc['walk_s']:.3f} s")
     log("[summary] seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in _PHASE_S.items()}))
     results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1, sres24,
