@@ -578,7 +578,8 @@ def _cleanup_shards(o: Options, n: int) -> None:
         if not base:
             continue
         for k in range(n):
-            for suf in (f".shard{k}", f".shard{k}.done", f".shard{k}.tmp"):
+            for suf in (f".shard{k}", f".shard{k}.done", f".shard{k}.tmp",
+                        f".shard{k}.ctx", f".shard{k}.ctx.tmp"):
                 try:
                     os.remove(base + suf)
                 except OSError:
@@ -651,7 +652,8 @@ def run_multihost_se(o: Options, genome, index, stats: dict | None = None,
         fmt = SamFormatter(genome, p, RandR(1))
         # a single process starts fresh at the user's -B (read_start)
         if s > p.read_start:
-            dist.reconstruct_state(engine, o.query_a, p, s)
+            dist.reconstruct_state(engine, o.query_a, p, s,
+                                   first=p.read_start)
             if not p.out_sam or p.out_ref:
                 # BSP and XR print what leaks from read to read (a QC
                 # line's orientation, a context's leading bases): take it
@@ -706,11 +708,16 @@ def run_multihost_pair(o: Options, genome, index, stats: dict | None = None,
     mates' MateStates rebuilt exactly at the boundary, the shards merged in
     order on process 0, as bsmap_tpu/cli.py:438-494.  The engine is chosen
     as in a one-process run (``--engine auto`` included: the host engine
-    for pair-end -D)."""
+    for pair-end -D).  Where contexts print (BSP, SAM ``-R``), each range
+    records the context bytes it prints from buffer slots it has not
+    written yet and the merge sets them from the ranges before it
+    (parallel/carry.py); ``stats`` gets the count (``ctx_patches``) and
+    the seconds of the sidecar reads and patches (``patch_s``)."""
     from .engine.pair_pipeline import (HostPairBatch, make_pair_engine,
                                        run_pair_end_blocks,
                                        run_pair_end_reads, takes_blocks)
     from .output.pair_sam import PairFormatter
+    from .parallel import carry as ctx
     from .parallel import distributed as dist
 
     p = o.param
@@ -723,7 +730,8 @@ def run_multihost_pair(o: Options, genome, index, stats: dict | None = None,
             o, lambda: make_pair_engine(o, genome, index, mesh),
             lambda: HostPairBatch(genome, index, p), stats)
         if s > p.read_start:    # a single process starts fresh at -B
-            dist.reconstruct_pair_state(engine, o.query_a, o.query_b, p, s)
+            dist.reconstruct_pair_state(engine, o.query_a, o.query_b, p, s,
+                                        first=p.read_start)
         p.read_start, p.read_end = s, e
         final_out, final_unpair = o.out_file, o.out_unpair
         if not p.out_sam and not final_unpair:
@@ -737,31 +745,55 @@ def run_multihost_pair(o: Options, genome, index, stats: dict | None = None,
             up_path = f"{final_unpair}.shard{o.proc_id}"
             o.out_unpair = up_path + ".tmp"
         blocks = takes_blocks(engine, o)
+        carry = ctx.ContextCarry() if p.out_ref or not p.out_sam else None
         t0 = time.perf_counter()
         if blocks:
+            engine.carry = carry
             total_n = run_pair_end_blocks(o, genome, engine, fmt,
                                           header=False)
+            mapseq = engine._mapseq
         else:
+            if carry is not None:
+                ctx.track_pair_formatter(fmt, carry)
             total_n = run_pair_end_reads(o, genome, engine, fmt,
-                                         header=False)
+                                         header=False, carry=carry)
+            mapseq = (fmt.fa._mapseq, fmt.fb._mapseq)
         if stats is not None:
             stats.update(pairs=total_n, align_s=time.perf_counter() - t0,
                          engine=engine,
                          pe_path="blocks" if blocks else "pairs")
+        if carry is not None:
+            carry.save(ctx.sidecar_path(final_out, o.proc_id), *mapseq)
         os.replace(o.out_file, shard_path)
         open(shard_path + ".done", "w").close()
         if not p.out_sam and final_unpair:
             os.replace(o.out_unpair, up_path)
             open(up_path + ".done", "w").close()
         o.out_file, o.out_unpair = final_out, final_unpair
-        print(f"shard {o.proc_id}: {total_n} pairs, "
+        print(f"shard {o.proc_id}: {total_n} pairs on the "
+              f"{'block' if blocks else 'per-pair'} path, "
               f"{fmt.n_aligned_pairs} aligned pairs")
         if o.proc_id == 0:
-            dist.merge_shards(final_out, o.nprocs,
-                              sam_header(genome) if p.out_sam else "")
+            dist.wait_shards(final_out, o.nprocs)
+            t0 = time.perf_counter()
+            plan = (ctx.merge_patches(final_out, o.nprocs) if carry
+                    else (None, None))
+            patch_s = time.perf_counter() - t0
+            n_patch, s_patch = dist.merge_shards(
+                final_out, o.nprocs, sam_header(genome) if p.out_sam else "",
+                patches=plan[ctx.MAIN])
             if not p.out_sam and final_unpair:
-                dist.merge_shards(final_unpair, o.nprocs, "")
-            print(f"merged {o.nprocs} shards -> {final_out}")
+                n2, s2 = dist.merge_shards(final_unpair, o.nprocs, "",
+                                           patches=plan[ctx.UNPAIRED])
+                n_patch, s_patch = n_patch + n2, s_patch + s2
+            merge_s = time.perf_counter() - t0
+            patch_s += s_patch
+            print(f"merged {o.nprocs} shards -> {final_out} in "
+                  f"{merge_s:.6f} s: {n_patch} context patches in "
+                  f"{patch_s:.6f} s")
+            if stats is not None:
+                stats.update(ctx_patches=n_patch, patch_s=patch_s,
+                             merge_s=merge_s)
             if p.out_sam == 2:
                 _to_bam(final_out, stats)
     finally:

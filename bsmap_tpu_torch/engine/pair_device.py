@@ -165,6 +165,9 @@ class PairDeviceEngine:
         # the persistent context buffers of each mate's SingleAlign (the
         # reference's _mapseq, align.h:132) for the native formatter
         self._mapseq = (np.zeros(256, np.uint8), np.zeros(256, np.uint8))
+        # a -p/--nprocs range's record of the context bytes it prints from
+        # slots it has not written yet (parallel/carry.py), None otherwise
+        self.carry = None
 
     def _chains(self) -> tuple[str, str]:
         """Each mate's chains: both under -n 1, else forward for mate 1
@@ -751,7 +754,7 @@ class PairDeviceEngine:
             None if counts is None else counts[:, 2 * MS:], MS, buds_a,
             buds_b, se._chrname_buf, se._chrname_off, REV_CHAR, p,
             blk_a.synth_qual, blk_b.synth_qual, se.genome.refcat,
-            se._anchors_i64, un, *self._mapseq)
+            se._anchors_i64, un, *self._mapseq, carry=self.carry)
         fmt.n_aligned_pairs += npair
         fmt.n_aligned_a += na_
         fmt.n_aligned_b += nb_

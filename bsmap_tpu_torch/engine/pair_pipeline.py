@@ -95,10 +95,13 @@ def _check_unpaired(o) -> None:
                          "(check -2 option)")
 
 
-def run_pair_end_reads(o, genome, engine, fmt, header: bool = True) -> int:
+def run_pair_end_reads(o, genome, engine, fmt, header: bool = True,
+                       carry=None) -> int:
     """Per-pair path (the mesh engines, SAM/BAM mates, the host engine):
     exact for every configuration.  ``header``: write the SAM header (a
-    ``--nprocs`` shard does not)."""
+    ``--nprocs`` shard does not).  ``carry``: a range's
+    ``parallel.carry.ContextCarry`` (``fmt``'s mates track into it),
+    which writes the text and records its marked context bytes."""
     p = o.param
     _check_unpaired(o)
     timer = StepTimer()
@@ -120,8 +123,11 @@ def run_pair_end_reads(o, genome, engine, fmt, header: bool = True) -> int:
                 break
             paired_out, unpair_out = engine.format_batch(batch_a, batch_b,
                                                          fmt)
-            fout.write(paired_out)
-            fout_unpair.write(unpair_out)
+            if carry is None:
+                fout.write(paired_out)
+                fout_unpair.write(unpair_out)
+            else:
+                carry.write(fout, paired_out, fout_unpair, unpair_out)
             total += len(batch_a)
             print(f"{total} reads finished. {timer.total():.1f} secs passed")
     return total

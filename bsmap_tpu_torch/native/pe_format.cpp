@@ -120,8 +120,43 @@ inline int64_t ref_context(const Ctx& c, uint8_t* mapseq, int64_t chrp,
     return ptr;
 }
 
+// the range-start carry of a multi-process run (parallel/carry.py): a
+// context byte printed from a leading slot that this range has not written
+// yet is recorded as (file, slot, offset in that file's block bytes); the
+// merge sets it to the slot's value at the end of the ranges before.
+// Slots: mate 1's 0 and 1, mate 2's 0 and 1.  written == nullptr: off.
+struct Track {
+    int32_t* written;
+    int64_t* rec;            // (cap, 3)
+    int64_t cap, n;
+    const uint8_t* base[2];  // out, out2
+};
+
+// slot s (0, 1) of a context at loc is written when loc >= 2 - s, else
+// printed as the buffer holds it
+inline void track_context(Track* t, int file, int mate, const uint8_t* o,
+                          int64_t loc) {
+    if (!t->written) return;
+    for (int s = 0; s < 2; s++) {
+        int id = 2 * mate + s;
+        if (loc >= 2 - s) {
+            t->written[id] = 1;
+        } else if (!t->written[id]) {
+            if (t->n < t->cap) {
+                int64_t* r = t->rec + 3 * t->n;
+                r[0] = file;
+                r[1] = id;
+                r[2] = (o - t->base[file]) + s;
+            }
+            t->n++;
+        }
+    }
+}
+
 inline uint8_t* put_context(uint8_t* o, const Ctx& c, uint8_t* mapseq,
-                            int64_t chrp, int64_t loc, int64_t read_len) {
+                            int64_t chrp, int64_t loc, int64_t read_len,
+                            Track* t, int file, int mate) {
+    track_context(t, file, mate, o, loc);
     int64_t n = ref_context(c, mapseq, chrp, loc, read_len);
     return put_mem(o, mapseq, n);
 }
@@ -134,7 +169,7 @@ uint8_t* bsp_line(uint8_t* o, const Ctx& c, const uint8_t* buf,
                   uint8_t synth, int32_t chain, int64_t n, int32_t nsnps,
                   int32_t chrp, int64_t loc, int64_t insert,
                   const int32_t* counts, int32_t budget, uint8_t* mapseq,
-                  int64_t* n_aligned) {
+                  int64_t* n_aligned, Track* t, int file, int mate) {
     if (!c.out_unmap && (n <= 0 || (n > 1 && c.rrhits == 0))) return o;
     bool rc = n != 0 && ((chain ^ (chrp & 1)) != 0);
     o = put_mem(o, buf + r[0], r[1]);
@@ -159,7 +194,7 @@ uint8_t* bsp_line(uint8_t* o, const Ctx& c, const uint8_t* buf,
         *o++ = '\t';
         o = put_i64(o, insert);
         *o++ = '\t';
-        o = put_context(o, c, mapseq, chrp, loc, slen);
+        o = put_context(o, c, mapseq, chrp, loc, slen, t, file, mate);
         *o++ = '\t';
         o = put_u32(o, (uint32_t)nsnps);
         *o++ = '\t';
@@ -180,7 +215,8 @@ uint8_t* sam_unpair(uint8_t* o, const Ctx& c, const uint8_t* buf,
                     const int64_t* r, int32_t readset, uint8_t synth,
                     int64_t ma, int32_t na, int32_t sch, int32_t chrp,
                     int32_t wloc, int64_t mb, int32_t m_sch, int32_t m_chrp,
-                    int32_t m_wloc, uint8_t* mapseq, int64_t* n_aligned) {
+                    int32_t m_wloc, uint8_t* mapseq, int64_t* n_aligned,
+                    Track* t) {
     int64_t seq_len = r[3], qual_len = r[5];
     uint32_t flag = 1u | (uint32_t)(0x40 * readset);
     bool mate_bad = (mb <= 0) || (mb > 1 && c.rrhits == 0);
@@ -238,7 +274,8 @@ uint8_t* sam_unpair(uint8_t* o, const Ctx& c, const uint8_t* buf,
     o = put_u32(o, (uint32_t)na);
     if (c.out_ref) {
         o = put_str(o, "\tXR:Z:");
-        o = put_context(o, c, mapseq, chrp, wloc, seq_len);
+        o = put_context(o, c, mapseq, chrp, wloc, seq_len, t, 0,
+                        readset - 1);
     }
     o = put_str(o, "\tZS:Z:");
     *o++ = (chrp & 1) ? '-' : '+';
@@ -259,9 +296,11 @@ extern "C" {
 // 256-byte context buffers of mate 1's and mate 2's SingleAlign (SAM pair
 // lines use mate 1's for both mates, output/pair_sam.py _xr).
 // out_len[2] gets the bytes written to out and out2; counters[3] +=
-// {pairs, single a, single b} aligned.  Returns 0, or -1 when a buffer
-// could overflow (the caller grows both, restores the context buffers and
-// calls again).
+// {pairs, single a, single b} aligned.  track != 0: the range-start carry
+// (Track above) with written[4], rec (rec_cap, 3) and *n_rec set to the
+// records' count.  Returns 0, -1 when a buffer could overflow (the caller
+// grows both, restores the context buffers and written and calls again)
+// or -2 when *n_rec exceeds rec_cap (the same, with rec_cap >= *n_rec).
 int64_t bsmap_pe_format_block(
     const uint8_t* bufa, const int64_t* reca,
     const uint8_t* bufb, const int64_t* recb, int64_t n,
@@ -274,9 +313,11 @@ int64_t bsmap_pe_format_block(
     const uint32_t* refcat, int64_t total_codes, const int64_t* anchors,
     const char* useful_nt, uint8_t* mapseq_a, uint8_t* mapseq_b,
     uint8_t* out, int64_t out_cap, uint8_t* out2, int64_t out2_cap,
-    int64_t* out_len, int64_t* counters) {
+    int64_t* out_len, int64_t* counters, int32_t track, int32_t* written,
+    int64_t* rec, int64_t rec_cap, int64_t* n_rec) {
     Ctx c{chrnames, chrname_off, revc, out_unmap, rrhits, max_num_hits,
           out_ref, refcat, total_codes, anchors, useful_nt, maxseg};
+    Track tr{track ? written : nullptr, rec, rec_cap, 0, {out, out2}};
     uint8_t* o = out;
     uint8_t* o2 = out_sam ? nullptr : out2;
     int64_t dummy = 0;
@@ -326,7 +367,8 @@ int64_t bsmap_pe_format_block(
                                  pr[P_CNT], nm, chrp, loc, ins,
                                  (m == 0 ? cnt_a : cnt_b) + i * 2 * maxseg,
                                  (m == 0 ? bud_a : bud_b)[i],
-                                 m == 0 ? mapseq_a : mapseq_b, &dummy);
+                                 m == 0 ? mapseq_a : mapseq_b, &dummy, &tr,
+                                 0, m);
                     continue;
                 }
                 uint32_t flag = 0x3u | (pr[P_CNT] > 1 ? 0x100u : 0u)
@@ -352,7 +394,8 @@ int64_t bsmap_pe_format_block(
                 o = put_u32(o, (uint32_t)nm);
                 if (out_ref) {
                     o = put_str(o, "\tXR:Z:");
-                    o = put_context(o, c, mapseq_a, chrp, loc, slen);
+                    o = put_context(o, c, mapseq_a, chrp, loc, slen, &tr,
+                                    0, 0);
                 }
                 o = put_str(o, "\tZS:Z:");
                 *o++ = (chrp & 1) ? '-' : '+';
@@ -368,25 +411,26 @@ int64_t bsmap_pe_format_block(
             o = sam_unpair(o, c, bufa, ra, 1, synth_a, ma, pr[P_II_A],
                            pr[P_SCH_A], pr[P_CHRP_A], pr[P_WLOC_A], mb,
                            pr[P_SCH_B], pr[P_CHRP_B], pr[P_WLOC_B],
-                           mapseq_a, &counters[1]);
+                           mapseq_a, &counters[1], &tr);
             o = sam_unpair(o, c, bufb, rb, 2, synth_b, mb, pr[P_II_B],
                            pr[P_SCH_B], pr[P_CHRP_B], pr[P_WLOC_B], ma,
                            pr[P_SCH_A], pr[P_CHRP_A], pr[P_WLOC_A],
-                           mapseq_b, &counters[2]);
+                           mapseq_b, &counters[2], &tr);
         } else {
             o2 = bsp_line(o2, c, bufa, ra, ra[3], ra[5], synth_a,
                           pr[P_SCH_A], ma, pr[P_II_A], pr[P_CHRP_A],
                           pr[P_WLOC_A], 0, cnt_a + i * 2 * maxseg, bud_a[i],
-                          mapseq_a, &dummy);
+                          mapseq_a, &dummy, &tr, 1, 0);
             o2 = bsp_line(o2, c, bufb, rb, rb[3], rb[5], synth_b,
                           pr[P_SCH_B], mb, pr[P_II_B], pr[P_CHRP_B],
                           pr[P_WLOC_B], 0, cnt_b + i * 2 * maxseg, bud_b[i],
-                          mapseq_b, &dummy);
+                          mapseq_b, &dummy, &tr, 1, 1);
         }
     }
     out_len[0] = o - out;
     out_len[1] = o2 ? o2 - out2 : 0;
-    return 0;
+    *n_rec = tr.n;
+    return tr.n > rec_cap ? -2 : 0;
 }
 
 }  // extern "C"

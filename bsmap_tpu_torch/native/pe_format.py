@@ -86,7 +86,8 @@ def get_lib() -> ctypes.CDLL | None:
             _p_i32, _p_i32, _p_i32, _i64, _p_i32, _p_i32,
             _p_u8, _p_i64, _i64, _p_u8, _i32, _i32, _i32, _i32, _i32,
             _u8, _u8, _p_u32, _i64, _p_i64, ctypes.c_char_p, _p_u8, _p_u8,
-            _p_u8, _i64, _p_u8, _i64, _p_i64, _p_i64]
+            _p_u8, _i64, _p_u8, _i64, _p_i64, _p_i64, _i32, _p_i32,
+            _p_i64, _i64, _p_i64]
         _LIB = lib
         return _LIB
 
@@ -97,13 +98,16 @@ def format_pair_block(lib, bufa: bytes, reca: np.ndarray, bufb: bytes,
                       chrname_off: np.ndarray, revc: np.ndarray, p,
                       synth_a: int, synth_b: int, refcat: np.ndarray,
                       anchors: np.ndarray, useful_nt: bytes,
-                      mapseq_a: np.ndarray, mapseq_b: np.ndarray):
+                      mapseq_a: np.ndarray, mapseq_b: np.ndarray,
+                      carry=None):
     """One block's pair-end SAM (``p.out_sam``, XR tags under
     ``p.out_ref``) or BSP bytes from ``prow`` (n, 24).  BSP takes each
     mate's (n, 2*maxseg) per-level counts and budgets (None under SAM).
     ``mapseq_a``/``mapseq_b`` are the persistent context buffers, left as
-    the last pair left them.  Returns (main bytes, unpaired bytes (BSP's
-    -2 file; empty under SAM), (pairs, single a, single b aligned))."""
+    the last pair left them.  ``carry``: a range's ``parallel.carry.
+    ContextCarry``, which gets the block's prints from slots the range
+    has not written yet.  Returns (main bytes, unpaired bytes (BSP's -2
+    file; empty under SAM), (pairs, single a, single b aligned))."""
     from ..params import SEGLEN
     n = len(reca)
     bsp = not p.out_sam
@@ -117,13 +121,18 @@ def format_pair_block(lib, bufa: bytes, reca: np.ndarray, bufb: bytes,
                    + 3 * (reca[:, 3].sum() + recb[:, 3].sum())
                    + reca[:, 5].sum() + recb[:, 5].sum())
               + (4 * max_chr + 11 * maxseg + 256) * 2 * n + 4096)
-    saved = (mapseq_a.copy(), mapseq_b.copy())
+    track = carry is not None and carry.active()
+    written = carry.written if track else np.zeros(4, np.int32)
+    saved = (mapseq_a.copy(), mapseq_b.copy(), written.copy())
+    rec_cap = 64 if track else 0
+    n_rec = np.zeros(1, np.int64)
     prow = np.ascontiguousarray(prow, dtype=np.int32)
     while True:
         out = np.empty(cap, np.uint8)
         out2 = np.empty(cap if bsp else 1, np.uint8)
         lens = np.zeros(2, np.int64)
         counters = np.zeros(3, np.int64)
+        rec = np.empty((max(rec_cap, 1), 3), np.int64)
         rc = lib.bsmap_pe_format_block(
             bufa, np.ascontiguousarray(reca).reshape(-1),
             bufb, np.ascontiguousarray(recb).reshape(-1), n,
@@ -134,9 +143,15 @@ def format_pair_block(lib, bufa: bytes, reca: np.ndarray, bufb: bytes,
             np.ascontiguousarray(refcat, dtype=np.uint32),
             len(refcat) * SEGLEN,
             np.ascontiguousarray(anchors, dtype=np.int64), useful_nt,
-            mapseq_a, mapseq_b, out, cap, out2, len(out2), lens, counters)
+            mapseq_a, mapseq_b, out, cap, out2, len(out2), lens, counters,
+            int(track), written, rec.reshape(-1), rec_cap, n_rec)
         if rc == 0:
+            if track:
+                carry.add_block(rec[: n_rec[0]], int(lens[0]), int(lens[1]))
             return (out[: lens[0]].data, out2[: lens[1]].data,
                     tuple(int(x) for x in counters))
-        mapseq_a[:], mapseq_b[:] = saved
-        cap *= 2
+        mapseq_a[:], mapseq_b[:], written[:] = saved
+        if rc == -2:
+            rec_cap = int(n_rec[0])
+        else:
+            cap *= 2

@@ -210,10 +210,26 @@ Phases (each raises on failure; any failure exits non-zero):
      under --nprocs 2, whose second range starts on a QC read (its slot
      taken over from the reads before it: the seconds that took, from
      process 1's log), each byte-identical to the host engine.
+ 31. pair-end context bytes at range starts (after 30, before phase 28's
+     wait): tools/simulate.py's 300 pairs of 76 nt on 2 x 20 kb (seed 5)
+     with pair 151, the first of --nprocs 2's second range, planted
+     (``context_plants``): mate 1 at chr1:1 (F5's pair), or mate 1 all N
+     and mate 2 alone at chr1:1 (an unpaired mate-2 line, the only kind
+     that writes mate 2's context buffer under SAM -R).  The reference's
+     context there keeps the two leading bases the contexts before it
+     wrote; each range records the bytes it prints from buffer slots it
+     has not written and the merge sets them (bsmap_tpu_torch/parallel/
+     carry.py).  SAM -R and BSP -u -2 (-S 1 -v 3 -q 2) on mate 1's set and
+     SAM -R on mate 2's, under --nprocs 2 on the block path (process 1 a
+     process of its own, process 0 here), and BSP and mate 2's SAM under
+     --engine sharded -p 2 (two workers, the per-pair path), all started
+     at once: each byte-identical to the host engine at -p 1, with its
+     count of patched bytes (2) and their seconds in the merge.
 
 The CLI's default -p 8 starts worker processes on the pair-end per-pair
-path of the mesh engines and under --device cpu; every phase but 27 and
-the -p 8 runs of 29 runs in this process (``BSMAP_TPU_LOCAL_MP=0``), with
+path of the mesh engines and under --device cpu; every phase but 27, the
+-p 8 runs of 29 and the other processes of 30 and 31 runs in this process
+(``BSMAP_TPU_LOCAL_MP=0``), with
 the default -p 8 encode threads but phases 14, 29 and 30 (-p 1).
 
 The kernels' launch counters are zeroed right before each run of a main
@@ -229,7 +245,8 @@ phase 27 (what phase 4 launched, K2-K6, the RRBS path) and its
 one-process pair-end BSP run (K2-K6), counted in the processes
 themselves, phase 29's runs (K2-K6, in this process and in its -p 8
 processes), phase 30's runs (K2-K4, never K1, in this process and in
-each of its other processes) and phase 28's two runs (K1-K4, K2-K6).
+each of its other processes), each process of phase 31's runs (K2-K6)
+and phase 28's two runs (K1-K4, K2-K6).
 Every kernel's JSON row has its launches summed over those runs, its
 error against the twin, its time and the twin's at the single-end
 headline window (the pair-end one for K5 and K6), and its bound there: the bytes it must move over the card's memory
@@ -332,6 +349,19 @@ PROC_TIMEOUT = 900               # seconds: phases 25-27's other processes
 # range (read N_PARITY / 2 + 1) starts on one
 QC_FLAGS = ["-S", "17", "-v", "2", "-u", "-A", RRBS_ADAPTER, "-q", "20"]
 N_QC_EVERY, N_QC_AT = 16, 5
+N_CTX_PAIRS = 300                # phase 31's pairs
+# phase 31: F5's flags (SAM -R; BSP -u with -2)
+CTX_SAM = ["-S", "1", "-v", "3", "-u", "-R", "-q", "2"]
+CTX_BSP = ["-S", "1", "-v", "3", "-u", "-q", "2"]
+# phase 31: tag -> (planted set, flags, output files, how: --nprocs 2 on
+# the block path, or --engine sharded -p 2 workers on the per-pair path)
+CTX_RUNS = {
+    "sam_xr": ("mate1", CTX_SAM, 1, "nprocs"),
+    "bsp": ("mate1", CTX_BSP, 2, "nprocs"),
+    "mate2": ("mate2", CTX_SAM, 1, "nprocs"),
+    "sharded_bsp": ("mate1", CTX_BSP, 2, "workers"),
+    "sharded_mate2": ("mate2", CTX_SAM, 1, "workers"),
+}
 # per-kernel extras of the JSON line: the launch form or group width in use
 # and the other one's time, K3's parts by kernel name, the library scan
 FORM_KEYS = ("device_ms", "parts_ms", "variant", "variant_ms",
@@ -2822,6 +2852,74 @@ def qc_line_counts(bsp: str, reads: str) -> tuple:
     return n_qc, n_rc
 
 
+def simulate_context_pairs(d: str) -> tuple[str, str, str]:
+    """Phase 31's base set in ``d``: tools/simulate.py's 300 pairs of 76 nt
+    on 2 x 20 kb with 1% errors (seed 5).  Returns (genome, mates 1,
+    mates 2)."""
+    g, r1, r2 = (os.path.join(d, x) for x in ("ctx.fa", "ctx_1.fq",
+                                              "ctx_2.fq"))
+    subprocess.run([sys.executable, os.path.join(REPO, "tools", "simulate.py"),
+                    "--pe", "--n-reads", str(N_CTX_PAIRS), "--read-len", "76",
+                    "--chr-len", "20000", "--n-chr", "2", "--seed", "5",
+                    "--error-rate", "0.01", "--genome-out", g, "--reads-out",
+                    r1, "--reads2-out", r2], check=True, timeout=600)
+    return g, r1, r2
+
+
+def chr1_mates(genome: str, start: int, frag: int = 200,
+               read_len: int = 76) -> tuple[str, str]:
+    """The mates of the fully converted fragment ``frag`` nt long at 0-based
+    ``start`` of the genome's first chromosome: mate 1 its first
+    ``read_len`` bases with C read as T, mate 2 the first ``read_len`` of
+    that fragment's reverse complement.  Mate 1 maps at ``start``, and with
+    ``frag == read_len`` mate 2 too."""
+    with open(genome) as f:
+        chr1 = "".join(f.read().split(">")[1].splitlines()[1:])
+    conv = chr1[start: start + frag].replace("C", "T")
+    return conv[:read_len], conv.translate(str.maketrans(
+        "ACGT", "TGCA"))[::-1][:read_len]
+
+
+def plant_pairs(r1: str, r2: str, d1: str, d2: str, plant: dict) -> None:
+    """``d1``/``d2``: copies of the FASTQ mates ``r1``/``r2`` with each pair
+    k (1-based) of ``plant`` given its (mate 1, mate 2) sequences, None
+    keeping a mate as it is, a planted mate's qualities all I."""
+    for m, (src, dst) in enumerate(((r1, d1), (r2, d2))):
+        with open(src) as f:
+            lines = f.read().splitlines()
+        for k, mates in plant.items():
+            if mates[m] is not None:
+                lines[4 * k - 3] = mates[m]
+                lines[4 * k - 1] = "I" * len(mates[m])
+        with open(dst, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def context_plants(genome: str, mate1_at: int = 0, mate2_at: int = 0,
+                   pos1_at: int = 0) -> dict:
+    """Pairs to plant (``plant_pairs``) whose contexts at chromosome
+    position 0 or 1 print the leading slots of a mate's context buffer
+    (XR, BSP) as earlier contexts left them, each at the start of a pair
+    range of a multi-process run: at pair ``mate1_at`` mate 1 maps at
+    position 0 (F5's pair), at ``pos1_at`` mate 1 at position 1 (only slot
+    0 leaks); at ``mate2_at`` mate 1 is all N (filtered) and mate 2 maps
+    alone at position 0, an unpaired mate-2 line, the only kind that
+    writes mate 2's buffer under SAM -R.  With ``mate2_at``, pair 10's mate
+    1 is all N too (its mate 2 writes that buffer early), and pair 139's
+    mate 2, whose mate 1 the base set leaves unpaired, as well.  A
+    position left 0 plants nothing."""
+    n = "N" * 76
+    plant = {}
+    if mate1_at:
+        plant[mate1_at] = chr1_mates(genome, 0)
+    if pos1_at:
+        plant[pos1_at] = chr1_mates(genome, 1)
+    if mate2_at:
+        plant.update({10: (n, None), 139: (None, n),
+                      mate2_at: (n, chr1_mates(genome, 0, frag=76)[1])})
+    return plant
+
+
 def phase_qc_lines(root: str, g1: str, r1: str, dev: str = "cuda") -> tuple:
     """Phase 30: QC lines of single-end BSP -u on the block path (module
     docstring).  Returns (numbers, the launch counts of each main-path
@@ -2877,6 +2975,116 @@ def phase_qc_lines(root: str, g1: str, r1: str, dev: str = "cuda") -> tuple:
             "p1_reads_per_s": rate, "host_s": host_s, "walk_s": walk_s,
             "p8_align_per_s": mp["qc_p8"]["align_per_s"],
             "nprocs_wall_s": mp["qc_nprocs"]["wall_s"]}, counts
+
+
+def phase_range_contexts(root: str, dev: str = "cuda") -> tuple:
+    """Phase 31: pair-end context bytes at range starts (module
+    docstring).  The processes of every multi-process run start at once;
+    process 0 of each --nprocs 2 run then runs here, one after another.
+    Returns (numbers, the launch counts of each main-path process)."""
+    from bsmap_tpu_torch.engine import kernels as K
+    d = os.path.join(root, "ctx")
+    os.makedirs(d, exist_ok=True)
+    g, r1, r2 = simulate_context_pairs(d)
+    start = N_CTX_PAIRS // N_NPROCS + 1       # the second range's first pair
+    mates = {}
+    for name, plant in (("mate1", context_plants(g, mate1_at=start)),
+                        ("mate2", context_plants(g, mate2_at=start))):
+        a, b = (os.path.join(d, f"{name}_{m}.fq") for m in (1, 2))
+        plant_pairs(r1, r2, a, b, plant)
+        mates[name] = ["-a", a, "-b", b, "-d", g]
+    outs, hosts = {}, {}
+    t0 = time.perf_counter()
+    for tag, (name, flags, n_out, _how) in CTX_RUNS.items():
+        ext = "sam" if n_out == 1 else "bsp"
+        outs[tag] = [os.path.join(d, f"{tag}{x}.{ext}")
+                     for x in ("", "_u")[:n_out]]
+        if (name, n_out) not in hosts:
+            hosts[name, n_out] = [os.path.join(d, f"host_{name}{x}.{ext}")
+                                  for x in ("", "_u")[:n_out]]
+            run_cli(mates[name] + flags + _ctx_out(hosts[name, n_out])
+                    + ["--engine", "host", "-p", "1"])
+    host_s = time.perf_counter() - t0
+    # the range start's context at chr1:1 takes its two leading bases from
+    # the contexts before it
+    for (name, n_out), files in hosts.items():
+        with open(files[0], "rb") as f:
+            rows = [x.split(b"\t") for x in f.read().splitlines()]
+        ctx = ([r[-2][5:7] for r in rows if r[2:4] == [b"chr1", b"1"]]
+               if n_out == 1 else
+               [r[8][:2] for r in rows if r[4:6] == [b"chr1", b"1"]])
+        if not ctx or not all(c.isalpha() and c.islower() for c in ctx):
+            raise AssertionError(f"[31] {name}: contexts at chr1:1 {ctx}")
+    dump = os.path.join(d, "dump")
+    env = launch_dump_env(dump)
+    cli = [sys.executable, "-m", "bsmap_tpu_torch.cli"]
+    t0 = time.time()
+    procs = []
+    for tag, (name, flags, _n, how) in CTX_RUNS.items():
+        argv = cli + mates[name] + flags + _ctx_out(outs[tag]) + [
+            "--device", dev]
+        argv += (["--nprocs", str(N_NPROCS), "--proc-id", "1"]
+                 if how == "nprocs" else ["--engine", "sharded", "-p",
+                                          str(N_NPROCS)])
+        procs.append(spawn(argv, env, outs[tag][0] + ".log"))
+    res, counts = {}, []
+    try:
+        for tag, (name, flags, _n, how) in CTX_RUNS.items():
+            if how != "nprocs":
+                continue
+            K.reset_launch_counts()
+            st = run_cli(mates[name] + flags + _ctx_out(outs[tag]) + [
+                "--device", dev, "--nprocs", str(N_NPROCS), "--proc-id",
+                "0"])
+            counts.append(K.launch_counts())
+            need_launches(f"[31] {tag}, process 0", counts[-1], PE_PATH)
+            if st["pe_path"] != "blocks":
+                raise AssertionError(f"[31] {tag} off the block path")
+            res[tag] = {"patches": st["ctx_patches"],
+                        "patch_s": st["patch_s"], "merge_s": st["merge_s"]}
+    finally:
+        finish(procs)
+    wall = time.time() - t0
+    for rec in launch_dumps(dump):
+        need_launches(f"[31] {os.path.basename(rec['argv'][rec['argv'].index('-o') + 1])}"
+                      f", process {_proc_id(rec)}", rec["launches"], PE_PATH)
+        counts.append(rec["launches"])
+    if len(counts) != len(CTX_RUNS) * N_NPROCS:
+        raise AssertionError(f"[31] {len(counts)} processes' launches")
+    for tag, (name, flags, n_out, how) in CTX_RUNS.items():
+        with open(outs[tag][0] + ".log") as f:
+            text = f.read()
+        path = "block" if how == "nprocs" else "per-pair"
+        if text.count(f"pairs on the {path} path") != (
+                1 if how == "nprocs" else N_NPROCS):
+            raise AssertionError(f"[31] {tag}: not every range on the "
+                                 f"{path} path")
+        if how != "nprocs":
+            m = re.findall(r"merged \d+ shards -> .* in ([0-9.]+) s: "
+                           r"(\d+) context patches in ([0-9.]+) s", text)
+            if len(m) != 1:
+                raise AssertionError(f"[31] {tag}: merge line {m}")
+            res[tag] = {"merge_s": float(m[0][0]), "patches": int(m[0][1]),
+                        "patch_s": float(m[0][2])}
+        for got, want in zip(outs[tag], hosts[name, n_out]):
+            assert_same_file(f"[31] {tag}", got, want)
+        if res[tag]["patches"] != 2:
+            raise AssertionError(f"[31] {tag}: {res[tag]['patches']} "
+                                 "context patches, expected 2")
+        log(f"[31] {tag} ({' '.join(flags)}; "
+            f"{'--nprocs' if how == 'nprocs' else '--engine sharded -p'} "
+            f"{N_NPROCS}, the {path} path): byte-identical to the host "
+            f"engine at -p 1; {res[tag]['patches']} context patches in "
+            f"{res[tag]['patch_s']:.6f} s of a {res[tag]['merge_s']:.6f} s "
+            "merge")
+    log(f"[31] {len(CTX_RUNS)} runs of {N_CTX_PAIRS} pairs, the range start "
+        f"at pair {start}: {wall:.1f} s from launch, host engine "
+        f"{host_s:.1f} s")
+    return {"runs": res, "wall_s": wall, "host_s": host_s}, counts
+
+
+def _ctx_out(files: list) -> list:
+    return ["-o", files[0]] + (["-2", files[1]] if len(files) > 1 else [])
 
 
 def scale_se_kernels(K, eng, rpath: str, errs: dict) -> dict:
@@ -3345,6 +3553,8 @@ def main() -> int:
         main_runs.extend(c29)
         qc, c30 = phase_qc_lines(root, g1, r1)
         main_runs.extend(c30)
+        ctx, c31 = phase_range_contexts(root)
+        main_runs.extend(c31)
         scale = phase_genome_scale(root, main_runs, prep)
     finally:
         if prep.poll() is None:          # a phase before 28 failed
@@ -3379,7 +3589,10 @@ def main() -> int:
         + f" (phase 9's SAM {pe['pairs_per_s']:.1f}); [30] BSP -u QC "
         f"lines: {qc['qc_lines']} ({qc['qc_reverse']} reverse-complemented) "
         f"at -p 1, -p 8 and --nprocs 2, range start taken over in "
-        f"{qc['walk_s']:.3f} s")
+        f"{qc['walk_s']:.3f} s; [31] pair-end contexts at range starts: "
+        + ", ".join(f"{k} {v['patches']} patches in {v['patch_s']:.6f} s"
+                    for k, v in ctx["runs"].items())
+        + f" ({ctx['wall_s']:.1f} s)")
     log("[summary] seconds by phase: " + json.dumps(
         {k: round(v, 1) for k, v in _PHASE_S.items()}))
     results = (kres, pres, rres, kres16, pres18, rres19, sres, sres1, sres24,

@@ -28,10 +28,15 @@ PORT = REPO / "bsmap_tpu_torch"
 DIFFERS = {"index.py": ("_mmap_npz",),   # numpy 2.3+ header API
            "native/__init__.py": ("_build",),   # a build file per process
            # torch.distributed; a range start's stale output state;
-           # SAM/BAM input under -p workers and --nprocs
+           # SAM/BAM input under -p workers and --nprocs; a range start's
+           # MateState from the user's -B on; the merge's pair-end
+           # context carry
            "parallel/distributed.py": ("initialize",
                                        "reconstruct_format_state",
-                                       "count_reads", "_reconstruct_into"),
+                                       "count_reads", "_reconstruct_into",
+                                       "reconstruct_state",
+                                       "reconstruct_pair_state",
+                                       "wait_shards", "merge_shards"),
            # BSP QC lines take the stale hits[0][0] slot's strand
            "native/bsmap_native.cpp": ("bsmap_format_bsp_block",),
            # the cache's file name, shared with cli.run's -p workers
@@ -52,6 +57,7 @@ def test_port_imports_without_jax():
             "bsmap_tpu_torch.bamio", "bsmap_tpu_torch.methratio",
             "bsmap_tpu_torch.bsp2sam",
             "bsmap_tpu_torch.parallel.distributed",
+            "bsmap_tpu_torch.parallel.carry",
             "bsmap_tpu_torch.genome_scale", "bsmap_tpu_torch.measure"]
     code = ("import sys; sys.modules['jax'] = None\n"
             + "".join(f"import {m}\n" for m in mods)
