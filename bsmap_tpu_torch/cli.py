@@ -53,6 +53,7 @@ import os
 import sys
 import time
 
+from . import obs
 from .index import (build_index, index_cache_key, load_index, save_index)
 from .output.sam import SamFormatter, sam_header
 from .params import MAXSNPS, Param, MAXHITS
@@ -110,6 +111,11 @@ USAGE = """Usage: bsmap_tpu_torch [options]
        --proc-id <int>         multi-process: this process id (0-based)
        --coordinator <h:p>     multi-process: torch.distributed (gloo)
                                rendezvous address, process 0's host
+       --trace <path>          write the run's spans (every thread of the
+                               block pipelines, the engine, the host
+                               route, each kernel launch) to <path> as
+                               Chrome trace-event JSON, and one line per
+                               span name to stderr; one process only
        -h          help
    Pair-end -D runs on the host engine (auto picks it; --engine device
    refuses), and -D not on index-sharded.
@@ -137,6 +143,7 @@ class Options:
         self.nprocs = 1
         self.proc_id = 0
         self.coordinator = ""
+        self.trace = ""
 
 
 def parse_args(argv: list[str]) -> Options:
@@ -178,6 +185,8 @@ def parse_args(argv: list[str]) -> Options:
             o.proc_id = int(long_val("--proc-id"))
         elif a == "--coordinator" or a.startswith("--coordinator="):
             o.coordinator = long_val("--coordinator")
+        elif a == "--trace" or a.startswith("--trace="):
+            o.trace = long_val("--trace")
         elif a.startswith("-") and len(a) >= 2:
             c = a[1]
             if c == "a":
@@ -364,6 +373,8 @@ def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
         p.out_sam = 2
     if not o.ref_file:
         sys.exit("fatal error: failed to open ref file")
+    if o.trace and o.nprocs > 1:
+        sys.exit(_NO_TRACE.format("--nprocs"))
     with contextlib.ExitStack() as stack:
         if o.index_cache:
             from .reference import load_genome_cached
@@ -382,6 +393,9 @@ def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
             else:
                 run_multihost_se(o, genome, index, stats=stats, mesh=mesh)
         elif local_mp and (k := _worker_cap(o, genome, index)) > 1:
+            if o.trace:
+                sys.exit(_NO_TRACE.format(f"-p {p.num_procs} (here {k} "
+                                          "worker processes)"))
             if not o.index_cache:
                 # the workers would each pack the genome and build the
                 # index again: this parent saves them once into a cache
@@ -396,13 +410,44 @@ def run(argv: list[str], stats: dict | None = None, mesh=None) -> int:
                     save_genome(path, genome)
                 save_index(index_cache_path(o), index)
             run_local_multiprocess(o, argv, k)
-        elif o.query_a and o.query_b:
+        else:
+            _run_alignment(o, genome, index, stats, mesh)
+    print(f"Total time consumed:  {timer.total():.1f} secs")
+    return 0
+
+
+_NO_TRACE = ("--trace records the spans of one process and cannot follow "
+             "the processes that {} starts; run it with -p 1 (or "
+             "BSMAP_TPU_LOCAL_MP=0) and no --nprocs")
+
+
+def _run_alignment(o: Options, genome, index, stats: dict | None,
+                   mesh) -> None:
+    """The single- or pair-end run of this process; under ``--trace``
+    with ``obs`` on, its records then written to ``o.trace`` (Chrome
+    trace-event JSON, the engine's ``host_causes`` as counters) and a
+    line per span name to stderr."""
+    if o.trace:
+        stats = {} if stats is None else stats
+        obs.start()
+    try:
+        if o.query_a and o.query_b:
             from .engine.pair_pipeline import run_pair_end
             run_pair_end(o, genome, index, stats=stats, mesh=mesh)
         else:
             run_single_end(o, genome, index, stats=stats, mesh=mesh)
-    print(f"Total time consumed:  {timer.total():.1f} secs")
-    return 0
+    finally:
+        if o.trace:
+            trace = obs.stop()
+    if not o.trace:
+        return
+    causes = getattr(stats.get("engine"), "host_causes", None)
+    obs.write_chrome_trace(o.trace, trace,
+                           {"host_causes": causes} if causes else None)
+    for line in obs.summary(trace):
+        print(line, file=sys.stderr)
+    print(f"trace: {len(trace['records'])} records -> {o.trace}",
+          file=sys.stderr)
 
 
 def _wants_local_mp(o: Options, genome) -> bool:
@@ -875,7 +920,8 @@ def run_single_end_blocks(o: Options, engine, fmt, genome, timer,
     FilterReads and encode, which release the GIL), the align loop takes
     the encoded blocks strictly in file order and a writer thread formats
     them natively.  An error in the reader or in an encode thread ends the
-    run with that error."""
+    run with that error.  Under ``obs`` each thread's work and waits are
+    spans (``pipe.*``), each carrying its block's sequence number."""
     import queue
     import threading
     from concurrent.futures import ThreadPoolExecutor
@@ -899,9 +945,10 @@ def run_single_end_blocks(o: Options, engine, fmt, genome, timer,
     errors: list[BaseException] = []
     done = threading.Event()
 
-    def encode(blk):
-        if hasattr(engine, "encode_block"):
-            engine.encode_block(blk)
+    def encode(blk, seq):
+        with obs.block(seq), obs.span("pipe.encode", rows=len(blk)):
+            if hasattr(engine, "encode_block"):
+                engine.encode_block(blk)
         return blk
 
     def reader():
@@ -909,12 +956,16 @@ def run_single_end_blocks(o: Options, engine, fmt, genome, timer,
         # first window after ~1/blk_win of the full-block parse time
         try:
             size = getattr(engine, "B", BATCH_NUM)
+            seq = 0
             while not done.is_set():
-                blk = stream.next_block(min(size, blk_n))
-                size *= 2
-                if blk is None:
-                    break
-                q_in.put(pool.submit(encode, blk))
+                with obs.block(seq):
+                    with obs.span("pipe.parse"):
+                        blk = stream.next_block(min(size, blk_n))
+                    size *= 2
+                    if blk is None:
+                        break
+                    _put(q_in, pool.submit(encode, blk, seq), "pipe.read_wait")
+                seq += 1
         except BaseException as e:   # surfaced by the align loop
             errors.append(e)
         q_in.put(None)
@@ -925,49 +976,72 @@ def run_single_end_blocks(o: Options, engine, fmt, genome, timer,
                 if p.out_sam and header:
                     fout.write(sam_header(genome).encode("latin1"))
                 while True:
-                    item = q_out.get()
+                    with obs.span("pipe.writer_wait"):
+                        item = q_out.get()
                     if item is None:
                         break
-                    blk, aligned = item
-                    fout.write(engine.format_aligned_block(blk, aligned, fmt))
+                    seq, blk, aligned = item
+                    with obs.block(seq):
+                        out = engine.format_aligned_block(blk, aligned, fmt)
+                        with obs.span("pipe.write", nbytes=len(out)):
+                            fout.write(out)
         except BaseException as e:   # surfaced after the join
             errors.append(e)
             while q_out.get() is not None:   # keep the align loop moving
                 pass
 
-    t_rd = threading.Thread(target=reader, daemon=True)
-    t_wr = threading.Thread(target=writer, daemon=True)
-    t_rd.start()
-    t_wr.start()
+    t_rd = threading.Thread(target=reader, name="bsmap_reader", daemon=True)
+    t_wr = threading.Thread(target=writer, name="bsmap_writer", daemon=True)
     total = 0
-    try:
-        while True:
-            fut = q_in.get()
-            if fut is None:
-                break
-            try:
-                blk = fut.result()
-            except BaseException as e:   # an encode thread's error
-                errors.append(e)
-                break
-            q_out.put((blk, engine.align_block(blk)))
-            total += len(blk)
-            print(f"{total} reads finished. {timer.total():.1f} secs passed")
-    finally:
-        done.set()
-        q_out.put(None)
-        t_wr.join()
-        while t_rd.is_alive():       # unblock a reader parked on q_in
-            try:
-                q_in.get(timeout=0.1)
-            except queue.Empty:
-                pass
-        t_rd.join()
-        pool.shutdown(wait=True, cancel_futures=True)
-        stream.close()
+    with obs.span("pipe.pass"):
+        t_rd.start()
+        t_wr.start()
+        try:
+            seq = 0
+            while True:
+                with obs.block(seq):
+                    with obs.span("pipe.input_wait"):
+                        fut = q_in.get()
+                        if fut is None:
+                            break
+                        try:
+                            blk = fut.result()
+                        except BaseException as e:   # an encode error
+                            errors.append(e)
+                            break
+                    _put(q_out, (seq, blk, engine.align_block(blk)),
+                         "pipe.output_wait")
+                total += len(blk)
+                seq += 1
+                print(f"{total} reads finished. {timer.total():.1f} secs "
+                      "passed")
+        finally:
+            done.set()
+            with obs.span("pipe.output_wait"):   # the writer's last block
+                q_out.put(None)
+                t_wr.join()
+            while t_rd.is_alive():       # unblock a reader parked on q_in
+                try:
+                    q_in.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            t_rd.join()
+            pool.shutdown(wait=True, cancel_futures=True)
+            stream.close()
     if errors:
         raise errors[0]
     return total
+
+
+def _put(q, item, wait: str) -> None:
+    """``q.put(item)``, inside a span named ``wait`` where the queue is
+    full and the put blocks."""
+    import queue
+    try:
+        q.put_nowait(item)
+    except queue.Full:
+        with obs.span(wait):
+            q.put(item)
 
 
 def main() -> None:

@@ -30,12 +30,12 @@ current stream and collected in order.
 from __future__ import annotations
 
 import os as _os
-import time as _time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..encoding import unpack_u32
 from ..index import SeedIndex
 from ..params import (FIXELEMENT, FIXSIZE, MAXSNPS, Param, REG_ALPHABET,
@@ -57,6 +57,13 @@ from .kernels import (N_EXTRAS, X_CHAIN, X_CHRP, X_COFF, X_FOUND, X_FTOT,
 DEV_BATCH = int(_os.environ.get("BSMAP_TPU_DEV_BATCH", 65536))
 CANDS_PER_READ = int(_os.environ.get("BSMAP_TPU_CANDS_PER_READ", 2))
 CANDS_BIG_PER_READ = int(_os.environ.get("BSMAP_TPU_CANDS_BIG_PER_READ", 16))
+
+# why a read (or pair) went to the exact host engine, each counted once
+# under the first that holds: a pair with a filtered mate (pair-end); the
+# kernels' replay bit, a pairhits bucket at max_num_hits or a capacity
+# overflow; a stale seed schedule; a -r 0 multi-pair past step 0; a -S 0
+# sequential draw
+HOST_CAUSES = ("filtered_mate", "device", "stale", "multi", "draw")
 
 
 class EngineUnsupported(RuntimeError):
@@ -417,18 +424,12 @@ class DeviceEngine:
         self._set_tiers(self.B)
         self._probe_ok = True          # False where _dispatch cannot return
                                        # the probe pass's totals
-        self.n_filtered = 0
         self.n_replayed = 0
+        self.host_causes = dict.fromkeys(HOST_CAUSES, 0)
         self.n_dispatched = 0
         # full-rank candidate totals the kernels report (X_FTOT), over the
         # reads aligned: their sum, count and maximum
         self.cand_sum = self.cand_reads = self.cand_max = 0
-        # wall-clock phase accumulators: enqueue = host side of dispatch,
-        # collect = wait for device rows
-        self.t_enqueue = 0.0
-        self.t_collect = 0.0
-        self.t_h2d = 0.0
-        self.t_call = 0.0
         self._maxseg = min(MAXSNPS, param.max_snp_num) + 1
         self._amax_cache: dict[int, int] = {}
         # chromosome-name table for the native SAM block formatter
@@ -560,34 +561,35 @@ class DeviceEngine:
         max_offset > 0 (align.cpp:458-468)."""
         if hi <= lo:
             return
-        p = self.param
-        st = state if state is not None else self.host.mate_state
-        S, I = p.seed_size, p.index_interval
-        span_lens = lens[lo:hi]
-        mo = (span_lens - I + 1) % S
-        nz = np.nonzero(mo > 0)[0]
-        offset_read = None
-        if len(nz):
-            k = lo + int(nz[-1])
-            if not replay_flag[k]:
-                if dev_soff is None:
-                    # lean rows don't carry the chosen offsets; recompute
-                    # them with the exact host schedule after the buffer
-                    # fill below
-                    offset_read = k
-                else:
-                    if mode in ("f", "b"):
-                        st.seed_start_offset = int(dev_soff[k])
-                    if mode in ("r", "b"):
-                        st.cseed_start_offset = int(dev_coff[k])
-        from .host_engine import fill_seed_buffers
-        cover = max(0, int(lens[lo:hi].max()) - S + 1)
-        fill_seed_buffers(p, st, read_of, lo, hi, cover)
-        if offset_read is not None:
-            rd = read_of(offset_read)
-            self.host.sync_schedule(rd, int(
-                (p.max_snp_num + 1) * (len(rd.seq) - 1) // len(rd.seq)),
-                state=st)
+        with obs.span("host.sync", rows=hi - lo, cpu=False):
+            p = self.param
+            st = state if state is not None else self.host.mate_state
+            S, I = p.seed_size, p.index_interval
+            span_lens = lens[lo:hi]
+            mo = (span_lens - I + 1) % S
+            nz = np.nonzero(mo > 0)[0]
+            offset_read = None
+            if len(nz):
+                k = lo + int(nz[-1])
+                if not replay_flag[k]:
+                    if dev_soff is None:
+                        # lean rows don't carry the chosen offsets; recompute
+                        # them with the exact host schedule after the buffer
+                        # fill below
+                        offset_read = k
+                    else:
+                        if mode in ("f", "b"):
+                            st.seed_start_offset = int(dev_soff[k])
+                        if mode in ("r", "b"):
+                            st.cseed_start_offset = int(dev_coff[k])
+            from .host_engine import fill_seed_buffers
+            cover = max(0, int(lens[lo:hi].max()) - S + 1)
+            fill_seed_buffers(p, st, read_of, lo, hi, cover)
+            if offset_read is not None:
+                rd = read_of(offset_read)
+                self.host.sync_schedule(rd, int(
+                    (p.max_snp_num + 1) * (len(rd.seq) - 1) // len(rd.seq)),
+                    state=st)
 
     # -- batch orchestration -------------------------------------------------
 
@@ -609,13 +611,11 @@ class DeviceEngine:
                     continue
                 live_idx.append(i)
                 budgets.append((p.max_snp_num + 1) * (L - 1) // L)
-            self.n_filtered += len(batch) - len(live_idx)
             return live_idx, budgets
         for i, rd in enumerate(batch):
             filtered, budget = filter_read(rd, p)
             if filtered:
                 results[i] = SEResult(filtered=True)
-                self.n_filtered += 1
             else:
                 live_idx.append(i)
                 budgets.append(budget)
@@ -653,19 +653,17 @@ class DeviceEngine:
         """Enqueue one program on a (m <= B, 2nw+4) window; returns the
         device result tensor (collected later with ``_collect``)."""
         cap = self.CANDS if cands is None else cands
-        t0 = _time.time()
-        rows = torch.from_numpy(packed).to(self.device)
-        self.t_h2d += _time.time() - t0
-        t0 = _time.time()
-        out = kernels.align_program(cfg, cap, self.tables, rows)
-        self.t_call += _time.time() - t0
-        return out
+        with obs.span("engine.h2d", nbytes=packed.nbytes, cpu=False):
+            rows = torch.from_numpy(packed).to(self.device)
+        with obs.span("engine.launch", rows=len(packed), cpu=False):
+            return kernels.align_program(cfg, cap, self.tables, rows)
 
     def _collect(self, outs) -> list[np.ndarray]:
-        t0 = _time.time()
-        arrs = [o.cpu().numpy() for o in outs]
-        self.t_collect += _time.time() - t0
-        return arrs
+        """The rows of ``outs`` on the host: the copies and the wait for
+        the device work queued before them."""
+        with obs.span("engine.collect", nbytes=(
+                sum(o.nbytes for o in outs) if obs.enabled() else -1)):
+            return [o.cpu().numpy() for o in outs]
 
     def _window_rows(self, rows, sel, ranks=None):
         """Dispatch rows `sel` (live rows only), with the per-read
@@ -771,41 +769,42 @@ class DeviceEngine:
             whose per-read candidate demand at this maxrank is `demand`.
             With collect_now=False the pending list is returned."""
             pend = []
-            t0 = _time.time()
-            ranks = np.full(n, maxrank, dtype=np.int32)
-            for a, b, cap in pack_spans(demand, self.B, self.CANDS,
-                                        self.CANDS_BIG):
-                sel = rem[a: b]
-                out = self._dispatch(cfg, self._window_rows(rows, sel, ranks),
-                                     cap)
-                pend.append((sel, out))
-                self.n_dispatched += 1
-            self.t_enqueue += _time.time() - t0
+            with obs.span("engine.dispatch"):
+                ranks = np.full(n, maxrank, dtype=np.int32)
+                for a, b, cap in pack_spans(demand, self.B, self.CANDS,
+                                            self.CANDS_BIG):
+                    sel = rem[a: b]
+                    out = self._dispatch(
+                        cfg, self._window_rows(rows, sel, ranks), cap)
+                    pend.append((sel, out))
+                    self.n_dispatched += 1
             if not collect_now:
                 return pend
             nd = ne = 0
-            for (sel, _), arr in zip(pend, self._collect([o for _, o in pend])):
-                d_, e_ = collect(sel, arr)
-                nd += d_
-                ne += e_
+            arrs = self._collect([o for _, o in pend])
+            with obs.span("engine.commit"):
+                for (sel, _), arr in zip(pend, arrs):
+                    d_, e_ = collect(sel, arr)
+                    nd += d_
+                    ne += e_
             return nd, ne
 
         def probe_rank_totals(rem):
             """(len(rem), maxseg) per-rank cumulative candidate totals from
             the stage-1-only probe program."""
             pend = []
-            t0 = _time.time()
-            pcfg = cfg._replace(probe=True, lean=False)
-            for i in range(0, len(rem), self.B):
-                sel = rem[i: i + self.B]
-                pend.append((i, sel, self._dispatch(
-                    pcfg, self._window_rows(rows, sel, None), 1)))
-                self.n_probe += 1
-            self.t_enqueue += _time.time() - t0
+            with obs.span("engine.dispatch"):
+                pcfg = cfg._replace(probe=True, lean=False)
+                for i in range(0, len(rem), self.B):
+                    sel = rem[i: i + self.B]
+                    pend.append((i, sel, self._dispatch(
+                        pcfg, self._window_rows(rows, sel, None), 1)))
+                    self.n_probe += 1
             ftr = np.zeros((len(rem), MS), dtype=np.int64)
             arrs = self._collect([o for _, _, o in pend])
-            for (i, sel, _), arr in zip(pend, arrs):
-                ftr[i: i + len(sel)] = arr
+            with obs.span("engine.commit"):
+                for (i, sel, _), arr in zip(pend, arrs):
+                    ftr[i: i + len(sel)] = arr
             return ftr
 
         def packed_rank_rounds(rem, ftr):
@@ -836,20 +835,21 @@ class DeviceEngine:
             # round 1: optimistic full windows at the small capacity, on the
             # fixed-schedule program when every read is eligible
             pend1 = []
-            t0 = _time.time()
-            rcfg = cfg._replace(fixed=True) if fx_ok else cfg
-            ranks = np.full(n, init_rank, dtype=np.int32)
-            for i in range(0, n, self.B):
-                sel = np.arange(i, min(i + self.B, n), dtype=np.int64)
-                pend1.append((sel, self._dispatch(
-                    rcfg, self._window_rows(rows, sel, ranks), self.CANDS)))
-                self.n_dispatched += 1
-            self.t_enqueue += _time.time() - t0
-            for (sel, _), arr in zip(pend1,
-                                     self._collect([o for _, o in pend1])):
-                d, e = collect(sel, arr, fx=fx_ok)
-                n_done += d
-                n_esc += e
+            with obs.span("engine.dispatch"):
+                rcfg = cfg._replace(fixed=True) if fx_ok else cfg
+                ranks = np.full(n, init_rank, dtype=np.int32)
+                for i in range(0, n, self.B):
+                    sel = np.arange(i, min(i + self.B, n), dtype=np.int64)
+                    pend1.append((sel, self._dispatch(
+                        rcfg, self._window_rows(rows, sel, ranks),
+                        self.CANDS)))
+                    self.n_dispatched += 1
+            arrs = self._collect([o for _, o in pend1])
+            with obs.span("engine.commit"):
+                for (sel, _), arr in zip(pend1, arrs):
+                    d, e = collect(sel, arr, fx=fx_ok)
+                    n_done += d
+                    n_esc += e
             if n:
                 rem_mass = int(ftot[~done].sum())
                 if (rem_mass > 2 * n_win * self.CANDS and self._probe_ok
@@ -882,13 +882,14 @@ class DeviceEngine:
                  if len(rem) else [])
 
         def finish():
-            for (sel, _), arr in zip(pend2,
-                                     self._collect([o for _, o in pend2])):
-                collect(sel, arr)
-            left = np.nonzero(~done)[0]
-            if len(left):      # defensive: packed dispatches always fit
-                mark_replay(left)
-                done[left] = True
+            arrs = self._collect([o for _, o in pend2]) if pend2 else []
+            with obs.span("engine.commit"):
+                for (sel, _), arr in zip(pend2, arrs):
+                    collect(sel, arr)
+                left = np.nonzero(~done)[0]
+                if len(left):      # defensive: packed dispatches always fit
+                    mark_replay(left)
+                    done[left] = True
 
             self.cand_sum += int(ftot.sum())
             self.cand_reads += n
@@ -896,12 +897,13 @@ class DeviceEngine:
 
             # --- in-order collection with exact MateState maintenance -------
             if cfg.lean:
-                replay_flag = ((out_rows[:, 1] & BIT_REPLAY) != 0) | risk
+                dev_flag = (out_rows[:, 1] & BIT_REPLAY) != 0
                 dev_soff = dev_coff = None
             else:
-                replay_flag = (out_rows[:, 2 * MS + X_REPLAY] != 0) | risk
+                dev_flag = out_rows[:, 2 * MS + X_REPLAY] != 0
                 dev_soff = out_rows[:, 2 * MS + X_SOFF]
                 dev_coff = out_rows[:, 2 * MS + X_COFF]
+            replay_flag = dev_flag | risk
             if self.param.randseed == 0:
                 # -S 0: the kernel selected with rand32=0; only unique-hit
                 # reads are draw-independent — multi-hit reads replay so the
@@ -916,21 +918,26 @@ class DeviceEngine:
             replay_pos = np.nonzero(replay_flag)[0]
             replays: dict[int, SEResult] = {}
             cursor = 0
-            for rpos in replay_pos:
-                rpos = int(rpos)
-                if risk[rpos]:
-                    # replay may READ stale state: sync it first
-                    self._sync_state_span(read_of, cursor, rpos, dev_soff,
-                                          dev_coff, lens, replay_flag,
-                                          cfg.chains_mode)
-                    cursor = rpos + 1   # run_align updates the state itself
-                replays[rpos] = self.host.run_align(read_of(rpos),
-                                                    int(buds[rpos]))
-                self.n_replayed += 1
-            # keep the state current through the batch tail: a LATER batch
-            # may contain stale-schedule reads whose replay reads this state
-            self._sync_state_span(read_of, cursor, n, dev_soff, dev_coff,
-                                  lens, replay_flag, cfg.chains_mode)
+            with obs.span("host.route", rows=len(replay_pos)):
+                for rpos in replay_pos:
+                    rpos = int(rpos)
+                    if risk[rpos]:
+                        # replay may READ stale state: sync it first
+                        self._sync_state_span(read_of, cursor, rpos,
+                                              dev_soff, dev_coff, lens,
+                                              replay_flag, cfg.chains_mode)
+                        cursor = rpos + 1   # run_align updates the state
+                    with obs.span("host.align", cpu=False):
+                        replays[rpos] = self.host.run_align(read_of(rpos),
+                                                            int(buds[rpos]))
+                    self.n_replayed += 1
+                    self.host_causes["device" if dev_flag[rpos] else
+                                     "stale" if risk[rpos] else "draw"] += 1
+                # keep the state current through the batch tail: a LATER
+                # batch may contain stale-schedule reads whose replay reads
+                # this state
+                self._sync_state_span(read_of, cursor, n, dev_soff, dev_coff,
+                                      lens, replay_flag, cfg.chains_mode)
             return out_rows, replays
 
         return finish if defer else finish()
@@ -986,7 +993,6 @@ class DeviceEngine:
             ncnt = rows[:, 2 * nw + 3]   # encoder parks the N count here
             live = (lens >= p.min_read_size) & (ncnt <= p.max_ns)
         live_pos = np.nonzero(live)[0]
-        self.n_filtered += len(block) - len(live_pos)
         rows_l = rows[live_pos]
         lens_l = rows_l[:, 2 * nw]
         if info is not None:
@@ -1010,34 +1016,40 @@ class DeviceEngine:
         read live_pos[t] in the lean layout (BIT_*) for plain SAM, else the
         full layout, and replays maps row -> exact SEResult; buds_all is
         each block read's post-trim mismatch budget."""
-        p = self.param
-        nw, live_pos, rows_l, buds_all = self.block_rows(block)
-        if len(live_pos) == 0:
-            return (live_pos, lambda: (np.zeros((0, 3), np.int32), {}),
-                    buds_all)
-        lens_l = rows_l[:, 2 * nw]
-        buds = rows_l[:, 2 * nw + 1]
-        risk = self._stale_risk(lens_l, buds)
-        # BSP needs the per-level histograms and XR reads the selection
-        # context — both ride the FULL result rows; plain SAM uses lean rows
-        plain_sam = p.out_sam >= 1 and not p.out_ref
-        lean = plain_sam and not risk.any()
-        cfg = self._cfg("b" if p.chains
-                        else ("r" if block.readset == 2 else "f"), lean=lean,
-                        nw=nw)
-        fx_ok = lean and self._fx_eligible(
-            lens_l, buds, self.encode_block(block)[1][live_pos, 2 * nw + 3])
-        fin = self._align_arrays(
-            cfg, rows_l, lambda t: block.read_obj(int(live_pos[t])),
-            risk=risk, fx_ok=fx_ok, defer=True)
+        with obs.span("engine.align", rows=len(block)):
+            p = self.param
+            with obs.span("engine.rows"):
+                nw, live_pos, rows_l, buds_all = self.block_rows(block)
+                if len(live_pos) == 0:
+                    return (live_pos,
+                            lambda: (np.zeros((0, 3), np.int32), {}),
+                            buds_all)
+                lens_l = rows_l[:, 2 * nw]
+                buds = rows_l[:, 2 * nw + 1]
+                risk = self._stale_risk(lens_l, buds)
+                # BSP needs the per-level histograms and XR reads the
+                # selection context — both ride the FULL result rows; plain
+                # SAM uses lean rows
+                plain_sam = p.out_sam >= 1 and not p.out_ref
+                lean = plain_sam and not risk.any()
+                cfg = self._cfg("b" if p.chains
+                                else ("r" if block.readset == 2 else "f"),
+                                lean=lean, nw=nw)
+                fx_ok = lean and self._fx_eligible(
+                    lens_l, buds,
+                    self.encode_block(block)[1][live_pos, 2 * nw + 3])
+            fin = self._align_arrays(
+                cfg, rows_l, lambda t: block.read_obj(int(live_pos[t])),
+                risk=risk, fx_ok=fx_ok, defer=True)
 
-        def finish():
-            out_rows, replays = fin()
-            if not cfg.lean and plain_sam:
-                return _pack_rows_lean(out_rows, cfg.maxseg), replays
-            return out_rows, replays
+            def finish():
+                with obs.span("engine.finish", rows=len(block)):
+                    out_rows, replays = fin()
+                    if not cfg.lean and plain_sam:
+                        return _pack_rows_lean(out_rows, cfg.maxseg), replays
+                    return out_rows, replays
 
-        return live_pos, finish, buds_all
+            return live_pos, finish, buds_all
 
     def format_block(self, block, fmt) -> bytes:
         """Align + format one ReadBlock as SAM/BSP bytes."""
@@ -1091,7 +1103,8 @@ class DeviceEngine:
             c, w = rows_all[set_at[-1], slot_cols]
             fmt.stale_h00 = (int(c), int(w))
 
-    def _format_block_full(self, block, aligned, fmt) -> bytes:
+    def _format_block_full(self, block, live_pos, buds_all, out_rows,
+                           replays, fmt) -> bytes:
         """BSP / -R SAM native block formatting over FULL result rows.
         Host-replayed reads are not text-spliced: their selection runs in
         Python and the result is synthesized into a row, so the stateful
@@ -1099,8 +1112,6 @@ class DeviceEngine:
         from .. import native
         p = self.param
         lib = native.get_lib()
-        live_pos, fin, buds_all = aligned
-        out_rows, replays = fin()
         MS = self._maxseg
         width = 2 * MS + N_EXTRAS
         n_all = len(block)
@@ -1170,14 +1181,20 @@ class DeviceEngine:
     def format_aligned_block(self, block, aligned, fmt):
         """Format one aligned ReadBlock as SAM bytes via the native
         formatter; replayed reads are formatted exactly in Python and
-        spliced back in order."""
+        spliced back in order.  Collects the block first (its finish)."""
+        live_pos, fin, buds_all = aligned
+        out_rows, replays = fin()
+        with obs.span("format", rows=len(block)):
+            if self.param.out_sam == 0 or self.param.out_ref:
+                return self._format_block_full(block, live_pos, buds_all,
+                                               out_rows, replays, fmt)
+            return self._format_block_sam(block, live_pos, out_rows,
+                                          replays, fmt)
+
+    def _format_block_sam(self, block, live_pos, out_rows, replays, fmt):
         from .. import native
         p = self.param
-        if p.out_sam == 0 or p.out_ref:
-            return self._format_block_full(block, aligned, fmt)
         lib = native.get_lib()
-        live_pos, fin, _buds_all = aligned
-        out_rows, replays = fin()
         n_all = len(block)
         status = np.ones(n_all, dtype=np.int32)          # 1 = QC-filtered
         rows_all = np.zeros((n_all, 2), dtype=np.int32)

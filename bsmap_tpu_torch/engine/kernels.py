@@ -64,6 +64,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import obs
+
 M32 = 0xFFFFFFFF
 SATLIM = 1 << 30          # saturating candidate scan (device_engine.py:91)
 BIGLEVEL = 99
@@ -1099,6 +1101,16 @@ def _launched(name: str, err: int) -> None:
                            f"cudaError {err}")
 
 
+def _note(name: str, cfg, m: int, cands: int = 0) -> None:
+    """While tracing is on, an instant ``kernel.<name>`` with the
+    host-known arguments of one launch that ``measure.bound`` takes: its
+    rows ``m``, candidate capacity ``cands`` and ``cfg``'s widths."""
+    if obs.enabled():
+        obs.instant("kernel." + name, m=m, cands=cands, nw=cfg.nw,
+                    NB=cfg.NB, maxseg=cfg.maxseg, nch=cfg.nch,
+                    lean=int(cfg.lean), rrbs=int(cfg.rrbs))
+
+
 def _empty(dev, *shape):
     return torch.empty(shape, dtype=torch.int32, device=dev)
 
@@ -1158,6 +1170,7 @@ def fixed_schedule(cfg, rows, kmer_tab, rows_rc=None,
         *[_ptr(o) for o in outs + offs], _ptr(ftot), g, _stream(rows))
     _launched("fixed_schedule", err)
     fixed_schedule.launches += 1
+    _note("fixed_schedule", cfg, m, 0)
     return Slots(*outs, *offs, ftot)
 
 
@@ -1209,6 +1222,7 @@ def exact_schedule(cfg, rows, kmer_tab, prof_a, probe: bool = False,
         k2_groups(cfg)[0] if group is None else group, _stream(rows))
     _launched("exact_schedule", err)
     exact_schedule.launches += 1
+    _note("exact_schedule", cfg, m, 0)
     return Slots(*outs, *offs, ftot)
 
 
@@ -1265,6 +1279,7 @@ def verify_candidates(cfg, cands: int, rows, slots: Slots,
         K3_VARIANT if variant is None else variant, _stream(rows))
     _launched("verify_candidates", err)
     verify_candidates.launches += 1
+    _note("verify_candidates", cfg, m, cands)
     return Cands(starts, *out)
 
 
@@ -1289,6 +1304,7 @@ def reduce_reads(cfg, cands: int, rows, vc: Cands,
         _stream(rows))
     _launched("reduce_reads", err)
     reduce_reads.launches += 1
+    _note("reduce_reads", cfg, m, cands)
     return out
 
 
@@ -1307,6 +1323,7 @@ def rc_words(cfg, rows) -> torch.Tensor:
         _stream(rows))
     _launched("rc_words", err)
     rc_words.launches += 1
+    _note("rc_words", cfg, rows.shape[0], 0)
     return out
 
 
@@ -1330,6 +1347,7 @@ def pair_join(cfg, rows_a, rows_b, in_a, in_b) -> torch.Tensor:
         _ptr(out), _stream(rows_a))
     _launched("pair_join", err)
     pair_join.launches += 1
+    _note("pair_join", cfg, n, 0)
     return out
 
 
@@ -1385,6 +1403,7 @@ def merge_shards(cfg, cands: int, rows, vcs: list,
         _ptr(out), _stream(rows))
     _launched("merge_shards", err)
     merge_shards.launches += 1
+    _note("merge_shards", cfg, m, cands)
     return out
 
 

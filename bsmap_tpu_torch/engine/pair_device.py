@@ -43,6 +43,7 @@ import time as _time
 import numpy as np
 import torch
 
+from .. import obs
 from ..index import SeedIndex
 from ..params import FIXELEMENT, MAXSNPS, Param, REG_ALPHABET, REV_CHAR
 from ..readio import Read
@@ -50,8 +51,8 @@ from ..reference import PackedGenome
 from ..trim import filter_read
 from ..utils import myrand, myrand_hash
 from . import kernels
-from .device_engine import (DeviceEngine, EngineUnsupported, _pack_inputs,
-                            filter_block, pack_spans)
+from .device_engine import (HOST_CAUSES, DeviceEngine, EngineUnsupported,
+                            _pack_inputs, filter_block, pack_spans)
 from .host_engine import SEResult
 from .kernels import (JN_COLS, N_EXTRAS, X_COFF, X_FTOT, X_OK, X_REPLAY,
                       X_SOFF)
@@ -159,6 +160,8 @@ class PairDeviceEngine:
         self.MS = self.se._maxseg
         self.n_replayed = 0
         self.n_mate_filtered = 0      # pairs with a filtered mate
+        # each of those pairs under the first of HOST_CAUSES that holds
+        self.host_causes = dict.fromkeys(HOST_CAUSES, 0)
         # block path: seconds in the replays, the filtered-mate pairs and
         # the MateState syncs between them (emit_block)
         self.t_host = 0.0
@@ -194,9 +197,14 @@ class PairDeviceEngine:
         """K6 on host full rows: uploads them to the engine's device and
         returns the (n, 11) J_* rows."""
         dev = self.se.device
-        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-             for x in (rows_a, rows_b, in_a, in_b)]
-        return kernels.pair_join(cfg, *t).cpu().numpy()
+        host = [np.ascontiguousarray(x) for x in (rows_a, rows_b, in_a, in_b)]
+        with obs.span("engine.dispatch"):
+            with obs.span("engine.h2d", cpu=False,
+                          nbytes=sum(x.nbytes for x in host)):
+                t = [torch.from_numpy(x).to(dev) for x in host]
+            with obs.span("engine.launch", rows=len(rows_a), cpu=False):
+                out = kernels.pair_join(cfg, *t)
+        return self.se._collect([out])[0]
 
     def _align_join(self, rows_in_a, rows_in_b, cfg_a, cfg_b):
         """Two-phase dispatch over both mates' dispatch rows, then K6 on the
@@ -234,11 +242,13 @@ class PairDeviceEngine:
         def dispatch_all(spans, rank, into_ok):
             ranks = np.full(n, rank, dtype=np.int32)
             pend = []
-            for sel, cap in spans:
-                for cfg, rows in ((cfg_a, rows_in_a), (cfg_b, rows_in_b)):
-                    pend.append(se._dispatch(
-                        cfg, se._window_rows(rows, sel, ranks), cap))
-                    se.n_dispatched += 1
+            with obs.span("engine.dispatch"):
+                for sel, cap in spans:
+                    for cfg, rows in ((cfg_a, rows_in_a),
+                                      (cfg_b, rows_in_b)):
+                        pend.append(se._dispatch(
+                            cfg, se._window_rows(rows, sel, ranks), cap))
+                        se.n_dispatched += 1
             arrs = se._collect(pend)
             for k, (sel, _) in enumerate(spans):
                 collect_pair(sel, arrs[2 * k], arrs[2 * k + 1], into_ok)
@@ -278,14 +288,13 @@ class PairDeviceEngine:
         the device (m, 11) J_* rows, with both mates' (m, 2*maxseg) count
         columns after them under ``counts``."""
         se = self.se
-        t0 = _time.time()
-        da = torch.from_numpy(rows_a).to(se.device)
-        db = torch.from_numpy(rows_b).to(se.device)
-        se.t_h2d += _time.time() - t0
-        t0 = _time.time()
-        out = kernels.pair_program(cfg_a, cfg_b, cap, se.tables, da, db,
-                                   counts=counts)
-        se.t_call += _time.time() - t0
+        with obs.span("engine.h2d", nbytes=rows_a.nbytes + rows_b.nbytes,
+                      cpu=False):
+            da = torch.from_numpy(rows_a).to(se.device)
+            db = torch.from_numpy(rows_b).to(se.device)
+        with obs.span("engine.launch", rows=len(rows_a), cpu=False):
+            out = kernels.pair_program(cfg_a, cfg_b, cap, se.tables, da, db,
+                                       counts=counts)
         se.n_dispatched += 1
         return out
 
@@ -308,34 +317,35 @@ class PairDeviceEngine:
                 cfg_a, cfg_b, se._window_rows(rows_in_a, sel, ranks),
                 se._window_rows(rows_in_b, sel, ranks), cap, counts)
 
-        t0 = _time.time()
-        pend1 = [dispatch(np.arange(i, min(i + se.B, n), dtype=np.int64),
-                          se.CANDS, 0)
-                 for i in range(0, n, se.B)]
-        se.t_enqueue += _time.time() - t0
+        with obs.span("engine.dispatch"):
+            pend1 = [dispatch(np.arange(i, min(i + se.B, n), dtype=np.int64),
+                              se.CANDS, 0)
+                     for i in range(0, n, se.B)]
 
         def collect(pend):
-            for (sel, _), arr in zip(pend, se._collect([o for _, o in pend])):
-                jrows[sel] = arr
+            arrs = se._collect([o for _, o in pend])
+            with obs.span("engine.commit"):
+                for (sel, _), arr in zip(pend, arrs):
+                    jrows[sel] = arr
 
         def finish():
             collect(pend1)
-            ok = (jrows[:, J_FLAGS] >> 2) & 1
-            paired = jrows[:, J_PAIR] & 31
-            commit = (ok == 1) & (paired == 1)      # i* == 0: exact
-            ftot = jrows[:, J_FTOT].astype(np.int64)
-            rem = np.nonzero(~commit)[0]
-            cap_max = min(se.CANDS_BIG, (1 << 27) - 1)
-            too_big = rem[ftot[rem] >= cap_max]
-            jrows[too_big] = 0
-            jrows[too_big, J_FLAGS] = 1             # replay
-            rem = rem[ftot[rem] < cap_max]
+            with obs.span("engine.commit"):
+                ok = (jrows[:, J_FLAGS] >> 2) & 1
+                paired = jrows[:, J_PAIR] & 31
+                commit = (ok == 1) & (paired == 1)      # i* == 0: exact
+                ftot = jrows[:, J_FTOT].astype(np.int64)
+                rem = np.nonzero(~commit)[0]
+                cap_max = min(se.CANDS_BIG, (1 << 27) - 1)
+                too_big = rem[ftot[rem] >= cap_max]
+                jrows[too_big] = 0
+                jrows[too_big, J_FLAGS] = 1             # replay
+                rem = rem[ftot[rem] < cap_max]
             if len(rem):
-                t0 = _time.time()
-                pend2 = [dispatch(rem[a0: b0], cap, MS - 1)
-                         for a0, b0, cap in pack_spans(
-                             ftot[rem], se.B, se.CANDS, se.CANDS_BIG)]
-                se.t_enqueue += _time.time() - t0
+                with obs.span("engine.dispatch"):
+                    pend2 = [dispatch(rem[a0: b0], cap, MS - 1)
+                             for a0, b0, cap in pack_spans(
+                                 ftot[rem], se.B, se.CANDS, se.CANDS_BIG)]
                 collect(pend2)
                 bad = rem[((jrows[rem, J_FLAGS] >> 2) & 1) == 0]
                 jrows[bad] = 0
@@ -344,28 +354,38 @@ class PairDeviceEngine:
 
         return finish
 
-    def _replay_flag(self, jrows, risk):
-        """Pairs whose exact output needs the sequential host engine: a
+    def _replay_cause(self, jrows, risk):
+        """Per pair, the index in ``HOST_CAUSES`` of the first reason its
+        exact output needs the sequential host engine, 0 for none: a
         mate's K4 replay bit (bucket cap, more than K hits), a pairhits
-        bucket at max_num_hits, stale seed-schedule reads, -r 0 multi-pairs
-        past step 0 (their fallback hit lists froze at step i*), and under
-        -S 0 every pair whose output consumes a sequential rand_r draw."""
+        bucket at max_num_hits or a capacity overflow ('device'), stale
+        seed-schedule reads ('stale'), -r 0 multi-pairs past step 0, whose
+        fallback hit lists froze at step i* ('multi'), and under -S 0
+        every pair whose output consumes a sequential rand_r draw
+        ('draw')."""
         p = self.param
         flags = jrows[:, J_FLAGS]
         paired = jrows[:, J_PAIR] & 31
         cnt = (jrows[:, J_PAIR] >> 5) & 2047
-        flag = ((flags & 3) != 0) | (((flags >> 3) & 1) != 0) | risk
-        if p.report_repeat_hits == 0:
-            flag = flag | ((paired > 1) & (cnt > 1))
+        # written from the last cause to the first: the first that holds
+        # is the one left
+        code = HOST_CAUSES.index
+        cause = np.zeros(len(jrows), dtype=np.int8)
         if p.randseed == 0:
             fnd_a = (jrows[:, J_MATE_A] & 1) != 0
             fnd_b = (jrows[:, J_MATE_B] & 1) != 0
             ss_a = (jrows[:, J_MATE_A] >> 6) & 1023
             ss_b = (jrows[:, J_MATE_B] >> 6) & 1023
-            flag = flag | ((paired > 0) & (cnt > 1)) \
-                | ((paired == 0) & ((fnd_a & (ss_a != 1))
-                                    | (fnd_b & (ss_b != 1))))
-        return flag
+            cause[((paired > 0) & (cnt > 1))
+                  | ((paired == 0) & ((fnd_a & (ss_a != 1))
+                                      | (fnd_b & (ss_b != 1))))] = \
+                code("draw")
+        if p.report_repeat_hits == 0:
+            cause[(paired > 1) & (cnt > 1)] = code("multi")
+        cause[risk] = code("stale")
+        cause[((flags & 3) != 0) | (((flags >> 3) & 1) != 0)] = \
+            code("device")
+        return cause
 
     @staticmethod
     def _prow_from_jrows(jrows):
@@ -450,7 +470,8 @@ class PairDeviceEngine:
             risk = se._stale_risk(la, ba_) | se._stale_risk(lb, bb_)
             rows_a, rows_b, jrows = self._align_join(rows_in_a, rows_in_b,
                                                      cfg_a, cfg_b)
-            replay_flag = self._replay_flag(jrows, risk)
+            cause = self._replay_cause(jrows, risk)
+            replay_flag = cause != 0
             prow = self._prow_from_jrows(jrows)
         else:
             replay_flag = np.zeros(0, dtype=bool)
@@ -492,11 +513,13 @@ class PairDeviceEngine:
                 if risk[t]:
                     cursor = sync_to(cursor, t) + 1
                 self.n_replayed += 1
+                self.host_causes[HOST_CAUSES[cause[t]]] += 1
             else:
                 # filtered-mate pair: the surviving mate's run_align may
                 # read schedule state -> sync the preceding device span
                 cursor = sync_to(cursor, next_live)
                 self.n_mate_filtered += 1
+                self.host_causes["filtered_mate"] += 1
             results[i] = self._host_pair(batch_a[i], batch_b[i], filt_a[i],
                                          filt_b[i], int(buds_a0[i]),
                                          int(buds_b0[i]))
@@ -613,33 +636,38 @@ class PairDeviceEngine:
         only after block N+1's phase 1 is on the device, so phase 2, the
         replay flags and the formatting overlap kernel time.  Under BSP
         the mates' per-level counts come back with the J rows."""
-        se = self.se
-        counts = not self.param.out_sam
-        nw, live, live_pos, rows_in_a, rows_in_b = self.block_pair_rows(
-            blk_a, blk_b)
-        n = len(live_pos)
-        la = rows_in_a[:, 2 * nw].astype(np.int64)
-        lb = rows_in_b[:, 2 * nw].astype(np.int64)
-        risk = (se._stale_risk(la, rows_in_a[:, 2 * nw + 1])
-                | se._stale_risk(lb, rows_in_b[:, 2 * nw + 1]))
-        fin = (self._align_join_fused(rows_in_a, rows_in_b, self._cfg(1, nw),
-                                      self._cfg(2, nw), counts)
-               if n else None)
+        with obs.span("engine.align", rows=len(blk_a)):
+            se = self.se
+            counts = not self.param.out_sam
+            with obs.span("engine.rows"):
+                nw, live, live_pos, rows_in_a, rows_in_b = \
+                    self.block_pair_rows(blk_a, blk_b)
+                n = len(live_pos)
+                la = rows_in_a[:, 2 * nw].astype(np.int64)
+                lb = rows_in_b[:, 2 * nw].astype(np.int64)
+                risk = (se._stale_risk(la, rows_in_a[:, 2 * nw + 1])
+                        | se._stale_risk(lb, rows_in_b[:, 2 * nw + 1]))
+            fin = (self._align_join_fused(rows_in_a, rows_in_b,
+                                          self._cfg(1, nw), self._cfg(2, nw),
+                                          counts)
+                   if n else None)
 
-        def collect():
-            if n:
-                jr = fin()
-                replay_flag = self._replay_flag(jr, risk)
-                prow_live = self._prow_from_jrows(jr)
-                counts_live = jr[:, JN_COLS:]
-            else:
-                replay_flag = np.zeros(0, dtype=bool)
-                prow_live = np.zeros((0, 22), dtype=np.int32)
-                counts_live = np.zeros((0, 4 * self.MS), dtype=np.int32)
-            return (blk_a, blk_b, live, live_pos, la, lb, risk, replay_flag,
-                    prow_live, counts_live)
+            def collect():
+                with obs.span("engine.finish", rows=len(blk_a)):
+                    if n:
+                        jr = fin()
+                        cause = self._replay_cause(jr, risk)
+                        prow_live = self._prow_from_jrows(jr)
+                        counts_live = jr[:, JN_COLS:]
+                    else:
+                        cause = np.zeros(0, dtype=np.int8)
+                        prow_live = np.zeros((0, 22), dtype=np.int32)
+                        counts_live = np.zeros((0, 4 * self.MS),
+                                               dtype=np.int32)
+                return (blk_a, blk_b, live, live_pos, la, lb, risk, cause,
+                        prow_live, counts_live)
 
-        return collect
+            return collect
 
     def _host_row(self, ra: Read, rb: Read, pres: PairResult, fmt, row,
                   counts) -> None:
@@ -692,8 +720,9 @@ class PairDeviceEngine:
         carry no start offsets: the sync recomputes them), each synthesized
         into a formatter row; then one native call formats every pair, so
         the context buffers advance in one place and in pair order."""
-        (blk_a, blk_b, live, live_pos, la, lb, risk, replay_flag,
+        (blk_a, blk_b, live, live_pos, la, lb, risk, cause,
          prow_live, counts_live) = aligned
+        replay_flag = cause != 0
         from ..native import pe_format
         p = self.param
         se = self.se
@@ -726,35 +755,44 @@ class PairDeviceEngine:
                 counts[live_pos] = counts_live
             host[live_pos[replay_flag]] = True
         lcum = np.concatenate([[0], np.cumsum(live)])
+        hosts = np.nonzero(host)[0]
         cursor = 0
         t0 = _time.perf_counter()
-        for i in np.nonzero(host)[0]:
-            i = int(i)
-            t = int(lcum[i])              # live row of this pair (if live)
-            if live[i]:
-                if risk[t]:
-                    cursor = sync_to(cursor, t) + 1
-                self.n_replayed += 1
-            else:
-                cursor = sync_to(cursor, t)
-                self.n_mate_filtered += 1
-            ra, rb = blk_a.read_obj(i), blk_b.read_obj(i)
-            pres = self._host_pair(ra, rb, bool(filt_a[i]), bool(filt_b[i]),
-                                   int(buds_a[i]), int(buds_b[i]))
-            prow[i, :P_FLT_A] = 0
-            self._host_row(ra, rb, pres, fmt, prow[i],
-                           None if counts is None else counts[i])
-        if n:
-            sync_to(cursor, n)
+        with obs.span("host.route", rows=len(hosts)):
+            for i in hosts:
+                i = int(i)
+                t = int(lcum[i])          # live row of this pair (if live)
+                if live[i]:
+                    if risk[t]:
+                        cursor = sync_to(cursor, t) + 1
+                    self.n_replayed += 1
+                    self.host_causes[HOST_CAUSES[cause[t]]] += 1
+                else:
+                    cursor = sync_to(cursor, t)
+                    self.n_mate_filtered += 1
+                    self.host_causes["filtered_mate"] += 1
+                with obs.span("host.align", cpu=False):
+                    ra, rb = blk_a.read_obj(i), blk_b.read_obj(i)
+                    pres = self._host_pair(ra, rb, bool(filt_a[i]),
+                                           bool(filt_b[i]), int(buds_a[i]),
+                                           int(buds_b[i]))
+                with obs.span("host.select", cpu=False):
+                    prow[i, :P_FLT_A] = 0
+                    self._host_row(ra, rb, pres, fmt, prow[i],
+                                   None if counts is None else counts[i])
+            if n:
+                sync_to(cursor, n)
         self.t_host += _time.perf_counter() - t0
         un = p.useful_nt[:4].encode("latin1")
-        main, unpair, (npair, na_, nb_) = pe_format.format_pair_block(
-            pe_format.get_lib(), blk_a.buf, blk_a.rec, blk_b.buf, blk_b.rec,
-            prow, None if counts is None else counts[:, :2 * MS],
-            None if counts is None else counts[:, 2 * MS:], MS, buds_a,
-            buds_b, se._chrname_buf, se._chrname_off, REV_CHAR, p,
-            blk_a.synth_qual, blk_b.synth_qual, se.genome.refcat,
-            se._anchors_i64, un, *self._mapseq, carry=self.carry)
+        with obs.span("format", rows=n_all):
+            main, unpair, (npair, na_, nb_) = pe_format.format_pair_block(
+                pe_format.get_lib(), blk_a.buf, blk_a.rec, blk_b.buf,
+                blk_b.rec, prow,
+                None if counts is None else counts[:, :2 * MS],
+                None if counts is None else counts[:, 2 * MS:], MS, buds_a,
+                buds_b, se._chrname_buf, se._chrname_off, REV_CHAR, p,
+                blk_a.synth_qual, blk_b.synth_qual, se.genome.refcat,
+                se._anchors_i64, un, *self._mapseq, carry=self.carry)
         fmt.n_aligned_pairs += npair
         fmt.n_aligned_a += na_
         fmt.n_aligned_b += nb_

@@ -18,6 +18,7 @@ import queue
 import threading
 import time
 
+from .. import obs
 from ..output.pair_sam import PairFormatter
 from ..output.sam import sam_header
 from ..readio import BATCH_NUM, detect_format, open_read_stream
@@ -142,10 +143,13 @@ def run_pair_end_blocks(o, genome, engine, fmt, header: bool = True,
     N after block N+1's phase 1 is enqueued, and a writer thread writes
     the SAM (or BSP and -2) bytes.  An error in the reader, an encode
     thread or the writer ends the run with that error.  ``header``: write
-    the SAM header (a ``--nprocs`` shard does not)."""
+    the SAM header (a ``--nprocs`` shard does not).  Under ``obs`` each
+    thread's work and waits are spans (``pipe.*``), each carrying its
+    block pair's sequence number."""
     from concurrent.futures import ThreadPoolExecutor
 
     from .. import native
+    from ..cli import _put
     from ..blockio import BlockReadStream
 
     p = o.param
@@ -163,8 +167,9 @@ def run_pair_end_blocks(o, genome, engine, fmt, header: bool = True,
     errors: list[BaseException] = []
     done = threading.Event()
 
-    def encode(ba, bb):
-        engine.encode_block_pair(ba, bb)
+    def encode(ba, bb, seq):
+        with obs.block(seq), obs.span("pipe.encode", rows=len(ba)):
+            engine.encode_block_pair(ba, bb)
         return ba, bb
 
     def reader():
@@ -173,13 +178,18 @@ def run_pair_end_blocks(o, genome, engine, fmt, header: bool = True,
         # first parse
         try:
             size = engine.se.B
+            seq = 0
             while not done.is_set():
-                ba = sa.next_block(min(size, blk_n))
-                bb = sb.next_block(min(size, blk_n))
-                size *= 2
-                if ba is None or bb is None or len(ba) != len(bb):
-                    break
-                q_in.put(pool.submit(encode, ba, bb))
+                with obs.block(seq):
+                    with obs.span("pipe.parse"):
+                        ba = sa.next_block(min(size, blk_n))
+                        bb = sb.next_block(min(size, blk_n))
+                    size *= 2
+                    if ba is None or bb is None or len(ba) != len(bb):
+                        break
+                    _put(q_in, pool.submit(encode, ba, bb, seq),
+                         "pipe.read_wait")
+                seq += 1
         except BaseException as e:   # surfaced by the align loop
             errors.append(e)
         q_in.put(None)
@@ -193,60 +203,76 @@ def run_pair_end_blocks(o, genome, engine, fmt, header: bool = True,
                 if p.out_sam and header:
                     fout.write(sam_header(genome).encode("latin1"))
                 while True:
-                    item = q_out.get()
+                    with obs.span("pipe.writer_wait"):
+                        item = q_out.get()
                     if item is None:
                         break
-                    main, unpair = item
-                    fout.write(main)
-                    if fout_unpair is not None:
-                        fout_unpair.write(unpair)
+                    seq, main, unpair = item
+                    with obs.block(seq), obs.span(
+                            "pipe.write", nbytes=len(main) + len(unpair)):
+                        fout.write(main)
+                        if fout_unpair is not None:
+                            fout_unpair.write(unpair)
         except BaseException as e:   # surfaced after the join
             errors.append(e)
             while q_out.get() is not None:   # keep the align loop moving
                 pass
 
-    t_rd = threading.Thread(target=reader, daemon=True)
-    t_wr = threading.Thread(target=writer, daemon=True)
-    t_rd.start()
-    t_wr.start()
+    t_rd = threading.Thread(target=reader, name="bsmap_reader", daemon=True)
+    t_wr = threading.Thread(target=writer, name="bsmap_writer", daemon=True)
     timer = StepTimer()
     total = 0
-    prev = None            # (collect, n): block N-1, collected only after
-    try:                   # block N's phase 1 is on the device
-        while True:
-            fut = q_in.get()
-            if fut is None:
-                break
-            try:
-                ba, bb = fut.result()
-            except BaseException as e:   # an encode thread's error
-                errors.append(e)
-                break
-            cur = engine.align_block_pair(ba, bb)
-            if prev is not None:
-                q_out.put(engine.emit_block(fmt, prev[0]()))
-                total += prev[1]
-                print(f"{total} read pairs finished. "
-                      f"{timer.total():.1f} secs passed")
-            prev = (cur, len(ba))
-        if prev is not None and not errors:
-            q_out.put(engine.emit_block(fmt, prev[0]()))
-            total += prev[1]
-            print(f"{total} read pairs finished. "
-                  f"{timer.total():.1f} secs passed")
-    finally:
-        done.set()
-        q_out.put(None)
-        t_wr.join()
-        while t_rd.is_alive():       # unblock a reader parked on q_in
-            try:
-                q_in.get(timeout=0.1)
-            except queue.Empty:
-                pass
-        t_rd.join()
-        pool.shutdown(wait=True, cancel_futures=True)
-        sa.close()
-        sb.close()
+
+    def finish(prev) -> None:
+        # block N-1: collected, run through the host route and formatted
+        # only after block N's phase 1 is on the device
+        nonlocal total
+        collect, n, seq = prev
+        with obs.block(seq):
+            main, unpair = engine.emit_block(fmt, collect())
+            _put(q_out, (seq, main, unpair), "pipe.output_wait")
+        total += n
+        print(f"{total} read pairs finished. "
+              f"{timer.total():.1f} secs passed")
+
+    prev = None            # (collect, n, seq) of block N-1
+    with obs.span("pipe.pass"):
+        t_rd.start()
+        t_wr.start()
+        try:
+            seq = 0
+            while True:
+                with obs.block(seq):
+                    with obs.span("pipe.input_wait"):
+                        fut = q_in.get()
+                        if fut is None:
+                            break
+                        try:
+                            ba, bb = fut.result()
+                        except BaseException as e:   # an encode error
+                            errors.append(e)
+                            break
+                    cur = engine.align_block_pair(ba, bb)
+                if prev is not None:
+                    finish(prev)
+                prev = (cur, len(ba), seq)
+                seq += 1
+            if prev is not None and not errors:
+                finish(prev)
+        finally:
+            done.set()
+            with obs.span("pipe.output_wait"):   # the writer's last block
+                q_out.put(None)
+                t_wr.join()
+            while t_rd.is_alive():       # unblock a reader parked on q_in
+                try:
+                    q_in.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            t_rd.join()
+            pool.shutdown(wait=True, cancel_futures=True)
+            sa.close()
+            sb.close()
     if errors:
         raise errors[0]
     return total

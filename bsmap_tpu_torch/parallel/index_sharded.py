@@ -32,11 +32,10 @@ once on each distinct device.
 
 from __future__ import annotations
 
-import time as _time
-
 import numpy as np
 import torch
 
+from .. import obs
 from ..engine import kernels
 from ..engine.device_engine import (DeviceEngine, EngineUnsupported, _i32,
                                     genome_tables, strand_chunks,
@@ -175,8 +174,6 @@ class IndexShardedEngine(DeviceEngine):
 
     def _dispatch(self, cfg, packed, cands: int | None = None):
         cap = self.CANDS if cands is None else cands
-        t0 = _time.time()
-        out = kernels.index_sharded_program(cfg, cap, self.shard_tables,
-                                            torch.from_numpy(packed))
-        self.t_call += _time.time() - t0
-        return out
+        with obs.span("engine.launch", rows=len(packed), cpu=False):
+            return kernels.index_sharded_program(
+                cfg, cap, self.shard_tables, torch.from_numpy(packed))

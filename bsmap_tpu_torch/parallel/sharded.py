@@ -11,10 +11,9 @@ bits is the JAX program's ``psum`` of the aligned-read count.
 
 from __future__ import annotations
 
-import time as _time
-
 import torch
 
+from .. import obs
 from ..engine import device_engine as de
 from ..engine import kernels
 from ..engine.kernels import X_FOUND
@@ -56,19 +55,20 @@ class ShardedDeviceEngine(de.DeviceEngine):
         cap = self.C_loc if cands is None else cands
         if len(packed) > self.B:
             raise ValueError(f"{len(packed)} rows for a window of {self.B}")
-        t0 = _time.time()
         outs = []
         for d, dev in enumerate(self.mesh):
             lo = d * self.B_loc
             if d and lo >= len(packed):
                 break
-            rows = torch.from_numpy(packed[lo: lo + self.B_loc]).to(dev)
-            outs.append(kernels.align_program(
-                cfg, cap, self.dev_tables[dev], rows).to(self.mesh[0]))
+            stripe = packed[lo: lo + self.B_loc]
+            with obs.span("engine.h2d", nbytes=stripe.nbytes, cpu=False):
+                rows = torch.from_numpy(stripe).to(dev)
+            with obs.span("engine.launch", rows=len(stripe), cpu=False):
+                outs.append(kernels.align_program(
+                    cfg, cap, self.dev_tables[dev], rows).to(self.mesh[0]))
         out = torch.cat(outs) if len(outs) > 1 else outs[0]
         if not cfg.probe:
             found = (out[:, 1] & 1) if cfg.lean \
                 else out[:, 2 * cfg.maxseg + X_FOUND]
             self.last_n_aligned = found.sum()
-        self.t_call += _time.time() - t0
         return out

@@ -50,7 +50,8 @@ line then holds both, each with K7's share of the kernel time.
   align    SE: DeviceEngine.align_block + finish (rounds 1 and 2,
            collection, host replays); PE: PairDeviceEngine.align_block_pair
            + collect (phase 1, phase 2, J rows, replay flags); with the
-           engine's h2d / launch / collect timers
+           seconds of the engine's dispatch / h2d / launch / collect spans
+           (``obs``: t_enqueue, t_h2d, t_call, t_collect)
   kernels  CUDA kernel time inside a second align pass (torch.profiler),
            and the device's idle share of that pass's wall time
   format   native SAM (BSP) formatting (ZP/ZL tags under --rrbs) + file
@@ -82,6 +83,12 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from . import obs
+
+# align_timers_s's keys and the engine spans each sums
+ALIGN_TIMERS = {"t_h2d": "engine.h2d", "t_call": "engine.launch",
+                "t_collect": "engine.collect", "t_enqueue": "engine.dispatch"}
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:        # tools/genreads.py lives beside the package
@@ -218,16 +225,18 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
     import torch
     from . import cli
     flags, eng, se, (t_parse, t_encode), align_all, fmt_all = stages
-    timer_keys = ("t_h2d", "t_call", "t_collect", "t_enqueue")
 
     align_all()                                  # warm-up pass
-    for k in timer_keys:
-        setattr(se, k, 0.0)
     se.n_dispatched = eng.n_replayed = se.n_probe = 0
+    obs.start()
     t0 = time.perf_counter()
-    aligned = align_all()
-    t_align = time.perf_counter() - t0
-    timers = {k: getattr(se, k) for k in timer_keys}
+    try:
+        aligned = align_all()
+    finally:
+        t_align = time.perf_counter() - t0
+        sums = obs.totals(obs.stop())
+    timers = {k: sums.get(name, (0, 0.0))[1]
+              for k, name in ALIGN_TIMERS.items()}
     # SE replays run in align, PE replays in format (emit_block), where
     # the pairs with a filtered mate run too
     counts = {"n_dispatched": se.n_dispatched, "n_probe": se.n_probe,
