@@ -18,8 +18,9 @@ native SAM/BSP formatter.  The orchestration is the JAX engine's:
     packed verify dispatches (probe mode);
   * reads flagged by the kernels (level overflow, dedup exhaustion, -r 0
     ties, -S 0 multi-hits) and stale-schedule reads replay on the exact
-    host engine with a reconstructed MateState, so the output is
-    byte-identical to ``bsmap_tpu`` and to the reference.
+    host engine (WGBS: its C++ form, ``native_host.NativeHost``) with a
+    reconstructed MateState, so the output is byte-identical to
+    ``bsmap_tpu`` and to the reference.
 
 Dispatch windows carry only live rows (the JAX program pads to B rows);
 the candidate capacities stay multiples of B so the result rows match the
@@ -46,6 +47,7 @@ from ..trim import filter_read
 from ..utils import myrand_hash
 from . import kernels
 from .host_engine import HostEngine, MateState, SEResult
+from .native_host import NativeHost
 # full result row layout: counts, then the X_* extras K4 writes
 from .kernels import (N_EXTRAS, X_CHAIN, X_CHRP, X_COFF, X_FOUND, X_FTOT,
                       X_H00C, X_H00F, X_H00W, X_II, X_OK, X_REPLAY,
@@ -415,6 +417,8 @@ class DeviceEngine:
         if param.profile is None:
             param.init_mapping()
         self.host = ReplayHost(genome, index, param)  # exact replay path
+        # the replay path's WGBS alignment in C++ (None: the Python engine)
+        self.native = NativeHost.create(self.host)
         if not genome_fits(genome):
             raise EngineUnsupported("genome exceeds 32-bit per-strand "
                                     "coordinates")
@@ -426,6 +430,7 @@ class DeviceEngine:
                                        # the probe pass's totals
         self.n_replayed = 0
         self.host_causes = dict.fromkeys(HOST_CAUSES, 0)
+        self.host_native = 0           # replays the native aligner ran
         self.n_dispatched = 0
         # full-rank candidate totals the kernels report (X_FTOT), over the
         # reads aligned: their sum, count and maximum
@@ -587,7 +592,7 @@ class DeviceEngine:
             fill_seed_buffers(p, st, read_of, lo, hi, cover)
             if offset_read is not None:
                 rd = read_of(offset_read)
-                self.host.sync_schedule(rd, int(
+                (self.native or self.host).sync_schedule(rd, int(
                     (p.max_snp_num + 1) * (len(rd.seq) - 1) // len(rd.seq)),
                     state=st)
 
@@ -928,9 +933,10 @@ class DeviceEngine:
                                               replay_flag, cfg.chains_mode)
                         cursor = rpos + 1   # run_align updates the state
                     with obs.span("host.align", cpu=False):
-                        replays[rpos] = self.host.run_align(read_of(rpos),
-                                                            int(buds[rpos]))
+                        replays[rpos] = (self.native or self.host).run_align(
+                            read_of(rpos), int(buds[rpos]))
                     self.n_replayed += 1
+                    self.host_native += self.native is not None
                     self.host_causes["device" if dev_flag[rpos] else
                                      "stale" if risk[rpos] else "draw"] += 1
                 # keep the state current through the batch tail: a LATER

@@ -27,8 +27,9 @@ join.
     program) whose full rows come back to the host for the Python
     formatter, then K6 on those rows.
 
-Sequential corners replay the PAIR on the exact host engine
-(PairHostEngine) with the per-mate MateState kept bit-exact: per-mate
+Sequential corners replay the PAIR on the exact host engine (WGBS: its
+C++ form, ``native_host.NativeHost``, counted in ``host_native``; else
+PairHostEngine) with the per-mate MateState kept bit-exact: per-mate
 bucket-cap tightening and more than K hits (the K4 replay bit), a pairhits
 bucket reaching max_num_hits, stale seed-schedule reads and -S 0 draws
 (``n_replayed``).  A pair with a filtered mate runs there too: its
@@ -160,6 +161,7 @@ class PairDeviceEngine:
         self.MS = self.se._maxseg
         self.n_replayed = 0
         self.n_mate_filtered = 0      # pairs with a filtered mate
+        self.host_native = 0          # host pairs the native aligner ran
         # each of those pairs under the first of HOST_CAUSES that holds
         self.host_causes = dict.fromkeys(HOST_CAUSES, 0)
         # block path: seconds in the replays, the filtered-mate pairs and
@@ -415,16 +417,21 @@ class PairDeviceEngine:
         second pass could trim again (an adapter-like tail left by the
         first cut, the -z quality rescale); bsmap_tpu's device engine runs
         it twice on replayed pairs, the reference and its host engine
-        once."""
+        once.  The native aligner runs the pair where it loaded."""
         ph = self.pair_host
+        nat = self.se.native
+        self.host_native += nat is not None
         if not fa and not fb:
-            return ph._run_pair(ra, rb, bud_a, bud_b)
+            if nat is None:
+                return ph._run_pair(ra, rb, bud_a, bud_b)
+            return nat.run_pair(ra, rb, bud_a, bud_b, ph.state_a, ph.state_b)
+        align = (nat or ph.single).run_align
         return PairResult(
             paired=0, pairhits=[],
             res_a=(SEResult(filtered=True) if fa
-                   else ph.single.run_align(ra, bud_a, ph.state_a)),
+                   else align(ra, bud_a, ph.state_a)),
             res_b=(SEResult(filtered=True) if fb
-                   else ph.single.run_align(rb, bud_b, ph.state_b)),
+                   else align(rb, bud_b, ph.state_b)),
             filtered_a=fa, filtered_b=fb)
 
     def align_batch(self, batch_a: list[Read], batch_b: list[Read]):

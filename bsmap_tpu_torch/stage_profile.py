@@ -227,7 +227,7 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
     flags, eng, se, (t_parse, t_encode), align_all, fmt_all = stages
 
     align_all()                                  # warm-up pass
-    se.n_dispatched = eng.n_replayed = se.n_probe = 0
+    se.n_dispatched = eng.n_replayed = se.n_probe = eng.host_native = 0
     obs.start()
     t0 = time.perf_counter()
     try:
@@ -239,8 +239,10 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
               for k, name in ALIGN_TIMERS.items()}
     # SE replays run in align, PE replays in format (emit_block), where
     # the pairs with a filtered mate run too
+    # host_native: the reads (SE) or pairs (PE) of those the native host
+    # aligner ran; 0 where the Python host engine did
     counts = {"n_dispatched": se.n_dispatched, "n_probe": se.n_probe,
-              "n_replayed": eng.n_replayed}
+              "n_replayed": eng.n_replayed, "host_native": eng.host_native}
     outs = ["-o", os.path.join(root, "run.sam")]
     if not eng.param.out_sam:
         outs = ["-o", os.path.join(root, "run.bsp")] + (
@@ -256,11 +258,12 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
     kms = _kernel_ms(prof)
     k_total = sum(kms.values())
 
-    r0 = eng.n_replayed
+    r0, h0 = eng.n_replayed, eng.host_native
     t0 = time.perf_counter()
     fmt_all(aligned, os.path.join(root, "fmt.sam"))
     t_fmt = time.perf_counter() - t0
     counts["n_replayed"] += eng.n_replayed - r0
+    counts["host_native"] += eng.host_native - h0
     if hasattr(eng, "n_mate_filtered"):
         counts["n_mate_filtered"] = eng.n_mate_filtered
     del eng, se, aligned, align_all, fmt_all, stages
@@ -330,7 +333,8 @@ def _pe_paths(root: str, gpath: str, sets: dict, n: int, extra=()) -> dict:
                 "pairs": pairs, "align_s": st["align_s"],
                 "pairs_per_s": pairs / st["align_s"],
                 "n_replayed": eng.n_replayed,
-                "n_mate_filtered": eng.n_mate_filtered}
+                "n_mate_filtered": eng.n_mate_filtered,
+                "host_native": eng.host_native}
         print(json.dumps({name: out[name]}), flush=True)
     return out
 def _filtered_sweep(root: str, gpath: str, n: int, shares: list[float],
@@ -360,6 +364,7 @@ def _filtered_sweep(root: str, gpath: str, n: int, shares: list[float],
                 "align_s": st["align_s"], "pairs_per_s": n / st["align_s"],
                 "n_replayed": eng.n_replayed,
                 "n_mate_filtered": eng.n_mate_filtered,
+                "host_native": eng.host_native,
                 "host_s": eng.t_host,
                 "host_ms_per_pair": 1e3 * eng.t_host / max(n_host, 1)})
             print(json.dumps(rows[-1]), flush=True)

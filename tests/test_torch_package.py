@@ -59,7 +59,8 @@ def test_port_imports_without_jax():
             "bsmap_tpu_torch.parallel.distributed",
             "bsmap_tpu_torch.parallel.carry",
             "bsmap_tpu_torch.genome_scale", "bsmap_tpu_torch.measure",
-            "bsmap_tpu_torch.obs"]
+            "bsmap_tpu_torch.obs", "bsmap_tpu_torch.engine.native_host",
+            "bsmap_tpu_torch.native.host_align"]
     code = ("import sys; sys.modules['jax'] = None\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -204,8 +204,27 @@ def test_pe_block_path_matches_jax_engines(pe_data, block_path_only,
     eng = st["engine"]
     assert (eng.n_mate_filtered > 0) is filtered
     assert st["pairs"] == 300
+    # every host pair ran on the native aligner
+    assert eng.host_native == eng.n_replayed + eng.n_mate_filtered > 0
     if suffix == "bsp":
         assert (pe_data / f"torch_{case}_u.bsp").stat().st_size > 0
+
+
+def test_pe_block_path_python_host_fallback(pe_data, block_path_only,
+                                            monkeypatch):
+    """Where the native host aligner does not load, the host pairs run on
+    the Python host engine: the trimmed case's bytes are those of both
+    bsmap_tpu engines, and no pair is counted as native."""
+    from bsmap_tpu_torch.native import host_align
+    monkeypatch.setattr(host_align, "get_lib", lambda: None)
+    flags, suffix, _ = CASES["trim"]
+    base = ["-a", "a1.fq", "-b", "a2.fq", "-d", "ref.fa", "-s", "12"] + flags
+    st = _three_way(pe_data, base, {"-o": f"fallback.{suffix}"},
+                    monkeypatch, suffix)
+    eng = st["engine"]
+    assert eng.se.native is None
+    assert eng.host_native == 0
+    assert eng.n_replayed + eng.n_mate_filtered > 0
 
 
 def test_pe_block_path_repeat_corners_bsp_s0(repeat_pe_data, block_path_only,

@@ -158,6 +158,11 @@ def test_block_path_qc_lines_match_host(qc_data, monkeypatch, case, reads,
     _port(d, base, f"port_{case}.{suffix}", monkeypatch, mesh, st)
     assert st["engine_name"] == (engine or "device")
     assert_same(d, f"host_{case}.{suffix}", f"port_{case}.{suffix}")
+    # the replays ran on the native host aligner, RRBS's on the Python one
+    eng = st["engine"]
+    assert eng.host_native == (0 if case == "rrbs" else eng.n_replayed)
+    if case == "device_trim":
+        assert eng.n_replayed > 0
     if suffix == "bsp":
         # the set makes QC lines of both orientations (a trimmed read
         # prints its kept prefix, or that prefix reverse-complemented)
