@@ -1,41 +1,12 @@
-"""A traced pass: one whole pipeline pass under ``torch.profiler``, with a
-span around each layer's entry point (``Port.spans``), reduced to the
-device's busy time, the time of its operations by name, and its longest
-idle gaps labelled by the span the host was in."""
+"""A traced pass: one whole pipeline pass under ``torch.profiler``, reduced
+to the device's busy intervals and busy time and the time of its
+operations by name; with the profiler's start on the epoch clock, so that
+the port's own spans (``program_spans``) can name the idle time between
+the busy intervals."""
 
 from __future__ import annotations
 
-import contextlib
-import functools
 import time
-
-
-def _wrap(fn, label: str):
-    import torch
-
-    @functools.wraps(fn)
-    def inner(*a, **k):
-        with torch.profiler.record_function("bench:" + label):
-            return fn(*a, **k)
-    return inner
-
-
-@contextlib.contextmanager
-def layer_spans(spans):
-    """Wrap each (object, attribute, name) in a profiler span for the
-    duration of the block."""
-    saved = []
-    try:
-        for obj, attr, label in spans:
-            saved.append((obj, attr, obj.__dict__.get(attr)))
-            setattr(obj, attr, _wrap(getattr(obj, attr), label))
-        yield
-    finally:
-        for obj, attr, old in reversed(saved):
-            if old is None:
-                delattr(obj, attr)
-            else:
-                setattr(obj, attr, old)
 
 
 def _union(iv: list[tuple[float, float]]) -> list[tuple[float, float]]:
@@ -48,45 +19,32 @@ def _union(iv: list[tuple[float, float]]) -> list[tuple[float, float]]:
     return [(a, b) for a, b in out]
 
 
-def traced_pass(run, spans, device: str = "cuda") -> dict:
+def traced_pass(run, device: str = "cuda") -> dict:
     """Profile ``run()`` (one pipeline pass, which returns its reads or
-    pairs) and reduce the trace (times in seconds; on a CPU run the device
-    readings are zero)."""
+    pairs) and reduce the trace.  Times are seconds, intervals from the
+    profiler's start (``trace_start_ns``, epoch ns); on a CPU run the
+    device readings are empty or zero."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with layer_spans(spans), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         n = run()
         if device == "cuda":
             torch.cuda.synchronize()
         window = time.perf_counter() - t0
-    dev, by_name, host = [], {}, []
+    dev, by_name = [], {}
     for ev in prof.events():
-        a, b = ev.time_range.start / 1e6, ev.time_range.end / 1e6
-        if ev.name.startswith("bench:"):
-            if ev.device_type.name != "CUDA":   # not its device-side copy
-                host.append((a, b, ev.name[len("bench:"):]))
-        elif ev.device_type.name == "CUDA":
+        if ev.device_type.name == "CUDA":
+            a, b = ev.time_range.start / 1e6, ev.time_range.end / 1e6
             dev.append((a, b))
             by_name[ev.name] = by_name.get(ev.name, 0.0) + (b - a)
     busy = _union(dev)
-    gaps = []
-    for (a0, b0), (a1, b1) in zip(busy, busy[1:]):
-        gaps.append((a1 - b0, b0, a1))
-    gaps.sort(reverse=True)
-    labelled = []
-    for g, a, b in gaps[:10]:
-        best, label = 0.0, "none"
-        for ha, hb, name in host:
-            ov = min(hb, b) - max(ha, a)
-            if ov > best:
-                best, label = ov, name
-        labelled.append([label, g])
     ops = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"n": n, "window_s": window,
+            "busy": [list(iv) for iv in busy],
             "busy_s": sum(b - a for a, b in busy),
+            "trace_start_ns": prof.profiler.kineto_results.trace_start_ns(),
             "device_op_s": sum(by_name.values()),
-            "device_ops": [[k, v] for k, v in ops[:10]],
-            "idle_gaps": labelled}
+            "device_ops": [[k, v] for k, v in ops[:10]]}

@@ -6,8 +6,11 @@ orientations until they cover their ``share`` of the bases: an Alu-like
 family of 300 bp units and an L1-like family of 6 kb, mostly
 5'-truncated, each copy diverged from one of a few subfamily consensus
 sequences (``configs/*.json``).  Then CpG is depleted to about
-``cpg_ratio`` of its expected rate.  The same
-seed gives the same bytes.
+``cpg_ratio`` of its expected rate.  A configuration that names
+``genome_features`` (a module under ``benchmark/``) has its ``apply(seq,
+rng, cfg, index)`` change each chromosome's codes in place after that,
+with a generator of its own from the genome's seed and the chromosome's
+index (CpG islands, for example).  The same seed gives the same bytes.
 
     python benchmark/genome.py --config benchmark/configs/hs_wgbs_se100.json \\
         --out benchmark/.cache/hs_wgbs_se100
@@ -33,6 +36,7 @@ for _i, _c in enumerate(b"ACGT"):
     CODE[_c] = _i
     CODE[_c + 32] = _i
 LINE = 70
+FEATURES_STREAM = 0xFEA7
 
 
 def _random_codes(rng, n: int, gc: float) -> np.ndarray:
@@ -162,6 +166,8 @@ def ensure_genome(cfg: dict, cache_dir: str) -> str:
         with open(stamp) as f:
             if f.read() == want:
                 return path
+    from spec import load_module
+    features = load_module(cfg, "genome_features")
     total = sum(int(n) for _, n in g["chromosomes"])
     npy = os.path.join(cache_dir, "genome.npy")
     codes = np.lib.format.open_memmap(npy + ".part", mode="w+",
@@ -170,6 +176,9 @@ def ensure_genome(cfg: dict, cache_dir: str) -> str:
     with open(path + ".part", "wb") as f:
         for k, (name, length) in enumerate(g["chromosomes"]):
             seq = make_chromosome(g, k, int(length))
+            if features is not None:
+                features.apply(seq, np.random.default_rng(
+                    [int(g["seed"]), k, FEATURES_STREAM]), cfg, k)
             write_fasta(f, name, seq)
             codes[at: at + len(seq)] = seq
             at += len(seq)

@@ -62,22 +62,37 @@ def _peak_rss_bytes() -> int:
 
 def genome_key(cfg: dict) -> str:
     """The cache directory's name: configurations with one genome (and
-    so one packed genome and one index) share it."""
+    so one packed genome and one index) share it.  It takes in the
+    configuration's ``genome_features`` file where it names one."""
     import hashlib
-    g = json.dumps(cfg["genome"], sort_keys=True).encode()
+    from spec import code_key
+    g = [cfg["genome"]] + code_key(cfg, ["genome_features"])
+    g = json.dumps(g[0] if len(g) == 1 else g, sort_keys=True).encode()
     return "genome_" + hashlib.sha1(g).hexdigest()[:12]
 
 
-def ensure_reads(cell, cache_dir: str) -> list[str]:
-    """The cell's pass file(s) (``reads.py``), made once into the genome's
-    cache directory: they follow from the configuration and the mix, not
-    from the seed."""
+def reads_key(cell) -> str:
+    """The name of the cell's read directory in the genome's cache: it
+    takes in the configuration's ``library_script`` where it names one."""
     import hashlib
-    import shutil
+    from spec import code_key
     cfg = cell.config
-    key = json.dumps([cfg["layout"], cfg["read_len"], cfg["library"],
-                      cell.traffic], sort_keys=True).encode()
-    d = os.path.join(cache_dir, "reads_" + hashlib.sha1(key).hexdigest()[:12])
+    key = [cfg["layout"], cfg["read_len"], cfg["library"], cell.traffic]
+    key += code_key(cfg, ["library_script"])
+    return "reads_" + hashlib.sha1(
+        json.dumps(key, sort_keys=True).encode()).hexdigest()[:12]
+
+
+def ensure_reads(cell, cache_dir: str) -> list[str]:
+    """The cell's pass file(s), made once into the genome's cache
+    directory by ``reads.py`` or the configuration's ``library_script``:
+    they follow from the configuration and the mix, not from the seed."""
+    import shutil
+    from spec import module_file
+    cfg = cell.config
+    script = (module_file(cfg, "library_script")
+              or os.path.join(HERE, "reads.py"))
+    d = os.path.join(cache_dir, reads_key(cell))
     paths = [os.path.join(d, "r1.fq")]
     if cfg["layout"] == "pe":
         paths.append(os.path.join(d, "r2.fq"))
@@ -85,7 +100,7 @@ def ensure_reads(cell, cache_dir: str) -> list[str]:
         part = d + ".part"
         shutil.rmtree(part, ignore_errors=True)
         os.makedirs(part)
-        _child([os.path.join(HERE, "reads.py"), "--config", cell.config_file,
+        _child([script, "--config", cell.config_file,
                 "--traffic", cell.traffic_file, "--cache", cache_dir,
                 "--out", part])
         open(os.path.join(part, "done"), "w").close()
@@ -139,10 +154,12 @@ def _child(args: list[str]) -> None:
 def run_cell(cell, seed: int, seconds: float, trace: bool,
              device: str = "cuda", cache_root: str | None = None,
              check=None) -> dict:
-    """One run; returns the result line's object.  ``check`` (default
-    ``compare.check_run``) judges the sampled output."""
+    """One run on the cell's first ``chips`` cards; returns the result
+    line's object.  ``check`` (default: the configuration's ``check``
+    module's, else ``compare.check_run``) judges the sampled output."""
     import torch
     cfg, traffic = cell.config, cell.traffic
+    chips = int(cell.chips)
     layout = cfg["layout"]
     cache_dir = os.path.join(cache_root or os.path.join(HERE, ".cache"),
                              genome_key(cfg))
@@ -169,13 +186,15 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         log(f"inputs: genome {genome_s:.3f} s, reads {reads_s:.3f} s "
             f"({n_pass} {layout} a pass)")
 
-        from port import Port
+        from port import Port, card_peak_bytes
         if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.init()
+            for i in range(chips):
+                torch.cuda.reset_peak_memory_stats(i)
         t_setup = time.perf_counter()
         fasta = os.path.join(cache_dir, "genome.fa")
         port = Port(cfg, traffic, reads, fasta, cache_dir, fifo, seed,
-                    device=device)
+                    device=device, chips=chips)
         port.run_pass(out=os.devnull,
                       read_end=int(traffic["warmup"][layout]))
         if device == "cuda":
@@ -214,10 +233,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         else:
             from bench_trace import traced_pass
             c0 = port.counters()
-            tr = traced_pass(port.run_pass, port.spans(), device)
+            port.start_spans()
+            try:
+                tr = traced_pass(port.run_pass, device)
+            finally:
+                spans = port.stop_spans()
             drain.wait_pass()
             c1 = port.counters()
-            ctx.update(trace=tr, window_s=tr["window_s"],
+            ctx.update(trace=tr, spans=spans, window_s=tr["window_s"],
                        window_reads=tr["n"] * per, passes=1,
                        counters={k: c1[k] - c0[k] for k in c1})
             ctx["stages"] = port.stage_times(device)
@@ -226,15 +249,17 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         passes_out = drain.finish()
         drain = None
         ctx["host_peak_bytes"] = _peak_rss_bytes()
-        ctx["device_peak_bytes"] = (torch.cuda.max_memory_allocated()
-                                    if device == "cuda" else 0)
+        ctx["device_peak_bytes"] = card_peak_bytes(device, chips)
         port.close()
         port = None
 
         t0 = time.perf_counter()
         if check is None:
-            from compare import check_run
-            check = check_run
+            from spec import load_module
+            mod = load_module(cfg, "check")
+            if mod is None:
+                import compare as mod
+            check = mod.check_run
         verdict = check(cfg, traffic, cache_dir, reads, sample,
                         passes_out, device)
         log(f"check: {time.perf_counter() - t0:.3f} s")
@@ -262,13 +287,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
               "device": {"platform": "gpu" if device == "cuda" else device,
                          "kind": (torch.cuda.get_device_name(0)
                                   if device == "cuda" else "cpu"),
-                         "count": 1,
+                         "count": chips,
                          "memory_peak_bytes": int(ctx["device_peak_bytes"])}}
     if trace:
         tr = ctx["trace"]
         result["device"]["busy_s"] = tr["busy_s"]
         result["device"]["window_s"] = tr["window_s"]
+        from program_spans import idle_by_span
         result["breakdown"] = {"device_ops": tr["device_ops"],
-                               "idle_gaps": tr["idle_gaps"]}
+                               "idle_gaps": idle_by_span(ctx) or []}
     result["checks"] = verdict["checks"]
     return result

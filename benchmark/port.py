@@ -19,12 +19,30 @@ def randseed(seed: int) -> int:
     return 1 + int(seed) % 2147483646
 
 
+def card_mesh(device: str, chips: int):
+    """The engine's mesh: the first ``chips`` visible cards (None on the
+    CPU, the engines' one CPU entry)."""
+    import torch
+    if device != "cuda":
+        return None
+    return [torch.device(device, i) for i in range(chips)]
+
+
+def card_peak_bytes(device: str, chips: int) -> int:
+    """The largest ``max_memory_allocated`` over the mesh's cards (0 on
+    the CPU)."""
+    import torch
+    if device != "cuda":
+        return 0
+    return max(torch.cuda.max_memory_allocated(i) for i in range(chips))
+
+
 class Port:
     """Genome, index and engine of one cell, and its passes."""
 
     def __init__(self, cfg: dict, traffic: dict, reads: list[str],
                  fasta: str, cache_dir: str, out: str, seed: int,
-                 device: str = "cuda"):
+                 device: str = "cuda", chips: int = 1):
         import torch
         from bsmap_tpu_torch import cli
         from bsmap_tpu_torch.reference import load_genome_cached
@@ -46,7 +64,7 @@ class Port:
             self.index = cli.get_index(o, self.genome)
         self.load_s = time.perf_counter() - t0
         self.o, self.p = o, p
-        mesh = [torch.device(device, 0)] if device == "cuda" else None
+        mesh = card_mesh(device, chips)
         t0 = time.perf_counter()
         if self.pe:
             from bsmap_tpu_torch.engine import pair_pipeline
@@ -95,10 +113,30 @@ class Port:
             p.read_end = MAX_READ_END
 
     def counters(self) -> dict:
-        return {"n_replayed": int(self.engine.n_replayed),
-                "n_mate_filtered": int(getattr(self.engine,
-                                               "n_mate_filtered", 0)),
-                "t_host": float(getattr(self.engine, "t_host", 0.0))}
+        """The engine's counters, by name: reads (pairs) replayed and
+        with a filtered mate, the host engine's seconds, the host route's
+        units by cause (``host_causes.<cause>``) and those the native
+        aligner ran (``host_native``)."""
+        eng = self.engine
+        out = {"n_replayed": int(eng.n_replayed),
+               "n_mate_filtered": int(getattr(eng, "n_mate_filtered", 0)),
+               "t_host": float(getattr(eng, "t_host", 0.0)),
+               "host_native": int(getattr(eng, "host_native", 0))}
+        for cause, n in getattr(eng, "host_causes", {}).items():
+            out["host_causes." + cause] = int(n)
+        return out
+
+    @staticmethod
+    def start_spans() -> None:
+        """Turn the port's own spans (``bsmap_tpu_torch.obs``) on."""
+        from bsmap_tpu_torch import obs
+        obs.start()
+
+    @staticmethod
+    def stop_spans() -> dict:
+        """Turn them off; returns ``obs.stop()``'s anchor and records."""
+        from bsmap_tpu_torch import obs
+        return obs.stop()
 
     def stage_times(self, device: str) -> dict:
         """Each layer's call timed alone over one pass's blocks (the
@@ -173,21 +211,6 @@ class Port:
         out["format_s"] = time.perf_counter() - t0
         out["host_s"] = float(getattr(eng, "t_host", 0.0)) - host0
         return out
-
-    def spans(self):
-        """(object, attribute, span name) of the layer entry points that
-        a traced pass wraps in profiler spans."""
-        from bsmap_tpu_torch.blockio import BlockReadStream
-        eng = self.engine
-        if self.pe:
-            return [(BlockReadStream, "next_block", "parse"),
-                    (eng, "encode_block_pair", "encode"),
-                    (eng, "align_block_pair", "align"),
-                    (eng, "emit_block", "format")]
-        return [(BlockReadStream, "next_block", "parse"),
-                (eng, "encode_block", "encode"),
-                (eng, "align_block", "align"),
-                (eng, "format_aligned_block", "format")]
 
     def close(self) -> None:
         """Drop the engine, index and genome, and the card's cache."""

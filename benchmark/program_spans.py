@@ -1,7 +1,7 @@
 """The port's own spans (``bsmap_tpu_torch.obs``) of one traced pass, placed
 on the device's timeline, and the per-layer numbers read from them.
 
-A run's ``ctx`` carries, beside the keys the harness fills:
+A traced run's ``ctx`` (``harness.run_cell``, ``span_probe``) carries:
 
   ``spans``   ``obs.stop()``'s result for the traced pass: ``anchor``
               (an epoch time and a ``perf_counter`` time read together)
@@ -131,12 +131,13 @@ def _any_thread(name: str):
 def stale_share(ctx):
     """Units (reads; pairs pair-end) sent to the host route for a stale
     seed schedule, first of their causes, over the pass's units, in
-    percent (``host_causes["stale"]``, counted as ``host_stale``)."""
+    percent (the engine's ``host_causes["stale"]``, counted as
+    ``host_causes.stale``)."""
     c = ctx.get("counters") or {}
-    if "host_stale" not in c:
+    if "host_causes.stale" not in c:
         return None
     units = ctx["window_reads"] // (2 if ctx["layout"] == "pe" else 1)
-    return 100.0 * c["host_stale"] / units
+    return 100.0 * c["host_causes.stale"] / units
 
 
 READERS = {

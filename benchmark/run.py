@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The benchmark of ``bsmap_tpu_torch`` on one NVIDIA card.
+"""The benchmark of ``bsmap_tpu_torch`` on NVIDIA cards.
 
     python3 benchmark/run.py --workload wgbs_se100 --seed 7 --seconds 10 \\
         --trace 0
@@ -12,9 +12,13 @@ then, with ``--trace 0``, runs back-to-back passes of the CLI's block
 pipeline over the reads until the first pass that ends after
 ``--seconds``, into a named pipe in ``TMPDIR`` that a child process
 drains, and prints the cell's end-to-end metrics; with
-``--trace 1`` one pass under ``torch.profiler`` and each layer timed
-alone, and the per-layer metrics.  Either way the sampled output of the
-timed passes is checked against the plain reference (``compare.py``) once
+``--trace 1`` one pass under ``torch.profiler`` with the port's own spans
+on (``bsmap_tpu_torch.obs``) and each layer timed alone, and the
+per-layer metrics.  A cell runs on the first ``chips`` cards of its
+entry; a configuration may bring its own genome features, read library
+and check as files (``spec.py``).  Either way the sampled output of the
+timed passes is checked against the plain reference (``compare.py``, or
+the configuration's own ``check``) once
 the port is freed.  The last line of stdout is the result's JSON; the
 numbers compared, each with its limit, are the last lines of stderr.
 Exits non-zero with no result when no card (or fewer than the cell asks

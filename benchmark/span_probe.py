@@ -140,7 +140,7 @@ def probe(cell, seed: int, passes: int, device: str = "cuda",
                    "window_s": tr["window_s"], "spans": tr["spans"],
                    "trace": {"busy": tr["busy"],
                              "trace_start_ns": tr["trace_start_ns"]},
-                   "counters": {"host_stale": causes["stale"]}}
+                   "counters": {"host_causes.stale": causes["stale"]}}
             tot = {k: v[1] for k, v in obs.totals(tr["spans"]).items()}
             off = offsets(ctx, tr["d2h"], ("engine.collect",))
             calls = offsets(ctx, tr["memcpy_calls"],

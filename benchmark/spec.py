@@ -2,7 +2,24 @@
 workload entry, its configuration (``configs/<config>.json``), its traffic
 mix (``traffic/<traffic>.json``) and the metrics it reports, each metric
 with its reader (``metrics/<name>.py``, a function ``read(ctx)`` that
-returns a number, or None where the run has nothing to read)."""
+returns a number, or None where the run has nothing to read).
+
+A configuration may bring its own code as files under ``benchmark/``,
+each named by a path relative to it and loaded by path
+(``module_file``):
+
+``genome_features``  a module whose ``apply(seq, rng, cfg, index)``
+                     ``genome.py`` calls on each chromosome's codes after
+                     its own steps, with a generator of the genome's seed;
+``library_script``   a script with ``reads.py``'s command line and record
+                     layout, run in its place;
+``check``            a module whose ``check_run`` (``compare.check_run``'s
+                     signature and verdict) judges the run in place of
+                     ``compare.check_run``.
+
+Where a configuration names none, nothing of it changes: not its code,
+not its cache keys (``code_key``).
+"""
 
 from __future__ import annotations
 
@@ -38,13 +55,54 @@ class Cell:
         return self.config["layout"]
 
 
-def load_reader(name: str):
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"), path)
+def _load(path: str, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str):
+    return _load(os.path.join(HERE, "metrics", f"{name}.py"),
+                 "bench_metric_" + name.replace(".", "_")).read
+
+
+def module_file(cfg: dict, key: str) -> str | None:
+    """The file that configuration ``cfg`` names under ``key``
+    (``genome_features``, ``library_script`` or ``check``), as an absolute
+    path inside ``benchmark/``; None where it names none."""
+    rel = cfg.get(key)
+    if rel is None:
+        return None
+    path = os.path.normpath(os.path.join(HERE, rel))
+    if os.path.isabs(rel) or not path.startswith(HERE + os.sep):
+        raise ValueError(f"{key} {rel!r} is not a file under benchmark/")
+    return path
+
+
+def load_module(cfg: dict, key: str):
+    """The module that ``cfg`` names under ``key``, or None."""
+    path = module_file(cfg, key)
+    if path is None:
+        return None
+    return _load(path, "bench_" + key + "_" + os.path.basename(path)
+                 .removesuffix(".py").replace(".", "_"))
+
+
+def code_key(cfg: dict, keys) -> list:
+    """[key, file name, SHA-1 of its source] for each of ``keys`` that
+    ``cfg`` names: what a cache key takes in, so that an edit to the file
+    makes new inputs, and a configuration that names none keeps its
+    key."""
+    import hashlib
+    out = []
+    for key in keys:
+        path = module_file(cfg, key)
+        if path is not None:
+            with open(path, "rb") as f:
+                out.append([key, cfg[key],
+                            hashlib.sha1(f.read()).hexdigest()])
+    return out
 
 
 def _metrics(entries: list, workload: str) -> list[Metric]:

@@ -96,21 +96,36 @@ def test_se_run_correct_and_faults(tmp_path, cache_root, monkeypatch, fault):
     assert res["metrics"]["reads_per_s"]["value"] > 0
 
 
-@pytest.mark.parametrize("fault", [None, "half of the batch left out"])
-def test_pe_trim_run_correct_and_faults(tmp_path, cache_root, monkeypatch,
-                                        fault):
+def _pe_run(tmp_path, cache_root, monkeypatch, workload, fault):
     from bsmap_tpu_torch.engine.pair_device import PairDeviceEngine
     if fault:
+        broken = _drop_half if fault.startswith("half") else _shift_pos
         orig = PairDeviceEngine.emit_block
         monkeypatch.setattr(
             PairDeviceEngine, "emit_block",
-            lambda self, *a: tuple(_drop_half(x) for x in orig(self, *a)))
-    res = _run(tiny_cell("wgbs_pe100_trim", str(tmp_path), n=2500,
-                         sample=200), cache_root)
+            lambda self, *a: tuple(broken(x) for x in orig(self, *a)))
+    return _run(tiny_cell(workload, str(tmp_path), n=2500, sample=200),
+                cache_root)
+
+
+@pytest.mark.parametrize("fault", [None, "half of the batch left out"])
+def test_pe_trim_run_correct_and_faults(tmp_path, cache_root, monkeypatch,
+                                        fault):
+    res = _pe_run(tmp_path, cache_root, monkeypatch, "wgbs_pe100_trim",
+                  fault)
     assert res["correct"] is (fault is None), res["checks"]
 
 
-@pytest.mark.parametrize("workload", ["wgbs_se100", "wgbs_pe100_trim"])
+@pytest.mark.parametrize("fault", [None, "half of the batch left out",
+                                   "an answer altered where it is made"])
+def test_pe_plain_run_correct_and_faults(tmp_path, cache_root, monkeypatch,
+                                         fault):
+    res = _pe_run(tmp_path, cache_root, monkeypatch, "wgbs_pe100", fault)
+    assert res["correct"] is (fault is None), res["checks"]
+
+
+@pytest.mark.parametrize("workload", ["wgbs_se100", "wgbs_pe100_trim",
+                                      "wgbs_pe100"])
 def test_control_is_not_correct(tmp_path, cache_root, workload):
     import control
     import genome

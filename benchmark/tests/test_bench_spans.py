@@ -45,7 +45,7 @@ def _ctx():
                                  "width_ns": 100}, "records": recs},
             "trace": {"busy": [[0.020, 0.030], [0.055, 0.060]],
                       "trace_start_ns": 5 * 10**18},
-            "counters": {"host_stale": 500}}
+            "counters": {"host_causes.stale": 500}}
 
 
 def test_readers_on_a_hand_made_pass():
