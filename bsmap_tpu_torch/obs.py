@@ -17,7 +17,8 @@ opened once per read, pair or dispatch window, where the clock's system
 call would cost a share of the item), its parent span on the same
 thread, the sequence number of the block it works on (set by ``block``;
 every span of one block shares it, -1 outside any block) and its int
-attributes (``rows``, ``bytes``).  Each garbage collection is a span too
+attributes (``rows``, ``bytes``, and ``card``: the mesh entry a mesh
+engine's span serves).  Each garbage collection is a span too
 (``gc.gen<n>``, on the thread that set it off).  Records live in one list per thread,
 registered on the thread's first span.  ``start`` also reads a clock
 anchor, an epoch time (``time.time_ns``) and a ``perf_counter_ns`` read
@@ -80,11 +81,13 @@ def _buf() -> _Buf:
 
 
 class _Span:
-    __slots__ = ("name", "buf", "seq", "parent", "rows", "nbytes", "attrs",
-                 "cpu", "t0", "t1", "c0", "c1")
+    __slots__ = ("name", "buf", "seq", "parent", "rows", "nbytes", "card",
+                 "attrs", "cpu", "t0", "t1", "c0", "c1")
 
-    def __init__(self, name: str, rows: int, nbytes: int, cpu: bool):
+    def __init__(self, name: str, rows: int, nbytes: int, cpu: bool,
+                 card: int = -1):
         self.name, self.rows, self.nbytes = name, rows, nbytes
+        self.card = card
         self.attrs = None
         self.cpu = cpu
 
@@ -128,14 +131,15 @@ def enabled() -> bool:
     return _on
 
 
-def span(name: str, rows: int = -1, nbytes: int = -1, cpu: bool = True):
+def span(name: str, rows: int = -1, nbytes: int = -1, cpu: bool = True,
+         card: int = -1):
     """A context manager that records ``name`` on this thread while
-    tracing is on; ``rows`` and ``nbytes`` are its attributes (-1: none);
-    ``cpu=False`` leaves the thread's CPU time out (a span opened once per
-    read, pair or dispatch window)."""
+    tracing is on; ``rows``, ``nbytes`` and ``card`` are its attributes
+    (-1: none); ``cpu=False`` leaves the thread's CPU time out (a span
+    opened once per read, pair or dispatch window)."""
     if not _on:
         return NOOP
-    return _Span(name, rows, nbytes, cpu)
+    return _Span(name, rows, nbytes, cpu, card)
 
 
 def block(seq: int):
@@ -208,8 +212,8 @@ def stop() -> dict:
     dict: name, kind ("span" or "instant"), thread, tid, seq, parent
     (index of the parent record, -1 for none), start_ns, end_ns
     (perf_counter; equal for an instant), cpu_ns (thread CPU time; None
-    for an instant and a ``cpu=False`` span), attrs (rows, bytes, or an
-    instant's attributes).  Spans still open are left out.  The records
+    for an instant and a ``cpu=False`` span), attrs (rows, bytes, card, or
+    an instant's attributes).  Spans still open are left out.  The records
     are handed over once: a second ``stop`` returns none."""
     global _on, _gen, _bufs
     _on = False
@@ -231,6 +235,8 @@ def stop() -> dict:
                 attrs["rows"] = sp.rows
             if sp.nbytes >= 0:
                 attrs["bytes"] = sp.nbytes
+            if sp.card >= 0:
+                attrs["card"] = sp.card
         records.append({
             "name": sp.name,
             "kind": "span" if sp.attrs is None else "instant",

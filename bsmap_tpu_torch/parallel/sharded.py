@@ -7,6 +7,11 @@ replicated genome and index with the single-device program
 reads are independent and the per-read selection hash is stateless.  The
 stripes' rows meet on the mesh's first device, and the sum of their found
 bits is the JAX program's ``psum`` of the aligned-read count.
+
+Under ``obs`` each stripe is an ``engine.stripe`` span (its card and rows)
+around its ``engine.h2d``, ``engine.launch`` and ``engine.gather`` (the
+enqueue of its rows' copy to the first device); a stripe of padding alone,
+not launched, is a ``mesh.skip`` instant.
 """
 
 from __future__ import annotations
@@ -59,13 +64,21 @@ class ShardedDeviceEngine(de.DeviceEngine):
         for d, dev in enumerate(self.mesh):
             lo = d * self.B_loc
             if d and lo >= len(packed):
+                if obs.enabled():
+                    for k in range(d, self.ndev):
+                        obs.instant("mesh.skip", card=k)
                 break
             stripe = packed[lo: lo + self.B_loc]
-            with obs.span("engine.h2d", nbytes=stripe.nbytes, cpu=False):
-                rows = torch.from_numpy(stripe).to(dev)
-            with obs.span("engine.launch", rows=len(stripe), cpu=False):
-                outs.append(kernels.align_program(
-                    cfg, cap, self.dev_tables[dev], rows).to(self.mesh[0]))
+            with obs.span("engine.stripe", rows=len(stripe), card=d,
+                          cpu=False):
+                with obs.span("engine.h2d", nbytes=stripe.nbytes,
+                              cpu=False):
+                    rows = torch.from_numpy(stripe).to(dev)
+                with obs.span("engine.launch", rows=len(stripe), cpu=False):
+                    res = kernels.align_program(cfg, cap,
+                                                self.dev_tables[dev], rows)
+                with obs.span("engine.gather", cpu=False):
+                    outs.append(res.to(self.mesh[0]))
         out = torch.cat(outs) if len(outs) > 1 else outs[0]
         if not cfg.probe:
             found = (out[:, 1] & 1) if cfg.lean \

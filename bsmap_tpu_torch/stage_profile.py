@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Stage breakdown of the PyTorch port's block paths on one GPU.
+"""Stage breakdown of the PyTorch port's block paths on the card(s).
 
     python3 -m bsmap_tpu_torch.stage_profile [--reads N]
                                              [--repeat | --pe | --rrbs]
                                              [--chains] [--bsp]
-                                             [--engine index-sharded
+                                             [--engine sharded |
+                                              --engine index-sharded
                                               [--shards D]]
     python3 -m bsmap_tpu_torch.stage_profile [--rrbs] --launch N1,N2,...
     python3 -m bsmap_tpu_torch.stage_profile --pe --filtered S1,S2,...
@@ -40,7 +41,10 @@ With --engine index-sharded (SE WGBS only) the stages run on
 ``IndexShardedEngine`` over D region shards (--shards, default 4),
 round-robin over the visible cards, and then once more on the
 single-device engine in the same process, for the comparison; the JSON
-line then holds both, each with K7's share of the kernel time.
+line then holds both, each with K7's share of the kernel time.  With
+--engine sharded (SE, WGBS or --rrbs) they run the same way on
+``ShardedDeviceEngine``, read stripes over every visible card (the
+engine ``--engine auto`` picks on a host with more than one).
 
   parse    native parse of every block (``BlockReadStream.next_block``,
            one thread: the CLI's reader thread)
@@ -111,17 +115,19 @@ RRBS_FLAGS = ["-D", "C-CGG", "-A", "AGATCGGAAGAGC", "-q", "2", "-S", "17"]
 
 
 def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
-               align_flags=SE_FLAGS, mesh=None, bsp: bool = False):
+               align_flags=SE_FLAGS, mesh=None, bsp: bool = False,
+               engine: str = "device"):
     """The SE engine's stages over the headline, chr21-class or RRBS
-    blocks; on ``IndexShardedEngine`` over ``mesh`` when one is given;
-    with ``bsp``, BSP output (full result rows, ``_format_block_full``).
-    (``dev`` = "cpu" rehearses them with the kernels' twins.)"""
+    blocks; on the mesh engine ``engine`` (``index-sharded`` or
+    ``sharded``) over ``mesh`` when one is given; with ``bsp``, BSP
+    output (full result rows, ``_format_block_full``).  (``dev`` = "cpu"
+    rehearses them with the kernels' twins.)"""
     import torch
     from . import cli, native
     from .blockio import BlockReadStream
     from .engine.device_engine import DeviceEngine
     from .output.sam import SamFormatter
-    from .parallel import IndexShardedEngine
+    from .parallel import IndexShardedEngine, ShardedDeviceEngine
     from .utils import RandR
 
     flags = ["-a", rpath, "-d", gpath] + align_flags
@@ -131,8 +137,12 @@ def _se_stages(root: str, gpath: str, rpath: str, dev: str = "cuda",
     p.out_sam = int(not bsp)
     genome = cli.load_genome(gpath, p)
     index = cli.get_index(o, genome)
-    eng = (DeviceEngine(genome, index, p, device=dev) if mesh is None
-           else IndexShardedEngine(genome, index, p, mesh=mesh))
+    if mesh is None:
+        eng = DeviceEngine(genome, index, p, device=dev)
+    else:
+        cls = (ShardedDeviceEngine if engine == "sharded"
+               else IndexShardedEngine)
+        eng = cls(genome, index, p, mesh=mesh)
     t0 = time.perf_counter()
     stream = BlockReadStream(rpath, p, readset=0, lib=native.get_lib())
     blocks = []
@@ -217,11 +227,13 @@ def _pe_stages(root: str, gpath: str, r1: str, r2: str, dev: str = "cuda",
     return flags, eng, eng.se, (t_parse, t_encode), align_all, fmt_all
 
 
-def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
+def _profile(root: str, stages, unit: str, n: int, mesh=None,
+             engine: str = "device", dev: str = "cuda") -> dict:
     """Time the stages of one engine (``stages`` = _se_stages' or
     _pe_stages' result) and whole CLI runs of the same flags at -p 1 and
-    -p 8 (on ``mesh``'s index-sharded engine when given); returns the JSON
-    fields."""
+    -p 8 (on ``mesh``'s engine ``engine`` when given); returns the JSON
+    fields.  Under ``dev`` "cpu" (a rehearsal on the kernels' twins) the
+    device's readings are None."""
     import torch
     from . import cli
     flags, eng, se, (t_parse, t_encode), align_all, fmt_all = stages
@@ -249,8 +261,9 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
             ["-2", os.path.join(root, "run_u.bsp")] if unit == "pairs"
             else [])
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         align_all()
@@ -271,30 +284,54 @@ def _profile(root: str, stages, unit: str, n: int, mesh=None) -> dict:
 
     # -p 1: the stages as timed above, one encode thread; again at -p 8,
     # the default: one process, eight encode threads
-    extra = [] if mesh is None else ["--engine", "index-sharded"]
+    extra = [] if mesh is None else ["--engine", engine]
     pipe = {}
     for n_p in (1, 8):
         st: dict = {}
-        rc = cli.run(flags + outs + ["--device", "cuda", "-p", str(n_p)]
+        rc = cli.run(flags + outs + ["--device", dev, "-p", str(n_p)]
                      + extra, stats=st, mesh=mesh)
         if rc != 0:
             raise RuntimeError(f"cli.run returned {rc}")
         pipe[n_p] = st
     st = pipe[1]
     k7 = sum(v for k, v in kms.items() if "merge_shards" in k)
+    card = {"kernel_ms_total": k_total,
+            "device_idle_share": 1.0 - k_total / 1000.0 / t_prof,
+            "kernel_ms": dict(sorted(kms.items(),
+                                     key=lambda kv: -kv[1])[:12]),
+            "k7_ms": k7, "k7_share": k7 / k_total if k_total else 0.0}
+    if dev != "cuda":
+        card = dict.fromkeys(card)
     return {
         "parse_s": t_parse, "encode_s": t_encode, "align_s": t_align,
         "format_s": t_fmt,
         "align_timers_s": timers, "engine_counts": counts,
-        "profiled_align_s": t_prof, "kernel_ms_total": k_total,
-        "device_idle_share": 1.0 - k_total / 1000.0 / t_prof,
-        "kernel_ms": dict(sorted(kms.items(), key=lambda kv: -kv[1])[:12]),
-        "k7_ms": k7, "k7_share": k7 / k_total if k_total else 0.0,
+        "profiled_align_s": t_prof, **card,
         "pipeline_align_s": st["align_s"],
         f"pipeline_{unit}_per_s": st[unit] / st["align_s"],
         f"pipeline_p8_{unit}_per_s": pipe[8][unit] / pipe[8]["align_s"],
         "engine": st["engine_name"],
     }
+
+
+def profile_se(root: str, gpath: str, rpath: str, flags: list[str],
+               engine: str, mesh, n: int, bsp: bool = False,
+               dev: str = "cuda") -> dict:
+    """``_profile`` of the SE stages on ``engine``: {"device": ...} for
+    the single-device engine; for a mesh engine over ``mesh`` that one
+    first, with its mesh (and its shard count under index-sharded), then
+    the single-device engine beside it."""
+    res = {}
+    for m in ([mesh] if engine != "device" else []) + [None]:
+        name = engine if m is not None else "device"
+        res[name] = _profile(root, _se_stages(
+            root, gpath, rpath, dev=dev, align_flags=flags, mesh=m,
+            bsp=bsp, engine=engine), "reads", n, m, engine, dev)
+        if m is not None:
+            if engine == "index-sharded":
+                res[name]["shards"] = len(m)
+            res[name]["mesh"] = sorted(set(map(str, m)))
+    return res
 
 
 TRIM_FLAGS = ["-A", "AGATCGGAAGAGC", "-q", "2"]
@@ -450,10 +487,12 @@ def main() -> int:
     kind.add_argument("--rrbs", action="store_true")
     ap.add_argument("--chains", action="store_true",
                     help="-n 1 on non-directional data")
-    ap.add_argument("--engine", choices=("device", "index-sharded"),
+    ap.add_argument("--engine", choices=("device", "sharded",
+                                         "index-sharded"),
                     default="device",
-                    help="index-sharded: SE WGBS on D region shards, then "
-                    "the single-device engine beside it")
+                    help="sharded: SE read stripes over every visible "
+                    "card; index-sharded: SE WGBS on D region shards; "
+                    "each then the single-device engine beside it")
     ap.add_argument("--shards", type=int, default=4,
                     help="region shards of --engine index-sharded, round "
                     "robin over the visible cards (default 4)")
@@ -478,13 +517,17 @@ def main() -> int:
     if sharded and (args.pe or args.rrbs):
         ap.error("--engine index-sharded profiles SE WGBS (headline or "
                  "--repeat)")
+    if args.engine == "sharded" and args.pe:
+        ap.error("--engine sharded profiles single-end reads")
     from chip_smoke import make_trim_pe_set, nondirectional, swap_mates
     from tools.genreads import (generate, generate_chr21, generate_pe,
                                 generate_rrbs)
     from .engine import _build
+    from .parallel import make_mesh
 
     sizes = [int(x) for x in args.launch.split(",")] if args.launch else []
-    if sizes and (args.pe or args.repeat or args.chains or sharded):
+    if sizes and (args.pe or args.repeat or args.chains
+                  or args.engine != "device"):
         ap.error("--launch runs the headline or --rrbs reads on one card")
     n = max(sizes) if sizes else args.reads or (
         200_000 if args.pe or args.rrbs else 1_000_000)
@@ -529,21 +572,13 @@ def main() -> int:
                 rpath = nondirectional(rpath, os.path.join(root, "nd.fq"))
             flags = ((RRBS_FLAGS if args.rrbs else SE_FLAGS) + n1
                      + (["-u"] if args.bsp else []))
-            meshes = [None]
-            if sharded:
-                ncard = torch.cuda.device_count()
-                meshes = [[torch.device("cuda", k % ncard)
-                           for k in range(args.shards)], None]
-            res = {}
-            for mesh in meshes:
-                name = "device" if mesh is None else "index-sharded"
-                res[name] = _profile(root, _se_stages(
-                    root, gpath, rpath, align_flags=flags, mesh=mesh,
-                    bsp=args.bsp), unit, n, mesh)
-                if mesh is not None:
-                    res[name]["shards"] = args.shards
-                    res[name]["mesh"] = sorted(set(map(str, mesh)))
-            if not sharded:
+            ncard = torch.cuda.device_count()
+            mesh = ([torch.device("cuda", k % ncard)
+                     for k in range(args.shards)] if sharded
+                    else make_mesh() if args.engine == "sharded" else None)
+            res = profile_se(root, gpath, rpath, flags, args.engine, mesh, n,
+                             bsp=args.bsp)
+            if args.engine == "device":
                 res = res["device"]
     finally:
         shutil.rmtree(root, ignore_errors=True)

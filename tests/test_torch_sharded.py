@@ -26,6 +26,7 @@ from bsmap_tpu.readio import open_read_stream
 from bsmap_tpu.reference import load_genome
 from bsmap_tpu.utils import myrand_hash
 from bsmap_tpu_torch import cli as tcli
+from bsmap_tpu_torch import obs
 from bsmap_tpu_torch.engine import device_engine as T
 from bsmap_tpu_torch.engine import kernels as K
 from bsmap_tpu_torch.parallel import (IndexShardedEngine, ShardedDeviceEngine,
@@ -589,3 +590,116 @@ def test_index_sharded_refuses_rrbs(world):
     _path, p, g, i = _rrbs_world(world)
     with pytest.raises(T.EngineUnsupported):
         IndexShardedEngine(g, i, p, mesh=[CPU] * 2)
+
+
+def _stripe_window(world, b_loc: int, n: int):
+    """A ShardedDeviceEngine over 4 CPU entries with ``b_loc``-row stripes,
+    a lean cfg and the first ``n`` dispatch rows of the read file."""
+    g, i, p = world["genome"], world["index"], world["p"]
+    te = ShardedDeviceEngine(g, i, p, mesh=[CPU] * 4, b_loc=b_loc)
+    rows = _rows(te, str(world["dir"] / "r.fq"), p, maxrank=p.max_snp_num)
+    assert len(rows) >= n
+    return te, te._cfg("f", lean=True, nw=7), rows[:n]
+
+
+def _traced_dispatch(te, ct, rows) -> list:
+    obs.start()
+    try:
+        te._collect([te._dispatch(ct, rows, te.C_loc)])
+    finally:
+        recs = obs.stop()["records"]
+    return recs
+
+
+def test_stripe_spans_name_their_cards(world):
+    """Under obs each stripe is an ``engine.stripe`` span with its card
+    and rows, around its h2d, launch and gather (the copy of its rows to
+    the first device); no stripe of this window is padding alone."""
+    te, ct, rows = _stripe_window(world, 64, 256)
+    recs = _traced_dispatch(te, ct, rows)
+    stripes = [k for k, r in enumerate(recs) if r["name"] == "engine.stripe"]
+    assert [recs[k]["attrs"] for k in stripes] == [
+        {"rows": 64, "card": d} for d in range(4)]
+    for name in ("engine.h2d", "engine.launch", "engine.gather"):
+        inner = [r["parent"] for r in recs if r["name"] == name]
+        assert inner == stripes, name
+    assert not [r for r in recs if r["name"].startswith("mesh.")]
+
+
+def test_padding_stripe_leaves_mesh_skip(world):
+    """A window of 150 live rows over 4 stripes of 64: stripe 3 is
+    padding alone, is not launched and leaves ``mesh.skip`` with its
+    card."""
+    te, ct, rows = _stripe_window(world, 64, 150)
+    recs = _traced_dispatch(te, ct, rows)
+    assert [r["attrs"] for r in recs if r["name"] == "engine.stripe"] == [
+        {"rows": 64, "card": 0}, {"rows": 64, "card": 1},
+        {"rows": 22, "card": 2}]
+    skips = [r for r in recs if r["name"] == "mesh.skip"]
+    assert [(r["kind"], r["attrs"]) for r in skips] == [
+        ("instant", {"card": 3})]
+
+
+class _CountingEvent:
+    """Counts the CUDA timing events made."""
+
+    made = 0
+
+    def __init__(self, **_kw):
+        type(self).made += 1
+
+
+def test_untraced_dispatch_creates_no_event(world, monkeypatch):
+    """With obs off ``_dispatch`` and ``_collect`` record nothing; traced
+    or not, they create no CUDA event: a stripe's time on its card is the
+    profiler's to read, not the engine's."""
+    monkeypatch.setattr(torch.cuda, "Event", _CountingEvent)
+    monkeypatch.setattr(_CountingEvent, "made", 0)
+    te, ct, rows = _stripe_window(world, 64, 150)
+    obs.stop()
+    te._collect([te._dispatch(ct, rows, te.C_loc)])
+    assert obs.stop()["records"] == []
+    recs = _traced_dispatch(te, ct, rows)
+    assert [r["name"] for r in recs if r["name"] == "engine.stripe"] == [
+        "engine.stripe"] * 3
+    assert _CountingEvent.made == 0
+
+
+@pytest.mark.parametrize("n", [64, 150, 256])
+def test_traced_dispatch_gives_the_untraced_rows(world, n):
+    """Tracing changes no row: a window of one stripe, one whose last
+    stripe is padding alone, and a full one give the same rows with obs
+    on and off."""
+    te, ct, rows = _stripe_window(world, 64, n)
+    obs.stop()
+    off = te._collect([te._dispatch(ct, rows, te.C_loc)])[0]
+    obs.start()
+    try:
+        on = te._collect([te._dispatch(ct, rows, te.C_loc)])[0]
+    finally:
+        obs.stop()
+    assert off.shape[0] == n
+    np.testing.assert_array_equal(on, off)
+
+
+def test_stage_profile_sharded_on_a_cpu_mesh(world, tmp_path, monkeypatch):
+    """``stage_profile --engine sharded``'s profile on a 4-entry CPU mesh:
+    the stages of the sharded engine, then the single-device engine
+    beside it, each with its whole-CLI runs; no device reading on the
+    CPU."""
+    from bsmap_tpu_torch import stage_profile
+    monkeypatch.setenv("BSMAP_TPU_LOCAL_MP", "0")
+    monkeypatch.setattr(T, "DEV_BATCH", 128)
+    d = world["dir"]
+    res = stage_profile.profile_se(
+        str(tmp_path), str(d / "ref.fa"), str(d / "r.fq"),
+        ["-s", str(SEED), "-v", "2", "-S", "17"], "sharded", [CPU] * 4,
+        300, dev="cpu")
+    assert list(res) == ["sharded", "device"]
+    assert res["sharded"]["engine"] == "sharded"
+    assert res["sharded"]["mesh"] == ["cpu"]
+    assert res["device"]["engine"] == "device"
+    for r in res.values():
+        assert r["align_s"] > 0 and r["pipeline_reads_per_s"] > 0
+        assert r["align_timers_s"]["t_h2d"] > 0
+        assert r["device_idle_share"] is None and r["kernel_ms"] is None
