@@ -2,9 +2,10 @@
 behind the Python host engine's interface.
 
 ``NativeHost`` answers ``run_align`` and ``sync_schedule`` as
-``HostEngine`` does, and ``run_pair`` as ``PairHostEngine._run_pair``: the
-same ``SEResult`` and ``PairResult`` objects with their lists in the same
-order, and the same ``MateState`` left behind.  The C++ reads the packed
+``HostEngine`` does, ``run_pair`` as ``PairHostEngine._run_pair``, and
+``sync_span`` as ``device_engine.sync_state_python``: the same ``SEResult``
+and ``PairResult`` objects with their lists in the same order, and the
+same ``MateState`` left behind.  The C++ reads the packed
 genome, the index and the ``MateState`` buffers by pointer; the call
 releases the GIL.  WGBS only: ``create`` returns None under RRBS, or where
 the library does not build, and the engines keep the Python host engine.
@@ -112,6 +113,7 @@ class NativeHost:
         self._cap_pairs = NLEV * (per + 1)
         self._max_len = MateState.SEEDBUF + p.seed_size - 1
         self._tls = threading.local()
+        self._state_addrs: dict[int, tuple] = {}
 
     @classmethod
     def create(cls, host: HostEngine) -> NativeHost | None:
@@ -129,11 +131,20 @@ class NativeHost:
             b = self._tls.bufs = _Buffers(self._cap, self._cap_pairs)
         return b
 
-    @staticmethod
-    def _state_in(state: MateState, offs: np.ndarray):
+    def _state_in(self, state: MateState, offs: np.ndarray):
+        """``state``'s start offsets into ``offs``; the addresses of its
+        seed buffers, taken once a state (they are written in place,
+        never replaced; the state is held, so its ``id`` stays its own)."""
         offs[0] = state.seed_start_offset
         offs[1] = state.cseed_start_offset
-        return state.seed_buf.ctypes.data, state.cseed_buf.ctypes.data
+        hit = self._state_addrs.get(id(state))
+        if hit is None:
+            if len(self._state_addrs) >= 16:
+                self._state_addrs.clear()
+            hit = self._state_addrs[id(state)] = (
+                state, state.seed_buf.ctypes.data,
+                state.cseed_buf.ctypes.data)
+        return hit[1], hit[2]
 
     @staticmethod
     def _state_out(state: MateState, offs: np.ndarray) -> None:
@@ -188,6 +199,33 @@ class NativeHost:
             self.host.sync_schedule(read, budget, state)
             return
         self._call_se(read, budget, state, True)
+
+    def sync_span(self, reads, lo: int, hi: int, lens: np.ndarray,
+                  replay_flag: np.ndarray, dev_soff, dev_coff, mode: str,
+                  state: MateState) -> bool:
+        """``DeviceEngine._sync_state_span`` of live rows [lo, hi) in one
+        call, read straight from the arrays of ``reads`` (a
+        ``device_engine.BlockReads``: row t is its block's read
+        ``live_pos[t]``).  False, with ``state`` untouched, where a read's
+        seeds overrun the ``MateState`` buffers: the caller's Python path
+        runs then."""
+        blk = reads.block
+        at = reads.addr
+        b = self._bufs()
+        sb, csb = self._state_in(state, b.offs[0])
+        rc = self.lib.bsmap_sync_span(
+            self._ctx, blk.buf, at(blk.rec, np.int64),
+            at(reads.live_pos, np.int64) + 8 * lo, at(lens, np.int64) + 8 * lo,
+            at(replay_flag, np.uint8) + lo, hi - lo, blk.readset,
+            self.param.max_snp_num,
+            None if dev_soff is None else at(dev_soff, np.int32) + 4 * lo,
+            None if dev_coff is None else at(dev_coff, np.int32) + 4 * lo,
+            (mode in ("f", "b")) | 2 * (mode in ("r", "b")), sb, csb,
+            b.ptr["offs_a"])
+        if rc != 0:
+            return False
+        self._state_out(state, b.offs[0])
+        return True
 
     def run_pair(self, ra: Read, rb: Read, budget_a: int, budget_b: int,
                  state_a: MateState, state_b: MateState) -> PairResult:

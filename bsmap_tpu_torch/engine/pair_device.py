@@ -52,8 +52,9 @@ from ..reference import PackedGenome
 from ..trim import filter_read
 from ..utils import myrand, myrand_hash
 from . import kernels
-from .device_engine import (HOST_CAUSES, DeviceEngine, EngineUnsupported,
-                            _pack_inputs, filter_block, pack_spans)
+from .device_engine import (HOST_CAUSES, BlockReads, DeviceEngine,
+                            EngineUnsupported, _pack_inputs, filter_block,
+                            pack_spans)
 from .host_engine import SEResult
 from .kernels import (JN_COLS, N_EXTRAS, X_COFF, X_FTOT, X_OK, X_REPLAY,
                       X_SOFF)
@@ -738,8 +739,8 @@ class PairDeviceEngine:
         n_all = len(blk_a)
         n = len(live_pos)
         st_a, st_b = self.pair_host.state_a, self.pair_host.state_b
-        read_a = lambda t: blk_a.read_obj(int(live_pos[t]))  # noqa: E731
-        read_b = lambda t: blk_b.read_obj(int(live_pos[t]))  # noqa: E731
+        read_a = BlockReads(blk_a, live_pos)
+        read_b = BlockReads(blk_b, live_pos)
 
         mode_a, mode_b = self._chains()
 

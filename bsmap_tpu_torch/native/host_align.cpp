@@ -16,6 +16,8 @@
 //    on a second best hit when not pair-end.
 //  - the pair lockstep: each step's level sorted by (chr, loc), GetPairs'
 //    sweep in its order with its early stop at max_num_hits.
+//  - the MateState sync of a span of device-handled reads, read straight
+//    from a parsed block's buffer and records.
 //
 // The genome is read packed (16 bases a uint32 word) and the index by
 // pointer: nothing is copied.  Plain C ABI, loaded with ctypes by
@@ -151,6 +153,25 @@ struct Mate {
     HitSet hitset;
 };
 
+// Seed values (XT, dbseq.cpp:286-291: code 3 counts as 1, base-3 digits,
+// a window's last base least significant) of the windows of ``codes``
+// starting at [from, to), into out[from, to): the first in full, each
+// next one rolled on from the one before.
+void seed_windows(const uint8_t* codes, int64_t from, int64_t to, int S,
+                  int64_t* out) {
+    if (from >= to) return;
+    auto col = [](uint8_t c) -> int64_t { return c == 3 ? 1 : c; };
+    int64_t top = 1;               // the weight of a window's first base
+    for (int k = 1; k < S; k++) top *= 3;
+    int64_t v = 0;
+    for (int k = 0; k < S; k++) v = 3 * v + col(codes[from + k]);
+    out[from] = v;
+    for (int64_t p = from + 1; p < to; p++) {
+        v = 3 * (v - col(codes[p - 1]) * top) + col(codes[p + S - 1]);
+        out[p] = v;
+    }
+}
+
 // ConvertBinaySeq (align.cpp:90-162): code words of the read and of its
 // reverse complement, and the seed prefix written into the seed buffers.
 void convert(const Ctx& cx, Mate& m, const uint8_t* seq) {
@@ -171,19 +192,8 @@ void convert(const Ctx& cx, Mate& m, const uint8_t* seq) {
         if (is_base(rch)) m.r[1][k >> 4] |= 3u << sh;
     }
     if (L < S) return;
-    int64_t p3[32];
-    p3[0] = 1;
-    for (int k = 1; k < S; k++) p3[k] = p3[k - 1] * 3;
-    for (int ch = 0; ch < 2; ch++) {
-        for (int64_t p = 0; p + S <= L; p++) {
-            int64_t v = 0;
-            for (int k = 0; k < S; k++) {
-                int c = codes[ch][p + k];
-                v += (int64_t)(c == 3 ? 1 : c) * p3[S - 1 - k];
-            }
-            m.sarr[ch][p] = v;
-        }
-    }
+    for (int ch = 0; ch < 2; ch++)
+        seed_windows(codes[ch], 0, L - S + 1, S, m.sarr[ch]);
 }
 
 // Bucket costs of the seed buffer's entries, read once each.
@@ -520,6 +530,72 @@ int64_t bsmap_host_align(const Ctx* cx, const uint8_t* seq, int64_t L,
     }
     flags[0] = m.aborted ? 1 : 0;
     return put_hits(m, hits_out, cap, counts) ? 0 : -1;
+}
+
+// The MateState effects of a span of device-handled reads, in batch order
+// (DeviceEngine._sync_state_span).  Read k is block record pos[k] of
+// ``buf`` (rec rows of 6: its bases at rec[2], rec[3] of them); ``lens``
+// are the lengths the device saw.  Both seed buffers take the last-writer-
+// wins backward fill up to the span's cover (host_engine.fill_seed_buffers:
+// newest read first, reads shorter than the seed skipped); the start
+// offsets come from the last read with max_offset > 0 unless it is
+// replayed: from ``soff``/``coff`` where the device rows carry them (``mode``
+// bit 1 forward, bit 2 reverse), else by the schedule sync on its bases
+// after the fill.  Returns 0, or -1 with nothing written when a read's
+// seeds overrun the buffers.
+int64_t bsmap_sync_span(const Ctx* cx, const uint8_t* buf, const int64_t* rec,
+                        const int64_t* pos, const int64_t* lens,
+                        const uint8_t* replay, int64_t n, int32_t readset,
+                        int32_t max_snp_num, const int32_t* soff,
+                        const int32_t* coff, int32_t mode, int64_t* seed_buf,
+                        int64_t* cseed_buf, int64_t* offs) {
+    const int S = cx->seed_size, I = cx->index_interval;
+    int64_t maxlen = 0;
+    for (int64_t k = 0; k < n; k++) {
+        if (rec[6 * pos[k] + 3] > SEEDBUF + S - 1) return -1;
+        maxlen = std::max(maxlen, lens[k]);
+    }
+    int64_t off_read = -1;
+    for (int64_t k = n - 1; k >= 0; k--) {
+        if (pymod(lens[k] - I + 1, S) == 0) continue;
+        if (!replay[k]) {
+            if (soff == nullptr) {
+                off_read = k;
+            } else {
+                if (mode & 1) offs[0] = soff[k];
+                if (mode & 2) offs[1] = coff[k];
+            }
+        }
+        break;
+    }
+    if (off_read >= 0 && rec[6 * pos[off_read] + 3] <= 0) return -1;
+    const int64_t cover = std::min<int64_t>(
+        std::max<int64_t>(0, maxlen - S + 1), SEEDBUF);
+    int64_t filled = 0;        // entries [0, filled) hold newer reads' seeds
+    uint8_t codes[2][MAXW * 16];
+    for (int64_t k = n - 1; k >= 0; k--) {
+        const int64_t L = rec[6 * pos[k] + 3];
+        if (L < S) continue;
+        const uint8_t* seq = buf + rec[6 * pos[k] + 2];
+        const int64_t n_ent = L - S + 1;
+        if (n_ent > filled) {
+            for (int64_t i = filled; i < L; i++) {
+                codes[0][i] = cx->alphabet[seq[i]];
+                codes[1][i] = cx->rev_alphabet[seq[L - 1 - i]];
+            }
+            seed_windows(codes[0], filled, n_ent, S, seed_buf);
+            seed_windows(codes[1], filled, n_ent, S, cseed_buf);
+            filled = n_ent;
+        }
+        if (filled >= cover) break;
+    }
+    if (off_read >= 0) {
+        const int64_t L = rec[6 * pos[off_read] + 3];
+        const int32_t budget = (int32_t)((max_snp_num + 1) * (L - 1) / L);
+        begin(*cx, t_mate[0], buf + rec[6 * pos[off_read] + 2], L, budget,
+              readset, seed_buf, cseed_buf, offs);
+    }
+    return 0;
 }
 
 // PairAlign::RunAlign (pairs.cpp:137-190) of a pair with both mates

@@ -98,5 +98,9 @@ def get_lib() -> ctypes.CDLL | None:
             ctypes.c_char_p, _i64, _i32, _i32, _vp, _vp, _vp,
             ctypes.c_char_p, _i64, _i32, _i32, _vp, _vp, _vp,
             _vp, _vp, _vp, _vp, _i64, _vp, _vp, _i64, _vp]
+        lib.bsmap_sync_span.restype = _i64
+        lib.bsmap_sync_span.argtypes = [
+            ctx_p, ctypes.c_char_p, _vp, _vp, _vp, _vp, _i64, _i32, _i32,
+            _vp, _vp, _i32, _vp, _vp, _vp]
         _LIB = lib
         return _LIB

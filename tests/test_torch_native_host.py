@@ -254,3 +254,145 @@ def test_native_pairs_match_pair_host_engine(case):
         _same_state(ph.state_a, sa)
         _same_state(ph.state_b, sb)
     assert paired and unpaired and full
+
+
+ADAPTER = "AGATCGGAAGAGC"
+# chain mode -> (chains, the mates whose blocks sync under it)
+SYNC_MODES = {"f": (0, (1,)), "r": (0, (2,)), "b": (1, (1, 2))}
+SYNC_CASES = ("empty", "short_newest", "replayed_offset", "stale_start",
+              "device_offsets")
+
+
+def _trimmed_pair_blocks(p: Param, seqs, tmp_path, n: int = 300,
+                         R: int = 76):
+    """Both mates' ReadBlocks of ``n`` pairs trimmed as under ``-A
+    AGATCGGAAGAGC -q 2`` (native FilterReads, in place): inserts of 6-200
+    read into the adapter, Q2 (``#``) tails on one mate in three.
+    FilterReads keeps no read shorter than the seed, so every ninth live
+    mate's record is then cut to fewer bases by hand: the live mates run
+    from below the seed size to the full ``R``.  Returns (blocks by
+    readset, live_pos)."""
+    from bsmap_tpu_torch import native
+    from bsmap_tpu_torch.blockio import BlockReadStream
+    from bsmap_tpu_torch.engine.device_engine import filter_block
+    rng = random.Random(77)
+    lines: dict[int, list[str]] = {1: [], 2: []}
+    for k in range(n):
+        ins = rng.randint(6, 30) if rng.random() < 0.4 else \
+            rng.randint(30, 200)
+        frag = _fragment(seqs, rng, ins)
+        mates = (_bisulfite(frag, rng),
+                 _bisulfite(frag, rng).translate(COMP)[::-1])
+        for rs, s in zip((1, 2), mates):
+            s = (s + ADAPTER + "".join(rng.choice("ACGT")
+                                       for _ in range(R)))[:R]
+            q = "I" * R
+            if rng.random() < 0.34:
+                cut = rng.randint(4, R)
+                q = q[:cut] + "#" * (R - cut)
+            lines[rs] += [f"@p{k}/{rs}", s, "+", q]
+    lib = native.get_lib()
+    assert lib is not None, "bsmap_native did not build"
+    blocks, live = {}, np.ones(n, dtype=bool)
+    for rs in (1, 2):
+        path = tmp_path / f"m{rs}.fq"
+        path.write_text("\n".join(lines[rs]) + "\n")
+        stream = BlockReadStream(str(path), p, rs, lib)
+        blk = stream.next_block(n)
+        stream.close()
+        info = filter_block(p, blk)
+        live &= info[:, 0] == 0
+        blocks[rs] = blk
+    live_pos = np.nonzero(live)[0]
+    for rs in (1, 2):
+        for i in live_pos[rs::9]:
+            blocks[rs].rec[i, 3] = rng.randint(p.index_interval,
+                                               p.seed_size - 1)
+    return blocks, live_pos
+
+
+def _spans(rng: random.Random, lens: np.ndarray, case: str, S: int):
+    """(lo, hi) spans in batch order, as the engines sync them between
+    host reads; ``short_newest``: each ends on a read shorter than an
+    earlier one of its span, so the fill walks back over several reads."""
+    n = len(lens)
+    if case == "empty":
+        return [(t, t) for t in rng.sample(range(n + 1), 20)]
+    if case == "short_newest":
+        out = []
+        for hi in range(2, n + 1):
+            lo = max(0, hi - rng.randint(2, 12))
+            if lens[hi - 1] < lens[lo:hi].max() and (
+                    lens[hi - 1] < S or rng.random() < 0.3):
+                out.append((lo, hi))
+        return out
+    out, cursor = [], 0
+    while cursor < n:
+        hi = min(n, cursor + rng.choice([0, 1, 2, 5, 20, 60]))
+        out.append((cursor, hi))
+        cursor = hi + 1
+    return out
+
+
+@pytest.mark.parametrize("case", SYNC_CASES)
+@pytest.mark.parametrize("mode", sorted(SYNC_MODES))
+def test_native_sync_span_matches_python_sync(mode, case, tmp_path):
+    """``NativeHost.sync_span`` on trimmed pair-end blocks against the
+    Python path it replaces (``sync_state_python``: ``fill_seed_buffers``
+    over Read objects, then ``HostEngine.sync_schedule``), span by span
+    with the state carried on: both seed buffers and both start offsets
+    exactly."""
+    from bsmap_tpu_torch.engine.device_engine import (BlockReads,
+                                                      sync_state_python)
+    chains, mates = SYNC_MODES[mode]
+    S, I = 12, 4
+    p, py, nat, seqs = _engines(
+        S, I, pairend=1, chains=chains, max_snp_num=4,
+        adapters=[ADAPTER], qual_threshold=2)
+    blocks, live_pos = _trimmed_pair_blocks(p, seqs, tmp_path)
+    rng = random.Random(SYNC_CASES.index(case) * 10 + len(mode) + chains)
+    walked = offsets_kept = n_spans = 0
+    for rs in mates:
+        blk = blocks[rs]
+        lens = blk.rec[live_pos, 3].astype(np.int64)
+        assert lens.min() < S and lens.max() == 76
+        reads = BlockReads(blk, live_pos)
+        n = len(lens)
+        replay = np.array([rng.random() < 0.05 for _ in range(n)])
+        soff = coff = None
+        if case == "device_offsets":
+            soff = np.array([rng.randrange(S) for _ in range(n)], np.int32)
+            coff = np.array([rng.randrange(S) for _ in range(n)], np.int32)
+        st_py, st_nat = MateState(), MateState()
+        if case == "stale_start":
+            for st in (st_py, st_nat):
+                st.seed_buf[:] = np.arange(MateState.SEEDBUF) * 7919 % 3 ** S
+                st.cseed_buf[:] = np.arange(MateState.SEEDBUF) * 104729 % 3 ** S
+                st.seed_start_offset, st.cseed_start_offset = 5, 9
+        for lo, hi in _spans(rng, lens, case, S):
+            rf = replay
+            if case == "replayed_offset":
+                nz = np.nonzero((lens[lo:hi] - I + 1) % S > 0)[0]
+                if len(nz) == 0:
+                    continue
+                rf = replay.copy()
+                rf[lo + nz[-1]] = True
+            before = (st_nat.seed_start_offset, st_nat.cseed_start_offset)
+            assert nat.sync_span(reads, lo, hi, lens, rf, soff, coff, mode,
+                                 st_nat)
+            if hi > lo:
+                sync_state_python(p, py, st_py, reads, lo, hi, soff, coff,
+                                  lens, rf, mode)
+                walked += lens[hi - 1] < lens[lo:hi].max()
+            _same_state(st_py, st_nat)
+            n_spans += 1
+            offsets_kept += before == (st_nat.seed_start_offset,
+                                       st_nat.cseed_start_offset)
+    if case == "empty":
+        assert not walked
+        _same_state(st_nat, MateState())
+    else:
+        assert walked
+    if case == "replayed_offset":
+        # a replayed last offset read leaves the offsets as they were
+        assert offsets_kept == n_spans

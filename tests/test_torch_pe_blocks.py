@@ -227,6 +227,30 @@ def test_pe_block_path_python_host_fallback(pe_data, block_path_only,
     assert eng.n_replayed + eng.n_mate_filtered > 0
 
 
+def test_pe_block_path_native_sync_matches_python_sync(pe_data,
+                                                       block_path_only,
+                                                       monkeypatch):
+    """The trimmed case's MateState syncs in one native call a span
+    (``NativeHost.sync_span``) and, with that call made to decline, on
+    the Python path over Read objects: byte-identical SAM, each run's
+    syncs all counted on its own side."""
+    from bsmap_tpu_torch.engine.native_host import NativeHost
+    flags, suffix, _ = CASES["trim"]
+    base = ["-a", "a1.fq", "-b", "a2.fq", "-d", "ref.fa", "-s", "12"] + flags
+    se = []
+    for name, patch in (("sync_native", False), ("sync_python", True)):
+        if patch:
+            monkeypatch.setattr(NativeHost, "sync_span",
+                                lambda *_a, **_k: False)
+        st = _port(pe_data, base + ["-o", f"{name}.{suffix}"], monkeypatch)
+        assert st["pe_path"] == "blocks"
+        se.append(st["engine"].se)
+    assert se[0].host_sync_native > 0 and se[0].host_sync_python == 0
+    assert se[1].host_sync_native == 0
+    assert se[1].host_sync_python == se[0].host_sync_native
+    assert_same(pe_data, f"sync_native.{suffix}", f"sync_python.{suffix}")
+
+
 def test_pe_block_path_repeat_corners_bsp_s0(repeat_pe_data, block_path_only,
                                               monkeypatch):
     """The repeat-heavy pairs of test_pe_corners (multi-hit pairs and
